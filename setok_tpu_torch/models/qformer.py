@@ -1,0 +1,108 @@
+"""Query-only Q-Former mapper (BLIP-2 lineage), float path.
+
+The counterpart of `setok_tpu/models/qformer.py`: what the reference's
+stripped BertModel executes for query-only input, per layer
+
+    h = LN(W_o · selfattn(h) + h)                      post-norm, eps 1e-12
+    h = LN(W_o · crossattn(h, enc, enc_mask) + h)      every `freq` layers
+    h = LN(W_2 · gelu(W_1 · h) + h)                    exact-erf GELU
+
+after the input embedding h = LN(query_embeds).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from setok_tpu_torch.ops.blocks import Dense, LayerNorm, masked_softmax
+from setok_tpu_torch.utils.device import resolve_device
+
+BERT_LN_EPS = 1e-12
+
+
+class BertSelfAttentionCore(nn.Module):
+    """BERT attention with separate q/k/v, output dense and post-norm
+    residual. `kv` defaults to `x`; `kv_mask` is (B, M), True = attend."""
+
+    def __init__(self, dim: int, num_heads: int, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        for name in ("query", "key", "value", "out"):
+            self.add_module(name, Dense(dim, dim, dtype=dtype, device=device))
+        self.out_norm = LayerNorm(dim, eps=BERT_LN_EPS, dtype=dtype,
+                                  device=device)
+
+    def forward(self, x, kv=None, kv_mask: Optional[torch.Tensor] = None):
+        kv = x if kv is None else kv
+        c = x.shape[-1]
+        hd = c // self.num_heads
+
+        def heads(t):                                  # (.., n, c) → (.., H, n, hd)
+            return t.reshape(*t.shape[:-1], self.num_heads, hd).transpose(-3, -2)
+
+        q, k, v = heads(self.query(x)), heads(self.key(kv)), heads(self.value(kv))
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        mask = None if kv_mask is None else kv_mask[..., None, None, :]
+        attn = masked_softmax(scores, mask).to(self.dtype)
+        out = torch.matmul(attn, v).transpose(-3, -2)
+        out = self.out(out.reshape(*out.shape[:-2], c))
+        return self.out_norm(out + x)
+
+
+class QFormerLayer(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_hidden: int,
+                 has_cross_attention: bool, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.self_attn = BertSelfAttentionCore(dim, num_heads, dtype=dtype,
+                                               device=device)
+        self.cross_attn = (BertSelfAttentionCore(dim, num_heads, dtype=dtype,
+                                                 device=device)
+                           if has_cross_attention else None)
+        self.ffn_in = Dense(dim, mlp_hidden, dtype=dtype, device=device)
+        self.ffn_out = Dense(mlp_hidden, dim, dtype=dtype, device=device)
+        self.ffn_norm = LayerNorm(dim, eps=BERT_LN_EPS, dtype=dtype,
+                                  device=device)
+
+    def forward(self, h, enc, enc_mask=None):
+        h = self.self_attn(h)
+        if self.cross_attn is not None:
+            h = self.cross_attn(h, kv=enc, kv_mask=enc_mask)
+        y = self.ffn_out(F.gelu(self.ffn_in(h)))       # HF 'gelu' = exact erf
+        return self.ffn_norm(y + h)
+
+
+class QFormer(nn.Module):
+    """Queries cross-attend to the encoder states every
+    `cross_attention_freq` layers. Returns (B, Q, dim)."""
+
+    def __init__(self, dim: int, *, num_layers: int, num_heads: int,
+                 mlp_ratio: float = 4.0, cross_attention_freq: int = 2,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.num_layers = num_layers
+        self.dtype = dtype
+        self.embed_norm = LayerNorm(dim, eps=BERT_LN_EPS, dtype=dtype,
+                                    device=device)
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", QFormerLayer(
+                dim, num_heads, int(dim * mlp_ratio),
+                has_cross_attention=(i % cross_attention_freq == 0),
+                dtype=dtype, device=device))
+
+    @torch.inference_mode()
+    def forward(self, query_embeds, encoder_hidden_states,
+                encoder_attention_mask: Optional[torch.Tensor] = None):
+        h = self.embed_norm(query_embeds.to(self.dtype))
+        for i in range(self.num_layers):
+            h = getattr(self, f"layer_{i}")(h, encoder_hidden_states,
+                                            encoder_attention_mask)
+        return h

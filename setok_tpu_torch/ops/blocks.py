@@ -1,0 +1,157 @@
+"""Transformer building blocks, mask-aware, float paths.
+
+The counterparts of `setok_tpu/ops/blocks.py`, with the same sub-module names
+as the flax tree so that `utils/from_flax.py` is a plain rename:
+
+  * every attention takes an optional boolean mask (True = may attend),
+    applied as `where(mask, s, -1e30)` before an f32 softmax; a fully masked
+    row becomes a uniform average, as in the JAX package;
+  * `Block` builds `depth` attention sub-layers that share ONE `norm1`, as
+    the reference SeTok block does;
+  * parameters are float32; `dtype` is the compute type: each op casts its
+    inputs to it (bf16 is the mixed policy of the JAX package), and the
+    softmax and LayerNorm statistics run in float32.
+
+Attention is written as matmul → softmax → matmul on purpose: PyTorch's
+fused attention is a library kernel, and its fully-masked-row result differs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG_INF = -1e30
+
+
+class Dense(nn.Linear):
+    """`nn.Linear` that computes in `dtype` (float32 parameters)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 *, dtype=torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` with a required eps; statistics in float32, output in
+    `dtype`."""
+
+    def __init__(self, features: int, *, eps: float, dtype=torch.float32,
+                 device=None):
+        super().__init__(features, eps=eps, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+def masked_softmax(scores: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Softmax over the last axis in ≥ float32; masked entries get -1e30."""
+    scores = scores.to(torch.promote_types(scores.dtype, torch.float32))
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    return scores.softmax(dim=-1)
+
+
+class Mlp(nn.Module):
+    """fc1 → GELU → fc2. GELU is the exact erf form unless `gelu_exact` is
+    False (the tanh form of SigLIP)."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: Optional[int] = None, *,
+                 gelu_exact: bool = True, dtype=torch.float32, device=None):
+        super().__init__()
+        self.approximate = "none" if gelu_exact else "tanh"
+        self.fc1 = Dense(in_features, hidden_features, dtype=dtype,
+                         device=device)
+        self.fc2 = Dense(hidden_features, out_features or in_features,
+                         dtype=dtype, device=device)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a fused qkv projection.
+
+    `mask` broadcasts against (B, H, N, N); a (B, N, N) mask gets the head
+    axis added.
+    """
+
+    def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.dtype = dtype
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
+                         device=device)
+        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        *batch, n, c = x.shape
+        qkv = self.qkv(x).reshape(*batch, n, 3, self.num_heads,
+                                  c // self.num_heads)
+        q, k, v = (t.transpose(-3, -2) for t in qkv.unbind(-3))  # (.., H, n, hd)
+        scores = torch.matmul(q, k.transpose(-1, -2)) * self.scale
+        if mask is not None and mask.dim() == scores.dim() - 1:
+            mask = mask.unsqueeze(-3)
+        attn = masked_softmax(scores, mask).to(self.dtype)
+        out = torch.matmul(attn, v).transpose(-3, -2).reshape(*batch, n, c)
+        return self.proj(out)
+
+
+class Block(nn.Module):
+    """SeTok block: `depth` attention sub-layers sharing one pre-norm, then
+    one MLP sub-layer (LayerNorm eps 1e-5, as torch's default in the
+    reference)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_hidden_dim: int, *,
+                 depth: int = 1, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, norm_eps: float,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.depth = depth
+        self.norm1 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
+        for i in range(depth):
+            self.add_module(f"attn_{i}", Attention(
+                dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale,
+                dtype=dtype, device=device))
+        self.norm2 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, mlp_hidden_dim, dtype=dtype, device=device)
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        for i in range(self.depth):
+            x = x + getattr(self, f"attn_{i}")(self.norm1(x), mask=mask)
+        return x + self.mlp(self.norm2(x))
+
+
+class ViTBlock(nn.Module):
+    """Pre-norm timm-style ViT block, used by the pixel decoder."""
+
+    def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, norm_eps: float, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, dtype=dtype,
+                              device=device)
+        self.norm2 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        x = x + self.attn(self.norm1(x), mask=mask)
+        return x + self.mlp(self.norm2(x))

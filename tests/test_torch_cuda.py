@@ -1,0 +1,74 @@
+"""Card-only checks of the port's CUDA kernels, held to their plain
+versions. They skip without a card; on one, run them with
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+(`--noconftest`: the suite's conftest imports JAX, which the card's machine
+does not need). This file imports no JAX.
+
+Bars: density and row max rtol 1e-5 (float32, summation order only);
+scores rtol 1e-4 on the peaks and within 1e-3 on ≥ 90 % of tokens, because a
+parent can flip between same-blob density near-ties.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from setok_tpu_torch import config as cfgs
+from setok_tpu_torch.kernels import cluster_dpc
+from setok_tpu_torch.models.setok import SeTok
+from setok_tpu_torch.utils.init import init_random_
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _blobs(seed, n, c, n_blobs=5):
+    rs = np.random.RandomState(seed)
+    centers = rs.randn(n_blobs, c)
+    labels = rs.randint(0, n_blobs, size=n)
+    return (centers[labels] + rs.randn(n, c) * 0.05).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,n,c,k", [
+    (2, 50, 100, 8),        # ragged row tile, C not a multiple of the chunk
+    (1, 1024, 64, 1024),    # the largest N (shared memory above 48 KB), k=N
+    (3, 256, 768, 64),      # the base configuration
+    (1, 729, 1152, 64),     # so400m's token count
+])
+def test_kernel_matches_reference(card, b, n, c, k):
+    x = torch.from_numpy(np.stack([_blobs(s, n, c) for s in range(b)])).to(card)
+    before = cluster_dpc.LAUNCHES
+    dens, parent, rowmax = cluster_dpc.dpc_density_parent(x, k)
+    torch.cuda.synchronize()
+    assert cluster_dpc.LAUNCHES == before + 3      # sqnorm, density, parent
+    rd, rp, rr = cluster_dpc.dpc_density_parent_reference(x, k)
+    torch.testing.assert_close(dens, rd, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rowmax, rr, rtol=1e-5, atol=0)
+    got, want = (dens * parent).cpu(), (rd * rp).cpu()
+    assert torch.isclose(got, want, rtol=1e-3, atol=1e-3).float().mean() >= 0.9
+    peaks = want > 0.55
+    torch.testing.assert_close(got[peaks], want[peaks], rtol=1e-4, atol=0)
+
+
+def test_tokenizer_routes_to_the_kernel(card):
+    model = init_random_(SeTok(cfgs.tiny_tokenizer(), cfgs.tiny_detokenizer(),
+                               device=card), 0)
+    images = torch.rand(2, 32, 32, 3, device=card) * 2 - 1
+    before = cluster_dpc.LAUNCHES
+    out = model(images)
+    torch.cuda.synchronize()
+    assert cluster_dpc.LAUNCHES == before + 3
+    assert torch.isfinite(out.recon).all()
+    # a token mask takes the plain path, as in the JAX package
+    feats = model.tokenizer.encode_features(images)
+    model.tokenizer.cluster(feats, token_mask=torch.ones(2, 16, device=card))
+    assert cluster_dpc.LAUNCHES == before + 3
