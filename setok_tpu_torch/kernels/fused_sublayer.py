@@ -1,0 +1,346 @@
+"""Fused int8 transformer sublayers: the CUDA kernels and their plain versions.
+
+The counterpart of `setok_tpu/kernels/fused_sublayer.py`:
+
+    attn_sublayer_int8   x + proj(attn(qkv(LN x)))        ViT, Blocks, decoder
+    mlp_sublayer_int8    x + fc2(gelu_tanh(fc1(LN x)))    their MLPs
+    mlp_postnorm_int8    LN(x + fc2(gelu_tanh(fc1 x)))    the Q-Former FFN
+
+Each wrapper launches `csrc/fused_sublayer.cu` for tensors on the card and
+runs its plain PyTorch version (`*_reference`) for tensors on the CPU. Both
+follow the JAX kernels operation by operation:
+
+  * kernel input and output are float32; LayerNorm statistics are f64 sums
+    rounded to f32 (`layernorm`), where the JAX kernels sum in f32;
+  * activations are row-quantised (`quant.quant_rows`), weights per output
+    channel (`quant.quantize_weight`, done by the caller and passed in as a
+    `QuantizedWeight`); int8 products accumulate exactly, and dequantise as
+    acc·x_scale·w_scale + bias;
+  * the GELU is the tanh form (`jax.nn.gelu`'s default), also where the
+    float modules use exact erf;
+  * attention: sm_scale is folded into the q columns of the qkv scales and
+    bias, q/k/v are cast to bf16, scores are bf16 products summed in f32, the
+    mask is a -1e30·(1-m) bias, the softmax max and sum are f32, P is cast to
+    bf16 for PV and 1/l applies after PV; a fully masked row gives 0.
+
+`attn_fits_vmem` and `mlp_fits_vmem` are copies of the JAX package's gates:
+they decide where the JAX modules take these kernels, and so where the
+port's modules do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from setok_tpu_torch.kernels.quant import (QuantizedWeight, int8_dense,
+                                           quant_rows)
+
+NEG_INF = -1e30
+SQRT_2_OVER_PI = 0.7978845608028654
+
+# the JAX gates' budget: ~16 MB of TPU VMEM less Mosaic's own buffers
+_VMEM_BUDGET = 11 * 1024 * 1024
+_SPLIT_GROUP = 4
+
+FUNCTIONS = ("attn_sublayer_int8", "mlp_sublayer_int8", "mlp_postnorm_int8")
+# CUDA kernel launches on the card, and wrapper calls that launched, per
+# function, since import or since reset_counts()
+LAUNCHES = dict.fromkeys(FUNCTIONS, 0)
+CALLS = dict.fromkeys(FUNCTIONS, 0)
+
+
+def reset_counts() -> None:
+    for name in FUNCTIONS:
+        LAUNCHES[name] = CALLS[name] = 0
+
+
+def attn_fits_vmem(n: int, c: int) -> bool:
+    """The JAX attention sublayer's gate (`fused_sublayer.py:45`)."""
+    qkv = n * 3 * c * 4
+    weights = 3 * c * c + c * c + 8 * c * 4
+    scores = _SPLIT_GROUP * n * n * 6
+    x_io = 2 * n * c * 4
+    return qkv + weights + scores + x_io < _VMEM_BUDGET
+
+
+def mlp_fits_vmem(c: int, hidden: int, block_m: int = 256) -> bool:
+    """The JAX MLP sublayer's gate (`fused_sublayer.py:57`)."""
+    weights = c * hidden + hidden * c + 4 * (c + hidden) * 4
+    act = block_m * hidden * 4 + 2 * block_m * c * 4
+    return weights + act < _VMEM_BUDGET
+
+
+# ----------------------------------------------------------------------------
+# plain versions
+
+
+def layernorm(x, g, b, eps: float):
+    """(x - mu)·rsqrt(var + eps)·g + b in float32. mu, var and the rsqrt
+    are taken in float64 and rounded to float32 once: the float32 values an
+    exact sum gives, so that the kernel, which sums in another order,
+    agrees with this to the bit."""
+    mu = x.double().mean(-1, keepdim=True).float()
+    d = x - mu
+    var = (d.double() ** 2).mean(-1, keepdim=True).float()
+    return d * torch.rsqrt((var + eps).double()).float() * g + b
+
+
+def gelu_tanh(x):
+    """`jax.nn.gelu(x, approximate=True)`, in its operation order."""
+    cdf = 0.5 * (1.0 + torch.tanh(SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))))
+    return x * cdf
+
+
+def attention_reference(q16, k16, v16, mask: Optional[torch.Tensor]):
+    """q16: (B, H, N, D), k16/v16: (B, H, M, D) bf16; mask: bool,
+    broadcastable to (B, H, N, M), True = attend, or None. → (B, H, N, D)
+    f32, fully masked rows 0."""
+    s = torch.matmul(q16.float(), k16.float().transpose(-1, -2))
+    if mask is not None:
+        s = s + NEG_INF * (1.0 - mask.float())
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_r = 1.0 / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    l_r = torch.where(m > 0.5 * NEG_INF, l_r, 0.0)
+    return torch.matmul(p.to(torch.bfloat16).float(), v16.float()) * l_r
+
+
+def fold_sm_scale(w_qkv: QuantizedWeight, b_qkv: torch.Tensor, c: int,
+                  scale: float):
+    """qkv scales and bias with the q columns multiplied by sm_scale."""
+    s = w_qkv.scales
+    b = b_qkv.float()
+    return (torch.cat([s[:c] * scale, s[c:]]),
+            torch.cat([b[:c] * scale, b[c:]]))
+
+
+def _sm_scale(c: int, num_heads: int, sm_scale: Optional[float]) -> float:
+    return sm_scale if sm_scale is not None else (c // num_heads) ** -0.5
+
+
+def attn_sublayer_int8_reference(x, ln_g, ln_b, w_qkv: QuantizedWeight,
+                                 b_qkv, w_proj: QuantizedWeight, b_proj,
+                                 num_heads: int,
+                                 mask: Optional[torch.Tensor] = None,
+                                 sm_scale: Optional[float] = None,
+                                 ln_eps: float = 1e-6):
+    """Plain version of `attn_sublayer_int8`."""
+    x = x.float()
+    b, n, c = x.shape
+    hd = c // num_heads
+    s_qkv, b_qkv = fold_sm_scale(w_qkv, b_qkv, c,
+                                 _sm_scale(c, num_heads, sm_scale))
+    y8, ys = quant_rows(layernorm(x, ln_g, ln_b, ln_eps))
+    qkv = int8_dense(y8, ys, w_qkv.values, s_qkv, b_qkv).to(torch.bfloat16)
+    q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    o = attention_reference(q, k, v, None if mask is None else mask[:, None])
+    o8, os_ = quant_rows(o.transpose(1, 2).reshape(b, n, c))
+    return x + int8_dense(o8, os_, w_proj.values, w_proj.scales, b_proj)
+
+
+def _mlp_core(y, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2):
+    y8, ys = quant_rows(y)
+    h = gelu_tanh(int8_dense(y8, ys, w1.values, w1.scales, b1))
+    h8, hs = quant_rows(h)
+    return int8_dense(h8, hs, w2.values, w2.scales, b2)
+
+
+def mlp_sublayer_int8_reference(x, ln_g, ln_b, w1: QuantizedWeight, b1,
+                                w2: QuantizedWeight, b2,
+                                ln_eps: float = 1e-6):
+    """Plain version of `mlp_sublayer_int8`."""
+    x = x.float()
+    return x + _mlp_core(layernorm(x, ln_g, ln_b, ln_eps), w1, b1, w2, b2)
+
+
+def mlp_postnorm_int8_reference(x, w1: QuantizedWeight, b1,
+                                w2: QuantizedWeight, b2, ln_g, ln_b,
+                                ln_eps: float = 1e-12):
+    """Plain version of `mlp_postnorm_int8`."""
+    x = x.float()
+    return layernorm(_mlp_core(x, w1, b1, w2, b2) + x, ln_g, ln_b, ln_eps)
+
+
+# ----------------------------------------------------------------------------
+# wrappers
+
+
+def ptr_or_null(t: Optional[torch.Tensor]):
+    """The tensor's device pointer, or None (a C null) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def check_weight(name: str, w: QuantizedWeight, out: int, inp: int,
+                 device) -> None:
+    if w.values.dtype != torch.int8 or tuple(w.values.shape) != (out, inp):
+        raise ValueError(f"{name}: int8 ({out}, {inp}) weight expected, got "
+                         f"{w.values.dtype} {tuple(w.values.shape)}")
+    if w.scales.dtype != torch.float32 or tuple(w.scales.shape) != (out,):
+        raise ValueError(f"{name}: float32 ({out},) scales expected")
+    for t in w:
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: weight must be contiguous on {device}")
+
+
+def check_vectors(device, **vectors) -> None:
+    for name, (t, n) in vectors.items():
+        if (t.dtype != torch.float32 or tuple(t.shape) != (n,)
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(f"{name}: contiguous float32 ({n},) on {device} "
+                             f"expected, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+
+
+def check_input(name: str, x: torch.Tensor,
+                dims: Optional[int] = None) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 input, got {x.dtype}")
+    if dims is not None and x.dim() != dims:
+        raise ValueError(f"{name} takes a {dims}-d input, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous input")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, got {x.device}")
+
+
+def count(name: str, launched: ctypes.c_int, err: int, launches: dict,
+          calls: dict) -> None:
+    launches[name] += launched.value
+    if launched.value:
+        calls[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def attn_sublayer_int8(x, ln_g, ln_b, w_qkv: QuantizedWeight, b_qkv,
+                       w_proj: QuantizedWeight, b_proj, num_heads: int,
+                       mask: Optional[torch.Tensor] = None,
+                       sm_scale: Optional[float] = None,
+                       ln_eps: float = 1e-6):
+    """x: (B, N, C) f32 → x + Attn(LN(x)). mask: (B, N, N) bool or None.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    check_input("attn_sublayer_int8", x, 3)
+    b, n, c = x.shape
+    if mask is not None and (mask.dtype != torch.bool
+                             or tuple(mask.shape) != (b, n, n)):
+        raise ValueError(f"mask must be bool ({b}, {n}, {n})")
+    if x.device.type == "cpu":
+        return attn_sublayer_int8_reference(x, ln_g, ln_b, w_qkv, b_qkv,
+                                            w_proj, b_proj, num_heads, mask,
+                                            sm_scale, ln_eps)
+    dev = x.device
+    check_weight("w_qkv", w_qkv, 3 * c, c, dev)
+    check_weight("w_proj", w_proj, c, c, dev)
+    check_vectors(dev, ln_g=(ln_g, c), ln_b=(ln_b, c), b_qkv=(b_qkv, 3 * c),
+                  b_proj=(b_proj, c))
+    s_qkv, bq = fold_sm_scale(w_qkv, b_qkv, c,
+                              _sm_scale(c, num_heads, sm_scale))
+    m8 = None
+    if mask is not None:
+        if mask.device != dev:
+            raise ValueError(f"mask must lie on {dev}")
+        m8 = mask.contiguous().view(torch.uint8)
+    out = torch.empty_like(x)
+    x8 = torch.empty((b * n, c), dtype=torch.int8, device=dev)
+    xs = torch.empty((b * n,), dtype=torch.float32, device=dev)
+    qkv = torch.empty((b * n, 3 * c), dtype=torch.bfloat16, device=dev)
+    o = torch.empty((b * n, c), dtype=torch.float32, device=dev)
+    launched = ctypes.c_int(0)
+    err = _entry("attn_sublayer_int8_f32")(
+        x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), ln_eps,
+        w_qkv.values.data_ptr(), s_qkv.data_ptr(), bq.data_ptr(),
+        w_proj.values.data_ptr(), w_proj.scales.data_ptr(), b_proj.data_ptr(),
+        ptr_or_null(m8), out.data_ptr(), x8.data_ptr(), xs.data_ptr(),
+        qkv.data_ptr(), o.data_ptr(), b, n, c, num_heads, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+    count("attn_sublayer_int8", launched, err, LAUNCHES, CALLS)
+    return out
+
+
+def _mlp(name: str, x, ln_g, ln_b, ln_eps, w1: QuantizedWeight, b1,
+         w2: QuantizedWeight, b2, ln2_g, ln2_b, ln2_eps):
+    c = x.shape[-1]
+    hd = w1.values.shape[0]
+    dev = x.device
+    check_weight("w1", w1, hd, c, dev)
+    check_weight("w2", w2, c, hd, dev)
+    vectors = {"b1": (b1, hd), "b2": (b2, c)}
+    for key, t in (("ln_g", ln_g), ("ln_b", ln_b), ("ln2_g", ln2_g),
+                   ("ln2_b", ln2_b)):
+        if t is not None:
+            vectors[key] = (t, c)
+    check_vectors(dev, **vectors)
+    m = x.numel() // c
+    out = torch.empty_like(x)
+    x8 = torch.empty((m, c), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    h = torch.empty((m, hd), dtype=torch.float32, device=dev)
+    h8 = torch.empty((m, hd), dtype=torch.int8, device=dev)
+    hs = torch.empty((m,), dtype=torch.float32, device=dev)
+    z = None if ln2_g is None else torch.empty_like(x)
+    launched = ctypes.c_int(0)
+    err = _entry("mlp_int8_f32")(
+        x.data_ptr(), ptr_or_null(ln_g), ptr_or_null(ln_b), ln_eps,
+        w1.values.data_ptr(), w1.scales.data_ptr(), b1.data_ptr(),
+        w2.values.data_ptr(), w2.scales.data_ptr(), b2.data_ptr(),
+        ptr_or_null(ln2_g), ptr_or_null(ln2_b), ln2_eps, out.data_ptr(),
+        x8.data_ptr(), xs.data_ptr(), h.data_ptr(), h8.data_ptr(),
+        hs.data_ptr(), ptr_or_null(z), m, c, hd, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+    count(name, launched, err, LAUNCHES, CALLS)
+    return out
+
+
+def mlp_sublayer_int8(x, ln_g, ln_b, w1: QuantizedWeight, b1,
+                      w2: QuantizedWeight, b2, ln_eps: float = 1e-6):
+    """x: (..., C) f32 → x + fc2(gelu_tanh(fc1(LN x))), int8.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    check_input("mlp_sublayer_int8", x)
+    if x.device.type == "cpu":
+        return mlp_sublayer_int8_reference(x, ln_g, ln_b, w1, b1, w2, b2,
+                                           ln_eps)
+    return _mlp("mlp_sublayer_int8", x, ln_g, ln_b, ln_eps, w1, b1, w2, b2,
+                None, None, 0.0)
+
+
+def mlp_postnorm_int8(x, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2,
+                      ln_g, ln_b, ln_eps: float = 1e-12):
+    """x: (..., C) f32 → LN(x + fc2(gelu_tanh(fc1 x))), int8.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    check_input("mlp_postnorm_int8", x)
+    if x.device.type == "cpu":
+        return mlp_postnorm_int8_reference(x, w1, b1, w2, b2, ln_g, ln_b,
+                                           ln_eps)
+    return _mlp("mlp_postnorm_int8", x, None, None, 0.0, w1, b1, w2, b2,
+                ln_g, ln_b, ln_eps)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "attn_sublayer_int8_f32": [_P] * 3 + [_F] + [_P] * 12 + [_I] * 5
+    + [_P, ctypes.POINTER(_I)],
+    "mlp_int8_f32": [_P] * 3 + [_F] + [_P] * 8 + [_F] + [_P] * 7 + [_I] * 4
+    + [_P, ctypes.POINTER(_I)],
+}
+
+
+@functools.cache
+def _entry(name: str):
+    """A C entry of csrc/fused_sublayer.cu, built, loaded and bound once."""
+    from setok_tpu_torch.kernels._build import load_library
+
+    fn = getattr(load_library("fused_sublayer"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[name]
+    return fn

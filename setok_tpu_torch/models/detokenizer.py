@@ -4,7 +4,8 @@ The counterpart of `setok_tpu/models/detokenizer.py`: learned mask-token
 queries, the Q-Former mapper cross-attending to the tokens, a linear to the
 decoder width plus a 2-D sin-cos encoding, `decoder_depth` ViT blocks, the
 final LayerNorm (eps 1e-5) and the pixel head with unpatchify. Images are
-NHWC.
+NHWC. `quant8=True` (inference only) passes to the Q-Former and the decoder
+blocks.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
 
 
 class SetokDeTokenizer(nn.Module):
-    def __init__(self, cfg: DetokenizerConfig, *, dtype=torch.float32,
-                 device=None):
+    def __init__(self, cfg: DetokenizerConfig, *, quant8: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -60,7 +61,7 @@ class SetokDeTokenizer(nn.Module):
         self.mapper = QFormer(cfg.hidden_dim, num_layers=cfg.mapper_layers,
                               num_heads=cfg.mapper_heads,
                               cross_attention_freq=cfg.cross_attention_freq,
-                              dtype=dtype, device=device)
+                              quant8=quant8, dtype=dtype, device=device)
         self.decoder_fc_in = Dense(cfg.hidden_dim, cfg.decoder_embed_dim,
                                    dtype=dtype, device=device)
         self.register_buffer("pos", posenc_2d_flat(
@@ -69,8 +70,8 @@ class SetokDeTokenizer(nn.Module):
         for i in range(cfg.decoder_depth):
             self.add_module(f"pixel_decoder_{i}", ViTBlock(
                 cfg.decoder_embed_dim, cfg.decoder_nheads,
-                mlp_ratio=cfg.mlp_ratio, norm_eps=1e-5, dtype=dtype,
-                device=device))
+                mlp_ratio=cfg.mlp_ratio, norm_eps=1e-5, quant8=quant8,
+                dtype=dtype, device=device))
         self.decoder_norm = LayerNorm(cfg.decoder_embed_dim, eps=1e-5,
                                       dtype=dtype, device=device)
         self.pixel_head = Dense(cfg.decoder_embed_dim,

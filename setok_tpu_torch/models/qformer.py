@@ -8,6 +8,12 @@ stripped BertModel executes for query-only input, per layer
     h = LN(W_2 · gelu(W_1 · h) + h)                    exact-erf GELU
 
 after the input embedding h = LN(query_embeds).
+
+`quant8=True` runs each attention sublayer as the fused int8 BERT kernel
+(`kernels/fused_bert_attention_int8.py`) and the FFN as the fused int8
+post-norm MLP (tanh GELU), in float32, where the JAX package's gates pass;
+where they fail the JAX package computes the float sublayer, and so does
+the port.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
+from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.ops.blocks import Dense, LayerNorm, masked_softmax
 from setok_tpu_torch.utils.device import resolve_device
 
@@ -29,10 +37,11 @@ class BertSelfAttentionCore(nn.Module):
     """BERT attention with separate q/k/v, output dense and post-norm
     residual. `kv` defaults to `x`; `kv_mask` is (B, M), True = attend."""
 
-    def __init__(self, dim: int, num_heads: int, *, dtype=torch.float32,
-                 device=None):
+    def __init__(self, dim: int, num_heads: int, *, quant8: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.quant8 = quant8
         self.dtype = dtype
         for name in ("query", "key", "value", "out"):
             self.add_module(name, Dense(dim, dim, dtype=dtype, device=device))
@@ -40,8 +49,19 @@ class BertSelfAttentionCore(nn.Module):
                                   device=device)
 
     def forward(self, x, kv=None, kv_mask: Optional[torch.Tensor] = None):
-        kv = x if kv is None else kv
         c = x.shape[-1]
+        # the JAX gate reads the query length only
+        if (self.quant8 and x.dim() == 3
+                and fs.attn_fits_vmem(x.shape[-2], c)):
+            x = x.float()
+            kv = x if kv is None else kv.float()
+            return fba.fused_bert_attention_int8(
+                x, kv, self.query.int8(), self.query.bias, self.key.int8(),
+                self.key.bias, self.value.int8(), self.value.bias,
+                self.out.int8(), self.out.bias, self.out_norm.weight,
+                self.out_norm.bias, self.num_heads, kv_mask=kv_mask,
+                eps=self.out_norm.eps)
+        kv = x if kv is None else kv
         hd = c // self.num_heads
 
         def heads(t):                                  # (.., n, c) → (.., H, n, hd)
@@ -58,12 +78,14 @@ class BertSelfAttentionCore(nn.Module):
 
 class QFormerLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_hidden: int,
-                 has_cross_attention: bool, *, dtype=torch.float32,
-                 device=None):
+                 has_cross_attention: bool, *, quant8: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
-        self.self_attn = BertSelfAttentionCore(dim, num_heads, dtype=dtype,
-                                               device=device)
-        self.cross_attn = (BertSelfAttentionCore(dim, num_heads, dtype=dtype,
+        self.quant8 = quant8
+        self.self_attn = BertSelfAttentionCore(dim, num_heads, quant8=quant8,
+                                               dtype=dtype, device=device)
+        self.cross_attn = (BertSelfAttentionCore(dim, num_heads,
+                                                 quant8=quant8, dtype=dtype,
                                                  device=device)
                            if has_cross_attention else None)
         self.ffn_in = Dense(dim, mlp_hidden, dtype=dtype, device=device)
@@ -75,6 +97,12 @@ class QFormerLayer(nn.Module):
         h = self.self_attn(h)
         if self.cross_attn is not None:
             h = self.cross_attn(h, kv=enc, kv_mask=enc_mask)
+        if self.quant8 and fs.mlp_fits_vmem(h.shape[-1],
+                                            self.ffn_in.out_features):
+            return fs.mlp_postnorm_int8(
+                h.float(), self.ffn_in.int8(), self.ffn_in.bias,
+                self.ffn_out.int8(), self.ffn_out.bias, self.ffn_norm.weight,
+                self.ffn_norm.bias, ln_eps=self.ffn_norm.eps)
         y = self.ffn_out(F.gelu(self.ffn_in(h)))       # HF 'gelu' = exact erf
         return self.ffn_norm(y + h)
 
@@ -85,7 +113,7 @@ class QFormer(nn.Module):
 
     def __init__(self, dim: int, *, num_layers: int, num_heads: int,
                  mlp_ratio: float = 4.0, cross_attention_freq: int = 2,
-                 dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
         self.num_layers = num_layers
@@ -96,7 +124,7 @@ class QFormer(nn.Module):
             self.add_module(f"layer_{i}", QFormerLayer(
                 dim, num_heads, int(dim * mlp_ratio),
                 has_cross_attention=(i % cross_attention_freq == 0),
-                dtype=dtype, device=device))
+                quant8=quant8, dtype=dtype, device=device))
 
     @torch.inference_mode()
     def forward(self, query_embeds, encoder_hidden_states,

@@ -10,6 +10,9 @@ Clustering routes as the JAX package does: the hand-written kernel
 (kernels/cluster_dpc.py) runs when `use_pallas_cluster` is set, no
 `token_mask` is given, `cluster_dist_norm` is off and the features lie on
 the card; every other case runs ops.clustering.cluster_dpc_knn.
+
+`quant8=True` (inference only) passes to the ViT and the two Blocks, which
+then run the fused int8 sublayer kernels and return float32.
 """
 
 from __future__ import annotations
@@ -38,12 +41,13 @@ class TokenizerOutput(NamedTuple):
 
 
 class SetokTokenizer(nn.Module):
-    def __init__(self, cfg: TokenizerConfig, *, dtype=torch.float32,
-                 device=None):
+    def __init__(self, cfg: TokenizerConfig, *, quant8: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.image_feature_encoder = ViT(cfg.vit, dtype=dtype, device=device)
+        self.image_feature_encoder = ViT(cfg.vit, quant8=quant8, dtype=dtype,
+                                         device=device)
         # an explicit projection when the ViT width differs from hidden_dim
         self.feat_proj = (None if cfg.vit.width == cfg.hidden_dim else
                           Dense(cfg.vit.width, cfg.hidden_dim, dtype=dtype,
@@ -56,7 +60,7 @@ class SetokTokenizer(nn.Module):
                             ("inter_encoder", cfg.intra_cluster_layers)):
             self.add_module(name, Block(
                 cfg.hidden_dim, cfg.nheads, cfg.dim_feedforward, depth=depth,
-                norm_eps=1e-5, dtype=dtype, device=device))
+                norm_eps=1e-5, quant8=quant8, dtype=dtype, device=device))
         self.out = Dense(cfg.hidden_dim, cfg.token_feat_dim, dtype=dtype,
                          device=device)
 

@@ -5,6 +5,10 @@ blocks: LayerNorm eps 1e-6 (flax's default) and the tanh form of GELU
 (SigLIP's gelu_pytorch_tanh). The VALID stride-p patch convolution is written
 as a patchify reshape and a matmul with the HWIO kernel reshaped to
 (p·p·3, C), which is the same product and needs no cuDNN.
+
+`quant8=True` runs each block as the two fused int8 sublayer kernels, as
+the JAX `ViTEncoderBlock` does where its gates pass (LayerNorm eps 1e-6);
+the block output is then float32.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ from torch import nn
 
 from setok_tpu_torch.config import ViTConfig
 from setok_tpu_torch.models.detokenizer import patchify
-from setok_tpu_torch.ops.blocks import Attention, Dense, LayerNorm, Mlp
+from setok_tpu_torch.kernels import fused_sublayer as fs
+from setok_tpu_torch.ops.blocks import (Attention, Dense, LayerNorm, Mlp,
+                                        check_int8_route)
 from setok_tpu_torch.utils.device import resolve_device
 
 VIT_LN_EPS = 1e-6
@@ -26,8 +32,9 @@ class ViTEncoderBlock(nn.Module):
     """Pre-norm ViT encoder block (SigLIP layout)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, *,
-                 dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32, device=None):
         super().__init__()
+        self.quant8 = quant8
         self.norm1 = LayerNorm(dim, eps=VIT_LN_EPS, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias=True, dtype=dtype,
                               device=device)
@@ -36,6 +43,14 @@ class ViTEncoderBlock(nn.Module):
                        dtype=dtype, device=device)
 
     def forward(self, x):
+        if self.quant8:
+            c = x.shape[-1]
+            check_int8_route(
+                x.dim() == 3 and fs.attn_fits_vmem(x.shape[-2], c)
+                and fs.mlp_fits_vmem(c, self.mlp.fc1.out_features),
+                "ViTEncoderBlock")
+            x = self.attn.sublayer_int8(x.float(), self.norm1)
+            return self.mlp.sublayer_int8(x, self.norm2)
         x = x + self.attn(self.norm1(x))
         return x + self.mlp(self.norm2(x))
 
@@ -46,7 +61,8 @@ class ViT(nn.Module):
     Input (B, H, W, 3) NHWC images; output (B, N, width), N = (H/patch)².
     """
 
-    def __init__(self, cfg: ViTConfig, *, dtype=torch.float32, device=None):
+    def __init__(self, cfg: ViTConfig, *, quant8: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         if cfg.merge_layer is not None:
             raise NotImplementedError(
@@ -66,7 +82,8 @@ class ViT(nn.Module):
         nn.init.normal_(self.pos_embed, std=0.02)
         for i in range(cfg.depth):
             self.add_module(f"block_{i}", ViTEncoderBlock(
-                c, cfg.num_heads, cfg.mlp_ratio, dtype=dtype, device=device))
+                c, cfg.num_heads, cfg.mlp_ratio, quant8=quant8, dtype=dtype,
+                device=device))
 
     @torch.inference_mode()
     def forward(self, images: torch.Tensor,

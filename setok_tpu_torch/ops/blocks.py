@@ -1,4 +1,4 @@
-"""Transformer building blocks, mask-aware, float paths.
+"""Transformer building blocks, mask-aware: float paths and the int8 form.
 
 The counterparts of `setok_tpu/ops/blocks.py`, with the same sub-module names
 as the flax tree so that `utils/from_flax.py` is a plain rename:
@@ -14,6 +14,14 @@ as the flax tree so that `utils/from_flax.py` is a plain rename:
 
 Attention is written as matmul → softmax → matmul on purpose: PyTorch's
 fused attention is a library kernel, and its fully-masked-row result differs.
+
+`quant8=True` (inference only) routes `Block` and `ViTBlock` as the JAX
+package does: where its gates (`attn_fits_vmem`, `mlp_fits_vmem`) pass,
+each sublayer is one call of the fused int8 kernels of
+`kernels/fused_sublayer.py`, in float32 whatever `dtype` is, on int8 weights
+that each `Dense` quantises once and caches (`Dense.int8`). Where the gates
+fail, the JAX package falls back to its unfused int8 kernels, which the port
+does not have yet: the block raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -24,7 +32,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from setok_tpu_torch.kernels import fused_sublayer as fs
+from setok_tpu_torch.kernels.quant import QuantizedWeight, quantize_weight
+
 NEG_INF = -1e30
+
+UNFUSED_INT8 = (
+    "quant8 at this size takes the JAX package's unfused int8 kernels "
+    "(fused_mlp_int8, fused_attention_int8, quant_matmul), which are not "
+    "ported yet: ROADMAP.md, Queue B rows 6-8")
+
+
+def check_int8_route(fits: bool, what: str) -> None:
+    """Raise where the JAX package would leave the fused int8 sublayers."""
+    if not fits:
+        raise NotImplementedError(f"{what}: {UNFUSED_INT8}")
 
 
 class Dense(nn.Linear):
@@ -39,6 +61,17 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+    def int8(self) -> QuantizedWeight:
+        """The weight quantised per output channel. Cached until the weight
+        changes (its storage or its version, so `load_state_dict` takes
+        effect) and kept out of the state dict."""
+        key = (self.weight.data_ptr(), self.weight._version)
+        cached = self.__dict__.get("_int8")
+        if cached is None or cached[0] != key:
+            cached = (key, quantize_weight(self.weight.detach()))
+            self.__dict__["_int8"] = cached
+        return cached[1]
 
 
 class LayerNorm(nn.LayerNorm):
@@ -82,6 +115,14 @@ class Mlp(nn.Module):
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
+    def sublayer_int8(self, x, norm: LayerNorm):
+        """x + MLP(norm(x)), the fused int8 kernel (tanh GELU, as the JAX
+        kernel has, whatever `gelu_exact` says)."""
+        return fs.mlp_sublayer_int8(x, norm.weight, norm.bias,
+                                    self.fc1.int8(), self.fc1.bias,
+                                    self.fc2.int8(), self.fc2.bias,
+                                    ln_eps=norm.eps)
+
 
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection.
@@ -95,6 +136,7 @@ class Attention(nn.Module):
                  device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.qkv_bias = qkv_bias
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.dtype = dtype
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
@@ -113,6 +155,14 @@ class Attention(nn.Module):
         out = torch.matmul(attn, v).transpose(-3, -2).reshape(*batch, n, c)
         return self.proj(out)
 
+    def sublayer_int8(self, x, norm: LayerNorm, mask=None):
+        """x + Attn(norm(x)), the fused int8 kernel."""
+        return fs.attn_sublayer_int8(x, norm.weight, norm.bias,
+                                     self.qkv.int8(), self.qkv.bias,
+                                     self.proj.int8(), self.proj.bias,
+                                     self.num_heads, mask=mask,
+                                     sm_scale=self.scale, ln_eps=norm.eps)
+
 
 class Block(nn.Module):
     """SeTok block: `depth` attention sub-layers sharing one pre-norm, then
@@ -122,9 +172,10 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_hidden_dim: int, *,
                  depth: int = 1, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, norm_eps: float,
-                 dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.depth = depth
+        self.quant8 = quant8
         self.norm1 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
         for i in range(depth):
             self.add_module(f"attn_{i}", Attention(
@@ -134,18 +185,33 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, mlp_hidden_dim, dtype=dtype, device=device)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
+        if self.quant8:
+            return self._forward_int8(x, mask)
         for i in range(self.depth):
             x = x + getattr(self, f"attn_{i}")(self.norm1(x), mask=mask)
         return x + self.mlp(self.norm2(x))
+
+    def _forward_int8(self, x, mask):
+        c = x.shape[-1]
+        check_int8_route(
+            self.attn_0.qkv_bias and x.dim() == 3
+            and fs.attn_fits_vmem(x.shape[-2], c)
+            and fs.mlp_fits_vmem(c, self.mlp.fc1.out_features)
+            and (mask is None or mask.dim() == 3), "Block")
+        x = x.float()
+        for i in range(self.depth):
+            x = getattr(self, f"attn_{i}").sublayer_int8(x, self.norm1, mask)
+        return self.mlp.sublayer_int8(x, self.norm2)
 
 
 class ViTBlock(nn.Module):
     """Pre-norm timm-style ViT block, used by the pixel decoder."""
 
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, norm_eps: float, dtype=torch.float32,
-                 device=None):
+                 qkv_bias: bool = True, norm_eps: float, quant8: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
+        self.quant8 = quant8
         self.norm1 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, dtype=dtype,
                               device=device)
@@ -153,5 +219,14 @@ class ViTBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
+        if self.quant8:
+            c = x.shape[-1]
+            check_int8_route(
+                self.attn.qkv_bias and x.dim() == 3
+                and fs.attn_fits_vmem(x.shape[-2], c)
+                and fs.mlp_fits_vmem(c, self.mlp.fc1.out_features)
+                and (mask is None or mask.dim() == 3), "ViTBlock")
+            x = self.attn.sublayer_int8(x.float(), self.norm1, mask)
+            return self.mlp.sublayer_int8(x, self.norm2)
         x = x + self.attn(self.norm1(x), mask=mask)
         return x + self.mlp(self.norm2(x))

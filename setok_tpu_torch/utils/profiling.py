@@ -14,6 +14,9 @@ import torch
 # first match wins; names are CUDA kernel names as the profiler reports them
 CATEGORIES = (
     ("cluster_dpc", ("density_kernel", "parent_kernel", "sqnorm_kernel")),
+    ("int8_gemm", ("gemm_s8_kernel",)),
+    ("int8_attention", ("attn_kernel",)),
+    ("int8_rows", ("rows_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("softmax", ("softmax",)),
     ("layer_norm", ("layer_norm",)),
