@@ -22,7 +22,24 @@ the last line:
                 per forward of each int8 kernel;
   throughput    the full forward in images/s at B=64: float32, bf16, and
                 int8 with bf16 glue (the form bench.py times on the TPU),
-                and one profiled forward each (device time by kernel kind).
+                and one profiled forward each (device time by kernel kind);
+  serve_kernels quant_matmul (w8) and quant4_matmul (w4, per channel and
+                group 128) at the seven Vicuna-7B trunk linears, decode
+                M=4 and prefill M=512 rows, and the int8-cache decode
+                attention at B=4, S=512 with holes in the key mask, each
+                against its plain version, with its time, bound and the
+                nearest library call's time (torch._int_mm, SDPA);
+  serve         base_setokim() at full width (32 trunk layers, hidden 4096,
+                ViT-B/16 SeTok), random weights from the seed, bits 8 then
+                bits 4 (group 128, clip search 8), int8 KV cache with the
+                cache kernel: ServeEngine(max_batch=4, prompt_len=128,
+                max_len=512) answers 8 requests (4 with an image) of 32
+                greedy tokens; tokens/s, TTFT, decode ms per step beside
+                the weight-streaming bound, a profiled decode step, and the
+                launches of each kernel per decode step and per admission;
+  serve_parity  the same with the trunk cut to 2 layers, through the
+                kernels and through the plain versions on the card: logits
+                at every step and greedy tokens.
 
 Then the kernels summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no JAX: it imports setok_tpu_torch only.
@@ -35,19 +52,33 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
+from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from setok_tpu_torch import config as cfgs
+from setok_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from setok_tpu_torch.kernels import _build, cluster_dpc
+from setok_tpu_torch.kernels import cache_attention as ca
 from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
 from setok_tpu_torch.kernels import fused_sublayer as fs
-from setok_tpu_torch.kernels.quant import quantize_weight
+from setok_tpu_torch.kernels import quant_matmul as qm
+from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
+                                           quant_matmul_plain, quant_rows,
+                                           quantize_weight,
+                                           quantize_weight_int4,
+                                           unpack_nibbles)
+from setok_tpu_torch.models.llama import TRUNK_LINEARS, valid_quant_group
 from setok_tpu_torch.models.setok import SeTok, expected_calls
+from setok_tpu_torch.models.setokim import Setokim
+from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
 from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
-from setok_tpu_torch.utils.init import init_random_
+from setok_tpu_torch.serve import ServeEngine
+from setok_tpu_torch.utils.init import init_random_, init_setokim_random_
 from setok_tpu_torch.utils.profiling import device_time_breakdown
 
 SEED = 0
@@ -445,6 +476,8 @@ def reset_counts() -> None:
     cluster_dpc.LAUNCHES = 0
     fs.reset_counts()
     fba.reset_counts()
+    qm.reset_counts()
+    ca.reset_counts()
 
 
 def int8_counts() -> tuple:
@@ -586,6 +619,459 @@ def phase_throughput(gpu_model: SeTok) -> None:
               **device_time_breakdown(lambda: model(images))})
 
 
+# ----------------------------------------------------------------------------
+# serving: Setokim over the Vicuna-7B trunk
+
+SERVE_BATCH, PROMPT_LEN, MAX_LEN, NEW_TOKENS = 4, 128, 512, 32
+QUANT_TOL = 1e-5            # exact int products, the same float epilogue
+CACHE_ATTN_TOL = 2e-3       # sums in another order (as the attentions)
+SERVE_PARITY_TOL = 2e-3     # prefill logits, kernels vs plain versions
+SERVE_TIE_REL = 1e-3
+PARITY_STEPS = 16
+
+
+def trunk_shapes(cfg) -> dict:
+    """(in, out) of each trunk linear of a LLaMA layer."""
+    h, a = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+    kv, i = cfg.num_kv_heads * cfg.head_dim, cfg.intermediate_size
+    return {"q_proj": (h, a), "k_proj": (h, kv), "v_proj": (h, kv),
+            "o_proj": (a, h), "gate_proj": (h, i), "up_proj": (h, i),
+            "down_proj": (i, h)}
+
+
+def quant_bound(m: int, k: int, n: int, bits: int, n_scales: int) -> tuple:
+    """(seconds at the memory rate, seconds at the int8 rate) of one call:
+    x f32 in, the weight and its scales, the f32 output; 2·M·N·K int8
+    operations."""
+    nbytes = 4.0 * m * k + n * k * bits / 8 + 4.0 * n * n_scales \
+        + 4.0 * m * n
+    return nbytes / PEAK_BYTES, 2.0 * m * n * k / PEAK_INT8_OPS
+
+
+def library_int_mm(x: torch.Tensor, w8: torch.Tensor):
+    """torch._int_mm on the call's int8 operands (rows padded to 32: it
+    takes more than 16)."""
+    x8, _ = quant_rows(x)
+    if x8.shape[0] <= 16:
+        x8 = torch.cat([x8, x8.new_zeros(32 - x8.shape[0], x8.shape[1])])
+    wt = w8.t()
+    return lambda: torch._int_mm(x8, wt)
+
+
+def kernel_device_ms(fn, reps: int = 10) -> float:
+    """Device time of one fn() from the profiler: the kernels' sum."""
+    return device_time_breakdown(lambda: [fn() for _ in range(reps)]
+                                 )["device_ms"] / reps
+
+
+def check_close(name: str, label: str, got, want, tol: float,
+                share: float = 0.0) -> dict:
+    diff = (got.double() - want.double()).abs()
+    scale = float(want.double().abs().max())
+    case = {"phase": "serve_kernels", "kernel": name, "shape": label,
+            "max_rel": float(diff.max()) / scale,
+            "max_abs": float(diff.max()),
+            "share_within_1e-5": float((diff <= 1e-5 * scale)
+                                       .double().mean()),
+            "finite": bool(torch.isfinite(got).all())}
+    check(case["finite"], f"{name} {label}: output not finite")
+    check(case["max_rel"] <= tol and case["share_within_1e-5"] >= share,
+          f"{name} {label}: max-rel {case['max_rel']}, share "
+          f"{case['share_within_1e-5']}")
+    return case
+
+
+def phase_serve_kernels() -> dict:
+    """Each serving kernel against its plain version at the path's shapes;
+    per format and M, the time of one layer's seven calls (ms, plain_ms,
+    library_ms, bound_ms). Returns the kernels-line entries: decode
+    (M = 4) of one layer, the path's w8 and w4-group-128 formats."""
+    cfg = cfgs.vicuna_7b()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    group = valid_quant_group(cfg, 128)
+    formats = ("w8", "w4", f"w4g{group}")
+    totals = {}
+    errs = {"quant_matmul": 0.0, "quant4_matmul": 0.0}
+    for lin, (k, n) in trunk_shapes(cfg).items():
+        w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
+        weights = {"w8": quantize_weight(w),
+                   "w4": quantize_weight_int4(w, None, 8),
+                   formats[2]: quantize_weight_int4(w, group, 8)}
+        unpacked = torch.cat(unpack_nibbles(weights["w4"].packed), dim=1)
+        del w
+        for m in (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN):
+            x = torch.randn(m, k, generator=gen, device=dev)
+            for fmt, wq in weights.items():
+                name = "quant_matmul" if fmt == "w8" else "quant4_matmul"
+                kernel = qm.quant_matmul if fmt == "w8" else qm.quant4_matmul
+                plain = (quant_matmul_plain if fmt == "w8"
+                         else quant4_matmul_plain)
+                got = kernel(x, wq)
+                torch.cuda.synchronize()
+                case = check_close(name, f"{lin} {fmt} M={m}", got,
+                                   plain(x, wq), QUANT_TOL)
+                errs[name] = max(errs[name], case["max_abs"])
+                lib = library_int_mm(x, wq.values if fmt == "w8"
+                                     else unpacked)
+                bits = 8 if fmt == "w8" else 4
+                t_bytes, t_ops = quant_bound(m, k, n, bits,
+                                             wq.scales.numel() // n)
+                case.update(
+                    ms=time_ms(lambda: kernel(x, wq)),
+                    device_ms=kernel_device_ms(lambda: kernel(x, wq)),
+                    plain_ms=time_ms(lambda: plain(x, wq), reps=5,
+                                     warmup=1),
+                    library_ms=time_ms(lib), bound_ms=1e3 * max(t_bytes,
+                                                                t_ops))
+                emit(case)
+                tot = totals.setdefault((fmt, m), {
+                    "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                    "library_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0})
+                for key in ("ms", "device_ms", "plain_ms", "library_ms"):
+                    tot[key] += case[key]
+                tot["t_bytes"] += t_bytes
+                tot["t_ops"] += t_ops
+    for (fmt, m), tot in totals.items():
+        emit({"phase": "serve_kernels", "format": fmt, "M": m,
+              "one_layer_seven_linears": tot,
+              "bound_ms": 1e3 * max(tot["t_bytes"], tot["t_ops"])})
+
+    entries = {}
+    for name, fmt, replaces in (
+            ("quant_matmul", "w8", "setok_tpu/kernels/quant_matmul.py:54"),
+            ("quant4_matmul", formats[2],
+             "setok_tpu/kernels/quant_matmul.py:226")):
+        tot = totals[(fmt, SERVE_BATCH)]
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": "setok_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": errs[name], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"],
+            "bound_ms": 1e3 * max(tot["t_bytes"], tot["t_ops"]),
+            "bound_by": "bytes" if tot["t_bytes"] >= tot["t_ops"]
+            else "operations",
+            "library_ms": tot["library_ms"], "device_ms": tot["device_ms"],
+            "timing": f"the seven trunk linears of one layer, {fmt}, "
+                      f"M={SERVE_BATCH} (decode)"}
+    entries["int8_cache_decode_attention"] = cache_attention_case(cfg, gen)
+    return entries
+
+
+def cache_attention_case(cfg, gen) -> dict:
+    """The cache kernel at B=4, S=max_len, every head of the trunk, a key
+    mask with holes (and a fully masked row), against its plain version;
+    its time, bound and SDPA's on the dequantised K/V."""
+    dev = torch.device("cuda")
+    b, s = SERVE_BATCH, MAX_LEN
+    kvh, h, d = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
+    q = torch.randn(b, h, d, generator=gen, device=dev)
+
+    def int8(shape):
+        f = torch.randn(shape, generator=gen, device=dev)
+        sc = f.abs().amax(-1) / torch.full_like(f[..., 0], 127.0)
+        return torch.round(f / sc[..., None]).clamp(-127, 127).to(
+            torch.int8), sc
+
+    k8, ks = int8((b, s, kvh, d))
+    v8, vs = int8((b, s, kvh, d))
+    valid = torch.rand(b, s, generator=gen, device=dev) > 0.3
+    valid[-1] = False
+    sm = d ** -0.5
+    args = (q, k8, ks, v8, vs, valid)
+    got = ca.int8_cache_decode_attention(*args, sm)
+    torch.cuda.synchronize()
+    case = check_close("int8_cache_decode_attention",
+                       f"B={b} S={s} KVH={kvh} G={h // kvh} D={d}", got,
+                       ca.int8_cache_decode_attention_plain(*args, sm),
+                       CACHE_ATTN_TOL, INT8_ATTN_SHARE)
+    kd = (k8.float() * ks[..., None]).permute(0, 2, 1, 3)
+    vd = (v8.float() * vs[..., None]).permute(0, 2, 1, 3)
+    mask = valid[:, None, None, :]
+    nbytes = 8.0 * b * h * d + 2.0 * b * s * kvh * d + 8.0 * b * s * kvh \
+        + b * s
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 4.0 * b * h * s * d / PEAK_F32_FLOPS
+    case.update(
+        ms=time_ms(lambda: ca.int8_cache_decode_attention(*args, sm)),
+        device_ms=kernel_device_ms(
+            lambda: ca.int8_cache_decode_attention(*args, sm)),
+        plain_ms=time_ms(lambda: ca.int8_cache_decode_attention_plain(
+            *args, sm), reps=5, warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=mask)),
+        bound_ms=1e3 * max(t_bytes, t_ops))
+    emit(case)
+    return {"name": "int8_cache_decode_attention", "route": "cuda",
+            "source": "setok_tpu_torch/csrc/cache_attention.cu",
+            "replaces": "setok_tpu/kernels/cache_attention.py:75",
+            "launches": None, "max_abs_err": case["max_abs"],
+            "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": case["library_ms"],
+            "device_ms": case["device_ms"],
+            "timing": f"one layer's decode step, B={b}, S={s}"}
+
+
+def serve_counts() -> dict:
+    return {"quant_matmul": dict(qm.CALLS), "quant_matmul_launches":
+            dict(qm.LAUNCHES), "cache_attention": ca.LAUNCHES,
+            "cluster": cluster_dpc.LAUNCHES}
+
+
+def build_setokim(cfg, bits: int) -> Setokim:
+    """Setokim on the card, random weights from the seed, the trunk
+    quantised as scripts/serve.py does it (int4: group 128 where the widths
+    allow, clip search 8), with the int8-cache decode kernel."""
+    group = valid_quant_group(cfg.llama, 128) if bits == 4 else 0
+    model = Setokim(cfg, target_token_id=3, weight_bits=bits,
+                    quant_group=group, cache_kernel=True)
+    return init_setokim_random_(model, SEED,
+                                clip_search=8 if bits == 4 else 0)
+
+
+def serve_requests(cfg, seed: int, n_image: int = 4, n_text: int = 4):
+    """(prompt ids, image or None): image requests first (BOS, k_max image
+    slots, text), then text-only ones."""
+    rs = np.random.RandomState(seed)
+    size, k_max = cfg.tokenizer.vit.image_size, cfg.tokenizer.k_max
+    vocab = cfg.llama.vocab_size
+    out = []
+    for i in range(n_image + n_text):
+        if i < n_image:
+            text = rs.randint(10, vocab, rs.randint(8, PROMPT_LEN - k_max))
+            ids = np.concatenate([[1], np.full(k_max, IMAGE_TOKEN_INDEX),
+                                  text])
+            image = rs.uniform(-1, 1, (size, size, 3)).astype(np.float32)
+        else:
+            ids = np.concatenate([[1], rs.randint(10, vocab,
+                                                  rs.randint(16, PROMPT_LEN))])
+            image = None
+        out.append((ids.astype(np.int64), image))
+    return out
+
+
+def trunk_bytes(model: Setokim) -> int:
+    return sum(t.numel() * t.element_size() for mod in model.modules()
+               if isinstance(mod, (QuantDense, Quant4Dense))
+               for t in mod.buffers())
+
+
+def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None):
+    """The requests through a ServeEngine; per step its wall time, its
+    prefill calls and the launch counts it added."""
+    eng = ServeEngine(model, max_batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+                      max_len=MAX_LEN, eos_id=-1, pad_id=0,
+                      cache_dtype=torch.int8)
+    prefills = {"image": 0, "text": 0}
+
+    def counted(kind, fn):
+        def call(*args):
+            prefills[kind] += 1
+            return fn(*args)
+        return call
+
+    eng._prefill_impl = counted("image", eng._prefill_impl)
+    eng._prefill_text_impl = counted("text", eng._prefill_text_impl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(ids, image=img, max_new_tokens=new_tokens)
+               for ids, img in reqs]
+    steps, profile = [], None
+    while True:
+        before = (serve_counts(), sum(prefills.values()))
+        t = time.perf_counter()
+        if profile_step is not None and len(steps) == profile_step:
+            profile = device_time_breakdown(eng.step)
+            active = int(eng._active.sum())
+        else:
+            active = eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = serve_counts()
+        steps.append({
+            "s": dt, "prefills": sum(prefills.values()) - before[1],
+            "decode": after["cache_attention"]
+            > before[0]["cache_attention"],
+            "quant_calls": sum(after["quant_matmul"].values())
+            - sum(before[0]["quant_matmul"].values()),
+            "cache_launches": after["cache_attention"]
+            - before[0]["cache_attention"]})
+        if active == 0 and eng._queue.empty():
+            break
+    wall = time.perf_counter() - t0
+    check(all(r.done for r in handles), "a request did not finish")
+    return eng, handles, steps, prefills, wall, profile
+
+
+def phase_serve(cfg, bits: int) -> dict:
+    """The serving path at full width at `bits`, its counts from one run."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_setokim(cfg, bits)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reqs = serve_requests(cfg, SEED + bits)
+    run_engine(model, reqs[3:5], 4)                     # warm-up
+    layers = cfg.llama.num_layers
+    per_call = len(TRUNK_LINEARS) * layers
+
+    reset_counts()
+    eng, handles, steps, prefills, wall, _ = run_engine(model, reqs,
+                                                        NEW_TOKENS)
+    torch.cuda.synchronize()
+    counts = serve_counts()
+    # a decode step under the profiler, in a run of its own: the profiler's
+    # start costs a second, which the measured run must not carry
+    profile = run_engine(model, reqs[:SERVE_BATCH], 8, profile_step=3)[-1]
+    decode = [st for st in steps if st["decode"]]
+    pure = [st for st in decode if not st["prefills"]]
+    n_prefill = prefills["image"] + prefills["text"]
+    name = "quant_matmul" if bits == 8 else "quant4_matmul"
+    calls = counts["quant_matmul"][name]
+    ntok = sum(len(r.tokens) for r in handles)
+    trunk = trunk_bytes(model)
+    lm_head = model.llama.lm_head.weight.numel() * 4
+    cache_read = (2 * layers * SERVE_BATCH * MAX_LEN * cfg.llama.num_kv_heads
+                  * (cfg.llama.head_dim + 4))
+    decode_ms = [1e3 * st["s"] for st in pure]
+    res = {"phase": "serve", "bits": bits, "config": "base_setokim",
+           "trunk_layers": layers, "hidden": cfg.llama.hidden_size,
+           "kv_cache": "int8", "cache_kernel": True,
+           "requests": len(handles), "tokens": ntok,
+           "new_tokens_each": NEW_TOKENS, "build_s": build_s,
+           "wall_s": wall, "tokens_per_s": ntok / wall,
+           "ttft_mean_ms": 1e3 * statistics.mean(r.ttft for r in handles),
+           "ttft_ms": [1e3 * r.ttft for r in handles],
+           "step_ms": [1e3 * st["s"] for st in steps],
+           "latency_mean_ms": 1e3 * statistics.mean(r.latency
+                                                    for r in handles),
+           "decode_steps": len(decode), "pure_decode_steps": len(pure),
+           "decode_ms_per_step_median": statistics.median(decode_ms),
+           "decode_ms_per_step_min": min(decode_ms),
+           "trunk_gb": trunk / 1e9,
+           "weight_stream_bound_ms": 1e3 * trunk / PEAK_BYTES,
+           "step_bound_ms": 1e3 * (trunk + lm_head + cache_read)
+           / PEAK_BYTES,
+           "prefill_calls": prefills,
+           "launches_per_decode_step": {
+               name: sorted({st["quant_calls"] for st in pure}),
+               "int8_cache_decode_attention": sorted(
+                   {st["cache_launches"] for st in pure})},
+           "cluster_launches_per_image_admission":
+               counts["cluster"] / max(prefills["image"], 1),
+           "counts": counts,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profiled_decode_step": profile, "stats": eng.stats()}
+    emit(res)
+    check(ntok == len(handles) * NEW_TOKENS, "a request stopped early")
+    check(bool(pure) and all(st["quant_calls"] == per_call
+                             and st["cache_launches"] == layers
+                             for st in pure),
+          f"a decode step did not make {per_call} {name} and {layers} "
+          "cache-attention launches")
+    check(calls == per_call * (len(decode) + n_prefill),
+          f"{name}: {calls} calls, expected {per_call} per decode step and "
+          "per prefill")
+    check(counts["cache_attention"] == layers * len(decode),
+          "cache-attention launches are not one per layer and decode step")
+    check(prefills["image"] >= 1
+          and counts["cluster"] == 3 * prefills["image"],
+          "the clustering kernel did not launch 3 times per image admission")
+    check(not counts["quant_matmul"]["quant_matmul" if bits == 4
+                                     else "quant4_matmul"],
+          "the other weight format's kernel launched")
+    del model, eng
+    torch.cuda.empty_cache()
+    return {"calls": calls, "launches": counts["quant_matmul_launches"][name],
+            "cache_launches": counts["cache_attention"],
+            "decode_steps": len(decode)}
+
+
+@contextmanager
+def plain_route():
+    """The trunk's kernels replaced by their plain versions."""
+    with mock.patch.object(qm, "quant_matmul", quant_matmul_plain), \
+            mock.patch.object(qm, "quant4_matmul", quant4_matmul_plain), \
+            mock.patch.object(ca, "int8_cache_decode_attention",
+                              ca.int8_cache_decode_attention_plain):
+        yield
+
+
+def greedy_run(model: Setokim, ids, images):
+    """Prefill (images, or text when None) and PARITY_STEPS greedy decode
+    steps: the logits of every step and the (steps + 1, B) tokens."""
+    if images is None:
+        logits, _, cache, valid, _ = model.prefill_text(
+            ids, MAX_LEN, cache_dtype=torch.int8)
+    else:
+        logits, _, cache, valid, _ = model.prefill(
+            ids, images, MAX_LEN, cache_dtype=torch.int8)
+    outs, toks = [logits], [logits.argmax(-1)]
+    pos = valid.to(torch.int32).sum(dim=1)
+    for _ in range(PARITY_STEPS):
+        logits, _, cache, valid = model.decode_step(toks[-1][:, None], cache,
+                                                    valid, pos)
+        outs.append(logits)
+        toks.append(logits.argmax(-1))
+        pos = pos + 1
+    return outs, torch.stack(toks).cpu()
+
+
+def phase_serve_parity(cfg, bits: int) -> None:
+    """The trunk cut to 2 layers at full width, greedy, through the kernels
+    and through their plain versions on the card: the prefill logits
+    within SERVE_PARITY_TOL, and the same tokens; where a row's tokens
+    first differ, the plain logits' top-2 gap there must be a near-tie
+    (< SERVE_TIE_REL of max|logits|), and it is printed."""
+    small = cfgs.replace(cfg, llama=cfgs.replace(cfg.llama, num_layers=2))
+    model = build_setokim(small, bits)
+    reqs = serve_requests(small, SEED + 7 * bits)
+    dev = torch.device("cuda")
+    for kind, batch in (("image", reqs[:4]), ("text", reqs[4:])):
+        ids = np.zeros((len(batch), PROMPT_LEN), np.int64)
+        for i, (p, _) in enumerate(batch):
+            ids[i, :len(p)] = p
+        ids = torch.from_numpy(ids).to(dev)
+        images = (None if kind == "text" else torch.from_numpy(
+            np.stack([im for _, im in batch])).to(dev))
+        reset_counts()
+        with plain_route():
+            want, want_toks = greedy_run(model, ids, images)
+        check(not sum(qm.CALLS.values()) and not ca.LAUNCHES,
+              "the plain route launched a kernel")
+        got, got_toks = greedy_run(model, ids, images)
+        check(sum(qm.CALLS.values()) > 0 and ca.LAUNCHES > 0,
+              "the kernel route launched no kernel")
+        # per row, the logits of the steps whose inputs were the same
+        rels, ties = [], []
+        for row in range(ids.shape[0]):
+            differ = (got_toks[:, row] != want_toks[:, row]).nonzero()
+            last = int(differ[0]) if len(differ) else PARITY_STEPS
+            rels.append(max(max_rel(got[j][row], want[j][row])
+                            for j in range(last + 1)))
+            if len(differ):
+                w = want[last][row].double()
+                top = torch.topk(w, 2).values
+                ties.append({"row": row, "step": last, "top2_gap_rel": float(
+                    (top[0] - top[1]) / w.abs().max())})
+        prefill_rel = max_rel(got[0], want[0])
+        emit({"phase": "serve_parity", "bits": bits, "kind": kind,
+              "trunk_layers": 2, "steps": PARITY_STEPS,
+              "prefill_logits_max_rel": prefill_rel,
+              "logits_max_rel_while_same_tokens": max(rels),
+              "tokens_identical": not ties, "first_divergences": ties})
+        check(prefill_rel <= SERVE_PARITY_TOL,
+              f"serve_parity bits {bits} {kind}: prefill logits max-rel "
+              f"{prefill_rel} > {SERVE_PARITY_TOL}")
+        check(all(t["top2_gap_rel"] < SERVE_TIE_REL for t in ties),
+              f"serve_parity bits {bits} {kind}: greedy tokens differ "
+              f"beyond a near-tie: {ties}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -618,8 +1104,24 @@ def main() -> int:
         e["launches"] = counts["launches"][name]
         e["calls"] = counts["calls"][name]
     phase_throughput(gpu_model)
+    del gpu_model
+    torch.cuda.empty_cache()
 
-    emit({"kernels": [entry, *int8_entries.values()]})
+    serve_entries = phase_serve_kernels()
+    setokim = cfgs.base_setokim()
+    for bits, name in ((8, "quant_matmul"), (4, "quant4_matmul")):
+        counts = phase_serve(setokim, bits)
+        serve_entries[name]["launches"] = counts["launches"]
+        serve_entries[name]["calls"] = counts["calls"]
+        if bits == 8:
+            cache_entry = serve_entries["int8_cache_decode_attention"]
+            cache_entry["launches"] = cache_entry["calls"] = \
+                counts["cache_launches"]
+    for bits in (8, 4):
+        phase_serve_parity(setokim, bits)
+
+    emit({"kernels": [entry, *int8_entries.values(),
+                      *serve_entries.values()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

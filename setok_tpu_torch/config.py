@@ -1,9 +1,9 @@
-"""Frozen configuration for the PyTorch SeTok port.
+"""Frozen configuration for the PyTorch SeTok / Setokim port.
 
-A copy of the tokenizer/detokenizer part of `setok_tpu.config`, with the
-same field names and the same validation, so that one configuration reads
-the same in both packages. The port keeps its own copy because it imports
-nothing of the JAX package.
+A copy of the tokenizer/detokenizer and Setokim parts of `setok_tpu.config`,
+with the same field names and the same validation, so that one configuration
+reads the same in both packages. The port keeps its own copy because it
+imports nothing of the JAX package.
 
 `k_max` is the static upper bound on the number of clusters: clustering
 emits a fixed-size (k_max, D) token tensor plus a validity mask instead of a
@@ -140,6 +140,65 @@ class DetokenizerConfig:
         return self.grid * self.grid
 
 
+@dataclass(frozen=True)
+class DiffLossConfig:
+    """MAR diffusion head. The port does not run it yet (ROADMAP.md, Queue
+    A): `SetokimConfig` carries it so that a configuration reads the same in
+    both packages."""
+
+    target_channels: int = 768
+    z_channels: int = 768
+    width: int = 1024
+    depth: int = 3
+    num_sampling_steps: str = "100"
+    diffusion_batch_mul: int = 4
+    mask_ratio_min: float = 0.7
+    grad_checkpointing: bool = False
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    """LLaMA trunk for Setokim. The defaults are Vicuna-7B's widths."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int = 128
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+
+@dataclass(frozen=True)
+class SetokimConfig:
+    """The MLLM: LLaMA trunk, SeTok tokenizer/detokenizer, projectors and
+    the diffusion head's configuration."""
+
+    llama: LlamaConfig = field(default_factory=LlamaConfig)
+    tokenizer: TokenizerConfig = field(default_factory=TokenizerConfig)
+    detokenizer: DetokenizerConfig = field(default_factory=DetokenizerConfig)
+    diffloss: DiffLossConfig = field(default_factory=DiffLossConfig)
+    mm_in_projector_type: str = "mlp2x_gelu"
+    mm_out_projector_type: str = "mlp2x_gelu"
+    mm_use_im_start_end: bool = True
+    # <target> slots a generation span expands to; must equal k_max (one
+    # slot per static token). None derives it.
+    target_num: Optional[int] = None
+
+    def __post_init__(self):
+        if self.target_num is None:
+            object.__setattr__(self, "target_num", self.tokenizer.k_max)
+        elif self.target_num != self.tokenizer.k_max:
+            raise ValueError(
+                f"target_num ({self.target_num}) must equal tokenizer.k_max "
+                f"({self.tokenizer.k_max}): a generation span expands to one "
+                "<target> slot per static token.")
+
+
 # ----------------------------------------------------------------------------
 # Presets (the same values as setok_tpu.config)
 
@@ -190,6 +249,37 @@ def so400m_detokenizer() -> DetokenizerConfig:
                              decoder_embed_dim=4096, decoder_nheads=16,
                              decoder_depth=16, mapper_layers=6,
                              mapper_heads=12, cross_attention_freq=2)
+
+
+def tiny_llama() -> LlamaConfig:
+    return LlamaConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
+                       num_layers=2, num_heads=4, num_kv_heads=4, head_dim=16,
+                       max_seq_len=256)
+
+
+def vicuna_7b() -> LlamaConfig:
+    return LlamaConfig()
+
+
+def tiny_setokim() -> SetokimConfig:
+    tok = tiny_tokenizer()
+    det = tiny_detokenizer()
+    diff = DiffLossConfig(target_channels=tok.token_feat_dim,
+                          z_channels=det.token_feat_dim, width=32, depth=1,
+                          num_sampling_steps="4", diffusion_batch_mul=2)
+    return SetokimConfig(llama=tiny_llama(), tokenizer=tok, detokenizer=det,
+                         diffloss=diff, target_num=tok.k_max)
+
+
+def base_setokim() -> SetokimConfig:
+    """Vicuna-7B trunk + the ViT-B/16 @256 SeTok, the flagship."""
+    tok = base_tokenizer()
+    det = base_detokenizer()
+    diff = DiffLossConfig(target_channels=tok.token_feat_dim,
+                          z_channels=det.token_feat_dim, width=1024, depth=3,
+                          num_sampling_steps="100")
+    return SetokimConfig(llama=vicuna_7b(), tokenizer=tok, detokenizer=det,
+                         diffloss=diff, target_num=tok.k_max)
 
 
 def replace(cfg, **kw):

@@ -1,0 +1,125 @@
+"""w8a8 and w4a8 products of the serving trunk: the CUDA kernels' wrappers.
+
+The counterparts of `setok_tpu/kernels/quant_matmul.py::quant_matmul` (int8
+weights, per-output-channel scales) and `quant4_matmul` (half-packed int4
+nibbles, per-channel or per-group scales). Activations are quantised per
+row inside the call (dynamic scale, no calibration), the int products are
+exact, and the scales apply in the JAX kernel's order (kernels/quant.py,
+whose `quant_matmul_plain` / `quant4_matmul_plain` are the plain versions).
+
+A CPU tensor runs the plain version; a CUDA tensor launches
+`csrc/quant_matmul.cu` (a row-quantisation pass, then a weight-streaming
+GEMV for M <= 8 rows or a tiled mma.sync GEMM above) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from setok_tpu_torch.kernels.quant import (Quant4Weight, QuantizedWeight,
+                                           quant4_matmul_plain,
+                                           quant_matmul_plain)
+
+FUNCTIONS = ("quant_matmul", "quant4_matmul")
+# CUDA kernel launches on the card, and wrapper calls that launched, per
+# function, since import or since reset_counts()
+LAUNCHES = dict.fromkeys(FUNCTIONS, 0)
+CALLS = dict.fromkeys(FUNCTIONS, 0)
+
+
+def reset_counts() -> None:
+    for name in FUNCTIONS:
+        LAUNCHES[name] = CALLS[name] = 0
+
+
+def _check(name: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+           n: int, w_cols: int, n_scales: int) -> None:
+    dev = x.device
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"{name} takes a float input, got {x.dtype}")
+    if w.dtype != torch.int8 or tuple(w.shape) != (n, w_cols):
+        raise ValueError(f"{name}: int8 ({n}, {w_cols}) weight expected, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    if s.dtype != torch.float32 or tuple(s.shape) != (n_scales, n):
+        raise ValueError(f"{name}: float32 ({n_scales}, {n}) scales expected,"
+                         f" got {s.dtype} {tuple(s.shape)}")
+    for t in (w, s):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: weight and scales must be contiguous "
+                             f"on {dev}")
+
+
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+            bits: int, out_dtype) -> torch.Tensor:
+    *lead, k = x.shape
+    n = w.shape[0]
+    dev = x.device
+    x2 = x.reshape(-1, k).float().contiguous()
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    x8 = torch.empty((m, k), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    launched = ctypes.c_int(0)
+    err = _entry()(x2.data_ptr(), w.data_ptr(), s.data_ptr(), s.shape[0],
+                   bits, out.data_ptr(), x8.data_ptr(), xs.data_ptr(), m, n,
+                   k, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+                   ctypes.byref(launched))
+    LAUNCHES[name] += launched.value
+    if launched.value:
+        CALLS[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err} "
+                           f"(M={m}, N={n}, K={k})")
+    return out.to(out_dtype or x.dtype).reshape(*lead, n)
+
+
+def quant_matmul(x: torch.Tensor, w: QuantizedWeight,
+                 out_dtype=None) -> torch.Tensor:
+    """x: (..., K) float → (..., N) in out_dtype (default x.dtype);
+    w.values (N, K) int8, w.scales N float32 per output channel."""
+    n, k = w.values.shape
+    scales = w.scales.reshape(1, n)
+    _check("quant_matmul", x, w.values, scales, n, k, 1)
+    if x.shape[-1] != k:
+        raise ValueError(f"quant_matmul: input width {x.shape[-1]} != {k}")
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, QuantizedWeight(w.values, scales[0]),
+                                  out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_matmul runs on cuda or cpu, got {x.device}")
+    return _launch("quant_matmul", x, w.values, scales, 8, out_dtype)
+
+
+def quant4_matmul(x: torch.Tensor, w: Quant4Weight,
+                  out_dtype=None) -> torch.Tensor:
+    """x: (..., K) float → (..., N); w.packed (N, K/2) int8 nibbles,
+    w.scales (1 or K/G, N) float32."""
+    n, kh = w.packed.shape
+    k = 2 * kh
+    n_scales = w.scales.shape[0]
+    if n_scales != 1 and (n_scales % 2 or kh % (n_scales // 2)):
+        raise ValueError(f"quant4_matmul: {n_scales} scale rows are neither "
+                         f"one per channel nor whole groups of {k} rows")
+    _check("quant4_matmul", x, w.packed, w.scales, n, kh, n_scales)
+    if x.shape[-1] != k:
+        raise ValueError(f"quant4_matmul: input width {x.shape[-1]} != {k}")
+    if x.device.type == "cpu":
+        return quant4_matmul_plain(x, w, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant4_matmul runs on cuda or cpu, got {x.device}")
+    return _launch("quant4_matmul", x, w.packed, w.scales, 4, out_dtype)
+
+
+@functools.cache
+def _entry():
+    """The C entry of csrc/quant_matmul.cu, built, loaded and bound once."""
+    from setok_tpu_torch.kernels._build import load_library
+
+    fn = load_library("quant_matmul").quant_matmul_f32
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, p, ctypes.POINTER(i)]
+    return fn

@@ -22,6 +22,10 @@ each sublayer is one call of the fused int8 kernels of
 that each `Dense` quantises once and caches (`Dense.int8`). Where the gates
 fail, the JAX package falls back to its unfused int8 kernels, which the port
 does not have yet: the block raises `NotImplementedError`.
+
+`QuantDense` and `Quant4Dense` are the serving trunk's linears, whose
+weights live quantised (int8, or packed int4) as buffers; their forward is
+the w8a8 / w4a8 kernel of `kernels/quant_matmul.py`.
 """
 
 from __future__ import annotations
@@ -33,14 +37,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from setok_tpu_torch.kernels import fused_sublayer as fs
-from setok_tpu_torch.kernels.quant import QuantizedWeight, quantize_weight
+from setok_tpu_torch.kernels import quant_matmul as qm
+from setok_tpu_torch.kernels.quant import (Quant4Weight, QuantizedWeight,
+                                           quantize_weight)
 
 NEG_INF = -1e30
 
 UNFUSED_INT8 = (
     "quant8 at this size takes the JAX package's unfused int8 kernels "
-    "(fused_mlp_int8, fused_attention_int8, quant_matmul), which are not "
-    "ported yet: ROADMAP.md, Queue B rows 6-8")
+    "(fused_mlp_int8, fused_attention_int8, and quant_matmul through "
+    "Dense), which the port's modules do not take yet: ROADMAP.md, "
+    "Queue B rows 6-8")
 
 
 def check_int8_route(fits: bool, what: str) -> None:
@@ -72,6 +79,49 @@ class Dense(nn.Linear):
             cached = (key, quantize_weight(self.weight.detach()))
             self.__dict__["_int8"] = cached
         return cached[1]
+
+
+class QuantDense(nn.Module):
+    """Bias-free linear whose weight lives as int8: buffers `q` (out, in)
+    int8 and `s` (1, out) float32 per-output-channel scales (the JAX
+    `QuantDense`'s `q` and `s`, transposed to the torch layout). The forward
+    is the w8a8 `quant_matmul` kernel, output in `dtype`."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.register_buffer("q", torch.zeros(out_features, in_features,
+                                              dtype=torch.int8, device=device))
+        self.register_buffer("s", torch.ones(1, out_features, device=device))
+
+    def forward(self, x):
+        return qm.quant_matmul(x, QuantizedWeight(self.q, self.s),
+                               out_dtype=self.compute_dtype)
+
+
+class Quant4Dense(nn.Module):
+    """Bias-free linear whose weight lives as half-packed int4 nibbles:
+    buffers `p` (out, in/2) int8 and `s` (1 or in/G, out) float32 scales,
+    one per output channel (`quant_group=0`) or per G input rows. The
+    forward is the w4a8 `quant4_matmul` kernel."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 quant_group: int = 0, dtype=torch.float32, device=None):
+        super().__init__()
+        if in_features % 2:
+            raise ValueError("int4 packing needs even in-features")
+        self.compute_dtype = dtype
+        self.quant_group = quant_group
+        n_scales = 1 if quant_group == 0 else in_features // quant_group
+        self.register_buffer("p", torch.zeros(out_features, in_features // 2,
+                                              dtype=torch.int8, device=device))
+        self.register_buffer("s", torch.ones(n_scales, out_features,
+                                             device=device))
+
+    def forward(self, x):
+        return qm.quant4_matmul(x, Quant4Weight(self.p, self.s),
+                                out_dtype=self.compute_dtype)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -1,23 +1,31 @@
-"""Carry SeTok weights from the flax parameter tree into the port.
+"""Carry SeTok and Setokim weights from the flax parameter tree into the port.
 
 The port's modules carry the flax module names (`block_0`, `attn_1`,
-`layer_0/cross_attn`, ...), so a flax path maps to a state-dict key by
-joining it with dots, after these conversions:
+`layer_0/cross_attn`, `llama/model/layer_0/attn/q_proj`, ...), so a flax
+path maps to a state-dict key by joining it with dots, after these
+conversions:
 
   * a Dense `kernel (in, out)` becomes `weight = kernel.T`;
   * the patch-embed Conv `kernel (p, p, 3, C)` (HWIO) becomes the
     `(C, p·p·3)` weight of the patchify matmul;
-  * a LayerNorm `scale` / `bias` becomes `weight` / `bias`;
+  * a LayerNorm or RMSNorm `scale` becomes `weight`;
+  * an Embed `embedding (vocab, C)` becomes the `nn.Embedding` weight;
+  * a `QuantDense` `q (in, out)` int8 and a `Quant4Dense` `p (in/2, out)`
+    int8 stay int8, transposed to the (out, in) layout of the port's
+    kernels; their scales `s` (1 or groups, out) copy as they are;
   * `pos_embed` and `mask_tokens` copy as they are.
 
-`load_flax_params` is strict: every flax leaf fills exactly one parameter,
-and every parameter of the model is filled, with the same shape.
+Floating leaves become float32; integer leaves keep their type.
+`load_flax_params` is strict: every flax leaf fills exactly one parameter
+or buffer, and every one of the model's is filled, with the same shape and
+type. `skip` names the top-level subtrees the model does not hold (the
+Setokim port has no `diffloss` yet); any other unused leaf raises.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, Iterable
 
 import numpy as np
 import torch
@@ -33,13 +41,17 @@ def _leaves(tree, prefix=()):
             yield path, np.asarray(value)
 
 
-def from_flax(params) -> Dict[str, torch.Tensor]:
+def from_flax(params, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
     """A flax tree of arrays (as from `jax.tree.map(np.asarray, params)`)
-    → a state dict of float32 tensors."""
+    → a state dict: float32 tensors, and int8 ones for quantised weights.
+    Leaves under a top-level subtree named in `skip` are left out."""
+    skip = set(skip)
     state: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
         if path and path[0] == "params":
             path = path[1:]
+        if path[0] in skip:
+            continue
         *mod, leaf = path
         if leaf == "kernel":
             leaf = "weight"
@@ -49,18 +61,28 @@ def from_flax(params) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{'/'.join(path)}: kernel of shape "
                                  f"{value.shape}")
             value = value.T
-        elif leaf == "scale":
+        elif leaf in ("q", "p"):                # int8 (in or in/2, out)
+            if value.ndim != 2 or value.dtype != np.int8:
+                raise ValueError(f"{'/'.join(path)}: int8 matrix expected, "
+                                 f"got {value.dtype} {value.shape}")
+            value = value.T
+        elif leaf in ("scale", "embedding"):
             leaf = "weight"
         key = ".".join([*mod, leaf])
         if key in state:
             raise KeyError(f"two flax leaves map to {key}")
-        state[key] = torch.tensor(value, dtype=torch.float32)
+        value = np.ascontiguousarray(value)
+        state[key] = (torch.from_numpy(value.copy())
+                      if np.issubdtype(value.dtype, np.integer)
+                      else torch.tensor(value, dtype=torch.float32))
     return state
 
 
-def load_flax_params(model: nn.Module, params) -> nn.Module:
-    """Fill every parameter of `model` from the flax tree, strictly."""
-    state = from_flax(params)
+def load_flax_params(model: nn.Module, params,
+                     skip: Iterable[str] = ()) -> nn.Module:
+    """Fill every parameter and buffer of `model` from the flax tree,
+    strictly; `skip`: top-level subtrees the model does not hold."""
+    state = from_flax(params, skip)
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     unused = sorted(set(state) - set(own))
@@ -71,5 +93,8 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
         if tuple(own[key].shape) != tuple(value.shape):
             raise ValueError(f"{key}: flax shape {tuple(value.shape)} vs "
                              f"model {tuple(own[key].shape)}")
+        if own[key].dtype != value.dtype:
+            raise ValueError(f"{key}: flax type {value.dtype} vs model "
+                             f"{own[key].dtype}")
     model.load_state_dict(state, strict=True)
     return model

@@ -1,30 +1,64 @@
-"""Seeded random weights, the same on every device."""
+"""Seeded random weights."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from setok_tpu_torch.models.llama import quantize_linear
+from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
+
 # parameters drawn from N(0, 0.02²), as their flax initializers are
 _EMBEDDINGS = ("pos_embed", "mask_tokens")
 
 
+def _draw(name: str, shape, gen: torch.Generator, device) -> torch.Tensor:
+    """Matrices LeCun-normal (std 1/sqrt(fan_in)), embeddings N(0, 0.02²),
+    norm weights 1, biases 0."""
+    if name.rsplit(".", 1)[-1] in _EMBEDDINGS:
+        return torch.randn(shape, generator=gen, device=device) * 0.02
+    if len(shape) == 2:
+        return (torch.randn(shape, generator=gen, device=device)
+                * shape[1] ** -0.5)
+    if name.endswith("weight"):
+        return torch.ones(shape, device=device)
+    return torch.zeros(shape, device=device)
+
+
 @torch.no_grad()
 def init_random_(model: nn.Module, seed: int) -> nn.Module:
-    """Overwrite every parameter from a CPU generator seeded with `seed`:
-    matrices LeCun-normal (std 1/sqrt(fan_in)), embeddings N(0, 0.02²),
-    LayerNorm weights 1, biases 0. The draw does not depend on the device
-    the model lies on, so a model on the card and one on the CPU get the
-    same weights."""
+    """Overwrite every parameter from a CPU generator seeded with `seed`.
+    The draw does not depend on the device the model lies on, so a model
+    on the card and one on the CPU get the same weights."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
-        if name.rsplit(".", 1)[-1] in _EMBEDDINGS:
-            value = torch.randn(p.shape, generator=gen) * 0.02
-        elif p.dim() == 2:
-            value = torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5
-        elif name.endswith("weight"):
-            value = torch.ones(p.shape)
+        p.copy_(_draw(name, p.shape, gen, "cpu"))
+    return model
+
+
+@torch.no_grad()
+def init_setokim_random_(model: nn.Module, seed: int,
+                         clip_search: int = 0) -> nn.Module:
+    """Random weights for a Setokim (or any model) of any `weight_bits`,
+    drawn on the model's device from a generator seeded with `seed`: the
+    parameters as `init_random_` draws them, and each quantised trunk
+    linear from a float (out, in) LeCun-normal draw, quantised at once
+    (int4: with its group and `clip_search`). One linear's float weight at
+    a time: the float trunk of a 7B model (27 GB at float32) is never
+    held."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        p.copy_(_draw(name, p.shape, gen, device))
+    for name, mod in model.named_modules():
+        if isinstance(mod, QuantDense):
+            bits, group, out, inp = 8, 0, *mod.q.shape
+        elif isinstance(mod, Quant4Dense):
+            bits, group = 4, mod.quant_group
+            out, inp = mod.p.shape[0], 2 * mod.p.shape[1]
         else:
-            value = torch.zeros(p.shape)
-        p.copy_(value)
+            continue
+        w = _draw(f"{name}.weight", (out, inp), gen, device)
+        for key, t in quantize_linear(w, bits, group, clip_search).items():
+            getattr(mod, key).copy_(t)
     return model

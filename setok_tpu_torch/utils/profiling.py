@@ -15,6 +15,9 @@ import torch
 CATEGORIES = (
     ("cluster_dpc", ("density_kernel", "parent_kernel", "sqnorm_kernel")),
     ("int8_gemm", ("gemm_s8_kernel",)),
+    ("quant_gemv", ("gemv_kernel",)),
+    ("quant_gemm", ("gemm_kernel",)),
+    ("cache_attention", ("cache_attn_kernel",)),
     ("int8_attention", ("attn_kernel",)),
     ("int8_rows", ("rows_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),

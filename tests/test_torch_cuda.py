@@ -12,7 +12,10 @@ parent can flip between same-blob density near-ties. The int8 kernels at
 every shape of the base forward, with chip_smoke.py's bars: the MLPs 1e-5
 max-rel; the attentions 2e-3 max-rel with ≥ 99 % of the elements within
 1e-5 of the largest (scores sum in another order than the plain version's,
-which can flip a bf16 or int8 rounding step).
+which can flip a bf16 or int8 rounding step). The serving kernels:
+quant_matmul and quant4_matmul 1e-5 max-rel (exact int products, the same
+float epilogue); the int8-cache decode attention 2e-3 max-rel with ≥ 99 %
+of the elements within 1e-5 of the largest.
 """
 
 import numpy as np
@@ -24,8 +27,16 @@ from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.kernels import cluster_dpc
 from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
 from setok_tpu_torch.kernels import fused_sublayer as fs
+from setok_tpu_torch.kernels import cache_attention as ca
+from setok_tpu_torch.kernels import quant_matmul as qm
+from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
+                                           quant_matmul_plain,
+                                           quantize_weight,
+                                           quantize_weight_int4)
 from setok_tpu_torch.models.setok import SeTok
-from setok_tpu_torch.utils.init import init_random_
+from setok_tpu_torch.models.setokim import Setokim
+from setok_tpu_torch.serve import ServeEngine
+from setok_tpu_torch.utils.init import init_random_, init_setokim_random_
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +127,75 @@ def test_int8_forward_routes_to_the_kernels(card):
     assert chip_smoke.int8_counts()[0] == chip_smoke.expected_calls(tok, det)
     assert cluster_dpc.LAUNCHES == 3
     assert torch.isfinite(out.recon).all()
+
+
+@pytest.mark.parametrize("fmt", ["w8", "w4", "w4g64"])
+@pytest.mark.parametrize("m", [1, 4, 40])
+def test_quant_matmul_kernels_match_plain(card, fmt, m):
+    gen = torch.Generator(device=card).manual_seed(m)
+    k, n = 256, 384
+    w = torch.randn(n, k, generator=gen, device=card) * k ** -0.5
+    x = torch.randn(m, k, generator=gen, device=card)
+    if fmt == "w8":
+        wq, kernel, plain, name = (quantize_weight(w), qm.quant_matmul,
+                                   quant_matmul_plain, "quant_matmul")
+    else:
+        wq = quantize_weight_int4(w, 64 if fmt == "w4g64" else None, 8)
+        kernel, plain, name = (qm.quant4_matmul, quant4_matmul_plain,
+                               "quant4_matmul")
+    calls, launches = qm.CALLS[name], qm.LAUNCHES[name]
+    got = kernel(x, wq)
+    torch.cuda.synchronize()
+    assert qm.CALLS[name] == calls + 1 and qm.LAUNCHES[name] == launches + 2
+    want = plain(x, wq)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_cache_attention_kernel_matches_plain(card):
+    gen = torch.Generator(device=card).manual_seed(0)
+    b, s, kvh, g, d = 3, 100, 4, 2, 64
+    q = torch.randn(b, kvh * g, d, generator=gen, device=card)
+
+    def int8():
+        f = torch.randn(b, s, kvh, d, generator=gen, device=card)
+        sc = f.abs().amax(-1) / 127
+        return torch.round(f / sc[..., None]).clamp(-127, 127).to(
+            torch.int8), sc
+
+    (k8, ks), (v8, vs) = int8(), int8()
+    valid = torch.rand(b, s, generator=gen, device=card) > 0.3
+    valid[-1] = False                          # the uniform average
+    before = ca.LAUNCHES
+    got = ca.int8_cache_decode_attention(q, k8, ks, v8, vs, valid)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES == before + 1
+    want = ca.int8_cache_decode_attention_plain(q, k8, ks, v8, vs, valid,
+                                                d ** -0.5)
+    diff = (got - want).abs()
+    scale = want.abs().max()
+    assert float(diff.max() / scale) <= 2e-3
+    assert float((diff <= 1e-5 * scale).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_serving_routes_to_the_kernels(card, bits):
+    cfg = cfgs.tiny_setokim()
+    model = init_setokim_random_(Setokim(
+        cfg, weight_bits=bits, quant_group=32 if bits == 4 else 0,
+        cache_kernel=True, device=card), 0, clip_search=8)
+    eng = ServeEngine(model, max_batch=2, prompt_len=24, max_len=40,
+                      eos_id=-1, cache_dtype=torch.int8)
+    rs = np.random.RandomState(0)
+    ids = np.concatenate([[1], np.full(8, -200), rs.randint(10, 400, 6)])
+    image = rs.uniform(-1, 1, (32, 32, 3)).astype(np.float32)
+    chip_smoke.reset_counts()
+    reqs = [eng.submit(ids, image=image, max_new_tokens=4),
+            eng.submit(ids[9:], max_new_tokens=4)]
+    eng.run()
+    name = "quant_matmul" if bits == 8 else "quant4_matmul"
+    layers = cfg.llama.num_layers
+    assert all(len(r.tokens) == 4 for r in reqs)
+    # two prefills and three decode steps, seven linears per layer
+    assert qm.CALLS[name] == 7 * layers * (2 + 3)
+    assert ca.LAUNCHES == layers * 3
+    assert cluster_dpc.LAUNCHES == 3

@@ -78,3 +78,67 @@ def test_shape_mismatch_raises(flax_params):
     bad["params"]["tokenizer"]["out"]["bias"] = np.zeros(5, np.float32)
     with pytest.raises(ValueError, match="tokenizer.out.bias"):
         load_flax_params(_model(), bad)
+
+
+@pytest.fixture(scope="module")
+def llama_trees():
+    """tiny_llama flax trees: int8, and int4 in groups of 16 rows."""
+    from setok_tpu.models.llama import LlamaForCausalLM as JLlama
+    from setok_tpu.models.llama import quantize_trunk_weights
+
+    ids = jnp.zeros((1, 4), jnp.int32)
+    params = JLlama(jcfg.tiny_llama()).init(jax.random.PRNGKey(0), ids)
+    return {bits: jax.tree.map(np.asarray, quantize_trunk_weights(
+        params, bits=bits, group_size=16 if bits == 4 else 0))
+        for bits in (8, 4)}
+
+
+def _llama(bits):
+    from setok_tpu_torch.models.llama import LlamaForCausalLM
+
+    return LlamaForCausalLM(tcfg.tiny_llama(), weight_bits=bits,
+                            quant_group=16 if bits == 4 else 0, device="cpu")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_leaves_stay_int8(llama_trees, bits):
+    tree = llama_trees[bits]
+    state = from_flax(tree)
+    lin = tree["params"]["model"]["layer_0"]["mlp"]["down_proj"]
+    leaf = "q" if bits == 8 else "p"
+    got = state[f"model.layer_0.mlp.down_proj.{leaf}"]
+    assert got.dtype == torch.int8
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), lin[leaf].T)   # (out, in)
+    scales = state["model.layer_0.mlp.down_proj.s"]
+    assert scales.dtype == torch.float32
+    np.testing.assert_array_equal(scales.numpy(), lin["s"])
+    assert tuple(scales.shape) == ((1, 64) if bits == 8 else (8, 64))
+    np.testing.assert_array_equal(
+        state["embed_tokens.weight"],
+        tree["params"]["embed_tokens"]["embedding"])
+    model = load_flax_params(_llama(bits), tree)
+    np.testing.assert_array_equal(
+        getattr(model.model.layer_0.mlp.down_proj, leaf).numpy(),
+        lin[leaf].T)
+
+
+def test_skip_names_top_level_subtrees_only(llama_trees):
+    tree = jax.tree.map(lambda a: a, llama_trees[8])
+    tree["params"]["diffloss"] = {"net": {"kernel": np.zeros((2, 2))}}
+    load_flax_params(_llama(8), tree, skip=("diffloss",))
+    with pytest.raises(KeyError, match="unused"):
+        load_flax_params(_llama(8), tree)
+    stray = jax.tree.map(lambda a: a, llama_trees[8])
+    stray["params"]["model"]["layer_1"]["attn"]["extra"] = {
+        "q": np.zeros((4, 4), np.int8)}
+    with pytest.raises(KeyError, match="unused"):
+        load_flax_params(_llama(8), stray, skip=("diffloss",))
+
+
+def test_type_mismatch_raises(llama_trees):
+    tree = jax.tree.map(lambda a: a, llama_trees[8])
+    attn = tree["params"]["model"]["layer_0"]["attn"]
+    attn["q_proj"]["s"] = attn["q_proj"]["s"].astype(np.int32)
+    with pytest.raises(ValueError, match="q_proj.s"):
+        load_flax_params(_llama(8), tree)
