@@ -39,7 +39,30 @@ the last line:
                 launches of each kernel per decode step and per admission;
   serve_parity  the same with the trunk cut to 2 layers, through the
                 kernels and through the plain versions on the card: logits
-                at every step and greedy tokens.
+                at every step and greedy tokens;
+  flash_kernels the flash-attention forward, dq and dk/dv kernels against
+                their plain versions at the training path's shape (B=4,
+                32 heads, L=2048, head_dim 128, bf16, a mask from the
+                splice of a synthetic batch: image-slot holes, a pad tail,
+                fully masked query rows) and at a ragged one (L=1000),
+                with their times, bounds and SDPA's (forward, and forward
+                + backward);
+  train         stage-2 LoRA training of base_setokim() at full width
+                (r 128, alpha 256, lr 2e-4, mm_in projector lr 2e-5, flash
+                attention, remat, bf16 compute, clip 1.0), random weights
+                from the seed: micro-batches of 4 x 2048, 2 per update, 3
+                updates; losses, ms per update and micro-batch, valid
+                tokens/s (text and filled image slots), peak memory, the
+                launches per micro-batch, and a profiled micro-batch; the frozen trunk unchanged, the LoRA
+                B factors unchanged by the first update (lr 0) and moved by
+                the third;
+  train_parity  one micro-batch with the trunk cut to 2 layers, through
+                the kernels and through the plain versions on the card:
+                losses and the LoRA and projector gradients; beside them,
+                to read the gap, the plain route again, the plain route
+                with its score sums in another order, each direction's
+                kernels alone, and a planted fault (delta dropped) that the
+                gradient bar must catch.
 
 Then the kernels summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no JAX: it imports setok_tpu_torch only.
@@ -52,7 +75,7 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager, nullcontext
 from unittest import mock
 
 import numpy as np
@@ -63,6 +86,7 @@ from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from setok_tpu_torch.kernels import _build, cluster_dpc
 from setok_tpu_torch.kernels import cache_attention as ca
+from setok_tpu_torch.kernels import flash_attention as fa
 from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.kernels import quant_matmul as qm
@@ -71,13 +95,16 @@ from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
                                            quantize_weight,
                                            quantize_weight_int4,
                                            unpack_nibbles)
-from setok_tpu_torch.models.llama import TRUNK_LINEARS, valid_quant_group
+from setok_tpu_torch.models.llama import (TRUNK_LINEARS, make_attention_mask,
+                                          valid_quant_group)
 from setok_tpu_torch.models.setok import SeTok, expected_calls
-from setok_tpu_torch.models.setokim import Setokim
+from setok_tpu_torch.models.setokim import Setokim, splice_layout
 from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
 from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
+from setok_tpu_torch.scripts.train_setokim import synthetic_batch
 from setok_tpu_torch.serve import ServeEngine
+from setok_tpu_torch.train.stage2 import Stage2Trainer, warmup_cosine
 from setok_tpu_torch.utils.init import init_random_, init_setokim_random_
 from setok_tpu_torch.utils.profiling import device_time_breakdown
 
@@ -478,6 +505,7 @@ def reset_counts() -> None:
     fba.reset_counts()
     qm.reset_counts()
     ca.reset_counts()
+    fa.reset_counts()
 
 
 def int8_counts() -> tuple:
@@ -995,7 +1023,9 @@ def plain_route():
     with mock.patch.object(qm, "quant_matmul", quant_matmul_plain), \
             mock.patch.object(qm, "quant4_matmul", quant4_matmul_plain), \
             mock.patch.object(ca, "int8_cache_decode_attention",
-                              ca.int8_cache_decode_attention_plain):
+                              ca.int8_cache_decode_attention_plain), \
+            mock.patch.object(fa, "flash_attention",
+                              fa.flash_attention_plain):
         yield
 
 
@@ -1072,6 +1102,434 @@ def phase_serve_parity(cfg, bits: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------------
+# stage-2 training: the flash-attention kernels and the LoRA trainer
+
+# flash kernels against their plain versions on the card: the forward rounds
+# p to bf16 before P.V, so a last-bit change of a score can flip one such
+# rounding (the bar of the other attentions); the lse and the gradients are
+# float32 throughout, sums in another order
+FLASH_FWD_TOL = 2e-3
+FLASH_LSE_TOL = 1e-5
+FLASH_GRAD_TOL = 1e-4
+FLASH_KERNELS = (("flash_fwd", "setok_tpu/kernels/flash_attention.py:146"),
+                 ("flash_dq", "setok_tpu/kernels/flash_attention.py:185"),
+                 ("flash_dkv", "setok_tpu/kernels/flash_attention.py:208"))
+TRAIN_BATCH, TRAIN_LEN, TRAIN_MIN_LEN = 4, 2048, 1024
+TRAIN_ACCUM, TRAIN_UPDATES = 2, 3
+# kernels vs plain versions through a 2-layer trunk in bf16: the losses,
+# and gradients whose bf16 sums run in another order
+TRAIN_PARITY_LOSS_TOL = 1e-3
+TRAIN_PARITY_GRAD_TOL = 2e-2
+
+
+def splice_mask(cfg, b: int, length: int, seed: int, device) -> torch.Tensor:
+    """The trunk's (B, L, L) attention mask of a synthetic training batch
+    through the splice (models/setokim.splice_layout): each image with a
+    random cluster count (holes in its k_max slots), a pad tail per row
+    (fully masked query rows), causal in position order."""
+    rs = np.random.RandomState(seed)
+    batch = synthetic_batch(cfg, b, length, rs, min_len=length // 2)
+    k_max = cfg.tokenizer.k_max
+    counts = rs.randint(k_max // 4, k_max + 1, b)
+    img_valid = torch.from_numpy(np.arange(k_max)[None] < counts[:, None])
+    ids = torch.from_numpy(batch["input_ids"])
+    _, _, valid, positions = splice_layout(ids, img_valid, 0)
+    return make_attention_mask(valid, positions)[:, 0].to(device)
+
+
+def flash_case(b: int, h: int, lq: int, lk: int, d: int, dtype, mask,
+               seed: int) -> dict:
+    """The three kernels against their plain versions on one input: the
+    backward ones on the plain forward's o (cast) and lse. Checks the bars
+    and returns the case (with its inputs, for timing)."""
+    dev = mask.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d),
+                                 (b, h, lq, d)))
+    sc = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, mask, sc)
+    torch.cuda.synchronize()
+    po, plse = fa.flash_fwd_plain(q, k, v, mask, sc)
+    rows = mask.any(-1)[:, None].expand_as(plse)
+    o_t = po.to(dtype)
+    dq, delta = fa.flash_dq(q, k, v, mask, o_t, do, plse, sc)
+    dk, dv = fa.flash_dkv(q, k, v, mask, do, plse, delta, sc)
+    torch.cuda.synchronize()
+    pdq = fa.flash_dq_plain(q, k, v, mask, o_t, do, plse, sc)
+    pdk, pdv = fa.flash_dkv_plain(q, k, v, mask, o_t, do, plse, sc)
+    diff = (o.double() - po.double()).abs()
+    scale = float(po.double().abs().max())
+    case = {"phase": "flash_kernels", "shape": [b, h, lq, lk, d],
+            "dtype": str(dtype).replace("torch.", ""),
+            "mask_density": float(mask.double().mean()),
+            "fully_masked_rows": int((~mask.any(-1)).sum()),
+            "o_max_rel": float(diff.max()) / scale,
+            "o_share_within_1e-5": float((diff <= 1e-5 * scale)
+                                         .double().mean()),
+            "lse_max_rel": max_rel(lse[rows], plse[rows]),
+            "dq_max_rel": max_rel(dq, pdq), "dk_max_rel": max_rel(dk, pdk),
+            "dv_max_rel": max_rel(dv, pdv),
+            "max_abs": {"flash_fwd": float(diff.max()),
+                        "flash_dq": float((dq - pdq).abs().max()),
+                        "flash_dkv": max(float((dk - pdk).abs().max()),
+                                         float((dv - pdv).abs().max()))},
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in (o, dq, dk, dv))}
+    check(case["finite"], f"flash {case['shape']}: output not finite")
+    check(bool((o[~rows] == 0).all()) and bool((dq[~rows] == 0).all()),
+          f"flash {case['shape']}: a fully masked row is not zero")
+    check(case["o_max_rel"] <= FLASH_FWD_TOL
+          and case["o_share_within_1e-5"] >= INT8_ATTN_SHARE
+          and case["lse_max_rel"] <= FLASH_LSE_TOL,
+          f"flash_fwd {case['shape']}: o {case['o_max_rel']} (share "
+          f"{case['o_share_within_1e-5']}), lse {case['lse_max_rel']}")
+    for key in ("dq_max_rel", "dk_max_rel", "dv_max_rel"):
+        check(case[key] <= FLASH_GRAD_TOL,
+              f"flash {case['shape']}: {key} {case[key]} > {FLASH_GRAD_TOL}")
+    case["inputs"] = (q, k, v, do, o_t, plse, delta, sc)
+    return case
+
+
+def flash_bounds(q, mask) -> dict:
+    """(bound ms, bound_by) of each kernel on these inputs: the unmasked
+    score cells times 2·D per product, against the bytes (q, k, v, o, do,
+    dq, dk, dv in the input type, the mask, lse and delta read or written
+    once). A product of two input-type operands runs at the input type's
+    peak (bf16: the forward's S and P·V, the backward's S and dP); one
+    with a float32 operand (dS·K, dSᵀ·Q, Pᵀ·dO) at the f32 peak."""
+    b, h, lq, d = q.shape
+    lk = mask.shape[-1]
+    cells = float(h) * float(mask.sum())
+    el = q.element_size()
+    qb, kb, mb = b * h * lq * d * el, b * h * lk * d * el, b * lq * lk
+    rows = 4.0 * b * h * lq
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    # (products at the input type's peak, products at the f32 peak, bytes)
+    work = {"flash_fwd": (2, 0, qb + 2 * kb + mb + qb + rows),
+            "flash_dq": (2, 1, 3 * qb + 2 * kb + mb + rows + qb + rows),
+            "flash_dkv": (2, 2, 2 * qb + 2 * kb + mb + 2 * rows + 2 * kb)}
+    out = {}
+    for name, (typed, f32, nbytes) in work.items():
+        t_ops = 2.0 * d * cells * (typed / peak + f32 / PEAK_F32_FLOPS)
+        t_bytes = nbytes / PEAK_BYTES
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_flash_kernels(cfg) -> dict:
+    """The flash kernels at the path shape and a ragged one; the times at
+    the path shape. Returns the kernels-line entries."""
+    dev = torch.device("cuda")
+    lcfg = cfg.llama
+    b, h, d = TRAIN_BATCH, lcfg.num_heads, lcfg.head_dim
+    path_mask = splice_mask(cfg, b, TRAIN_LEN, SEED, dev)
+    ragged = torch.rand(2, 1000, 1000, device=dev) > 0.4
+    ragged[:, 17] = False
+    ragged[1, 500:] = False
+    errs = {name: 0.0 for name, _ in FLASH_KERNELS}
+    path = None
+    for args in ((b, h, TRAIN_LEN, TRAIN_LEN, d, torch.bfloat16, path_mask),
+                 (2, 4, 1000, 1000, d, torch.bfloat16, ragged),
+                 (2, 4, 1000, 1000, d, torch.float32, ragged)):
+        case = flash_case(*args, seed=SEED + 3)
+        for name in errs:
+            errs[name] = max(errs[name], case["max_abs"][name])
+        inputs = case.pop("inputs")
+        emit(case)
+        if path is None:
+            path = inputs
+    q, k, v, do, o_t, lse, delta, sc = path
+    mask = path_mask
+    bounds = flash_bounds(q, mask)
+    sdpa_mask = mask[:, None]
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask,
+                                             scale=sc)
+        out.backward(do)
+
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=sdpa_mask, scale=sc), reps=10)
+    lib_fwd_bwd = time_ms(sdpa_fwd_bwd, reps=10)
+    runs = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, mask, sc),
+                          lambda: fa.flash_fwd_plain(q, k, v, mask, sc)),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, mask, o_t, do, lse, sc),
+                         lambda: fa.flash_dq_plain(q, k, v, mask, o_t, do,
+                                                   lse, sc)),
+            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, mask, do, lse, delta,
+                                               sc),
+                          lambda: fa.flash_dkv_plain(q, k, v, mask, o_t, do,
+                                                     lse, sc))}
+    entries = {}
+    for name, replaces in FLASH_KERNELS:
+        kernel, plain = runs[name]
+        bound_ms, bound_by = bounds[name]
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": "setok_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": errs[name], "ms": time_ms(kernel, reps=10),
+            "plain_ms": time_ms(plain, reps=3, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_fwd_bwd,
+            "library_call": ("SDPA forward" if name == "flash_fwd" else
+                             "SDPA forward + backward (dq, dk and dv)"),
+            "timing": f"B={b}, H={h}, L={TRAIN_LEN}, D={d}, bf16, the "
+                      "splice mask"}
+        emit({"phase": "flash_kernels", "kernel": name,
+              **{key: entries[name][key] for key in (
+                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    emit({"phase": "flash_kernels", "sdpa_forward_ms": lib_fwd,
+          "sdpa_forward_backward_ms": lib_fwd_bwd})
+    del path, q, k, v, do, o_t, lse, delta, qg, kg, vg
+    torch.cuda.empty_cache()
+    return entries
+
+
+def build_trainer(cfg) -> Stage2Trainer:
+    """The finetune.sh configuration: LoRA r 128 / alpha 256 on every trunk
+    linear, lr 2e-4 (warm-up 1 update), mm_in projector lr 2e-5, flash
+    attention, remat, bf16 compute, clip 1.0; random weights from the seed."""
+    tc = cfgs.TrainConfig(learning_rate=2e-4, max_grad_norm=1.0,
+                          warmup_steps=1, total_steps=TRAIN_UPDATES,
+                          batch_size=TRAIN_BATCH,
+                          grad_accum_steps=TRAIN_ACCUM)
+    tr = Stage2Trainer(cfg, train_cfg=tc, target_token_id=3,
+                       lora_enable=True, lora_r=128, lora_alpha=256.0,
+                       mm_in_projector_lr=2e-5, use_flash=True)
+    init_setokim_random_(tr.model, SEED)
+    tr.init_state(SEED + 1)
+    return tr
+
+
+def train_batches(cfg, n: int, seed: int) -> list:
+    rs = np.random.RandomState(seed)
+    return [{k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        cfg, TRAIN_BATCH, TRAIN_LEN, rs, min_len=TRAIN_MIN_LEN).items()}
+        for _ in range(n)]
+
+
+def frozen_checksum(tr: Stage2Trainer) -> float:
+    return float(sum(p.detach().double().sum() for n, p in
+                     tr.model.named_parameters() if not p.requires_grad))
+
+
+def phase_train(cfg) -> dict:
+    """Three updates of two micro-batches at full width, every count reset
+    just before them and read just after; then one profiled micro-batch."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = build_trainer(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_micro = TRAIN_ACCUM * TRAIN_UPDATES
+    batches = train_batches(cfg, n_micro + 1, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    frozen_before = frozen_checksum(tr)
+    b_before = {n: b.detach().clone() for n, (_, b) in tr.lora.items()}
+    b_after_1 = None
+    losses, times = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(n_micro):
+        t = time.perf_counter()
+        metrics = tr.train_step(batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        if tr.updates == 1 and b_after_1 is None:
+            b_after_1 = all(torch.equal(b.detach(), b_before[n])
+                            for n, (_, b) in tr.lora.items())
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+    b_moved = sum(not torch.equal(b.detach(), b_before[n])
+                  for n, (_, b) in tr.lora.items())
+    frozen_after = frozen_checksum(tr)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # valid tokens: the text's and the image slots the tower fills (the
+    # rest of an image's k_max slots are holes)
+    with torch.no_grad():
+        tokens = [int((bt["input_ids"] > 0).sum()) + int(tr.model.tokenize(
+            bt["comp_image"]).token_valid.sum()) for bt in batches[:n_micro]]
+    profile = device_time_breakdown(lambda: tr.train_step(batches[-1], gen))
+    per_update = [sum(times[i:i + TRAIN_ACCUM])
+                  for i in range(0, n_micro, TRAIN_ACCUM)]
+    steady = slice(TRAIN_ACCUM, n_micro)            # after the first update
+    res = {"phase": "train", "config": "base_setokim", "trunk_layers":
+           cfg.llama.num_layers, "hidden": cfg.llama.hidden_size,
+           "lora": {"r": 128, "alpha": 256.0, "adapters": len(tr.lora),
+                    "params": sum(a.numel() + b.numel()
+                                  for a, b in tr.lora.values())},
+           "trainable_params": sum(p.numel() for p in tr.trainable),
+           "micro_batch": [TRAIN_BATCH, TRAIN_LEN],
+           "grad_accum_steps": TRAIN_ACCUM, "updates": tr.updates,
+           "build_s": build_s, "losses": losses,
+           "ms_per_micro_batch": [1e3 * t for t in times],
+           "ms_per_update": [1e3 * t for t in per_update],
+           "valid_tokens_per_micro_batch": tokens,
+           "valid_tokens_per_s_after_update_1": sum(tokens[steady])
+           / sum(times[steady]),
+           "lr_per_update": [warmup_cosine(i, tr.train_cfg.learning_rate,
+                                           tr.warmup, TRAIN_UPDATES)
+                             for i in range(TRAIN_UPDATES)],
+           "launches": launches,
+           "launches_per_micro_batch": {k: v / n_micro
+                                        for k, v in launches.items()},
+           "lora_b_unchanged_after_update_1": b_after_1,
+           "lora_b_moved_after_update_3": b_moved,
+           "frozen_checksum_before_after": [frozen_before, frozen_after],
+           "peak_memory_gb": peak_gb, "profiled_micro_batch": profile}
+    emit(res)
+    layers = cfg.llama.num_layers
+    want = {"flash_fwd": 2 * layers, "flash_dq": layers,
+            "flash_dkv": layers, "dpc_density_parent": 6}
+    check(all(np.isfinite(v) for row in losses for v in row.values()),
+          "a training loss is not finite")
+    check(tr.updates == TRAIN_UPDATES, f"{tr.updates} updates")
+    check(res["launches_per_micro_batch"] == want,
+          f"launches per micro-batch {res['launches_per_micro_batch']}, "
+          f"expected {want}")
+    check(frozen_before == frozen_after, "a frozen parameter moved")
+    check(bool(b_after_1), "the first update (lr 0) moved a LoRA B")
+    check(b_moved == len(tr.lora), f"only {b_moved} of {len(tr.lora)} LoRA "
+          "B factors moved by the third update")
+    del tr, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def loss_and_grads(tr: Stage2Trainer, batch, seed: int):
+    """One micro-batch's losses and the gradients of the LoRA factors and
+    the projectors, with the draws of a generator seeded with `seed`."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    m = tr.model
+    out = m(batch["input_ids"], batch["comp_image"], batch["labels"],
+            batch["gen_image"], m.draw_forward(TRAIN_BATCH, gen))
+    named = {f"lora.{n}.{f}": t for n, ab in tr.lora.items()
+             for f, t in zip("ab", ab)}
+    named.update({n: p for n, p in m.named_parameters()
+                  if "projector" in n})
+    grads = torch.autograd.grad(out.loss, list(named.values()),
+                                allow_unused=True)
+    return (float(out.lm_loss.detach()), float(out.diff_loss.detach()),
+            {n: g for n, g in zip(named, grads) if g is not None})
+
+
+def parity_gap(got, want) -> dict:
+    """The losses' relative gaps and the gradients' largest max-rel gap
+    (and where it is) of one route against the plain route."""
+    rel = {n: max_rel(g, want[2][n]) for n, g in got[2].items()
+           if float(want[2][n].abs().max()) > 0}
+    worst = max(rel, key=rel.get)
+    return {"lm_loss": got[0], "diff_loss": got[1],
+            "lm_loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+            "diff_loss_rel": abs(got[1] - want[1]) / abs(want[1]),
+            "grads_compared": len(rel), "grad_max_rel": rel[worst],
+            "grad_worst": worst,
+            "grad_max_rel_lora_a": max(v for n, v in rel.items()
+                                       if n.endswith(".a")),
+            "grad_max_rel_lora_b": max(v for n, v in rel.items()
+                                       if n.endswith(".b"))}
+
+
+def scores_f64(q, k, mask, scale):
+    """The plain versions' masked scores summed in float64 and rounded
+    once: the plain route with its score sums in another order."""
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+    return torch.where(mask[:, None], s.float(), fa.NEG_INF)
+
+
+def flash_bwd_plain(q, k, v, mask, o, do, lse, sm_scale):
+    return (fa.flash_dq_plain(q, k, v, mask, o, do, lse, sm_scale),
+            *fa.flash_dkv_plain(q, k, v, mask, o, do, lse, sm_scale))
+
+
+FLASH_DQ = fa.flash_dq
+
+
+def flash_dq_without_delta(q, k, v, mask, o, do, lse, sm_scale):
+    """A planted fault: the dq kernel fed o = 0, so delta = rowsum(dO·o)
+    drops out of dq and (through the delta it writes) of dk."""
+    return FLASH_DQ(q, k, v, mask, torch.zeros_like(o), do, lse, sm_scale)
+
+
+@contextmanager
+def patched(*patches):
+    with ExitStack() as stack:
+        for name, fn in patches:
+            stack.enter_context(mock.patch.object(fa, name, fn))
+        yield
+
+
+# the routes of train_parity besides the kernels', each against the plain
+# route: (name, plain route?, patches of the flash module, launches)
+PARITY_ROUTES = (
+    ("plain_again", True, (), (0, 0, 0)),
+    ("plain_scores_f64", True, (("_scores", scores_f64),), (0, 0, 0)),
+    ("kernel_bwd_on_plain_o", False,
+     (("flash_fwd", fa.flash_fwd_plain),), (0, 2, 2)),
+    ("kernel_fwd_plain_bwd", False, (("flash_bwd", flash_bwd_plain),),
+     (4, 0, 0)),
+    ("kernel", False, (), (4, 2, 2)),
+    ("fault_delta_dropped", False,
+     (("flash_dq", flash_dq_without_delta),), (4, 2, 2)),
+)
+
+
+def phase_train_parity(cfg) -> None:
+    """The trunk cut to 2 layers, one micro-batch, through the kernels and
+    through the plain versions (same weights, batch and draws). The LoRA B
+    factors get small random values so that A's gradients flow. Beside the
+    kernel route, to read its gap: the plain route again, the plain route
+    with its score sums in another order, the kernels' backward on the
+    plain forward's o, the kernel forward with the plain backward, and a
+    planted fault (delta dropped) that the gradient bar must catch."""
+    small = cfgs.replace(cfg, llama=cfgs.replace(cfg.llama, num_layers=2))
+    tr = build_trainer(small)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    with torch.no_grad():
+        for _, b in tr.lora.values():
+            b.copy_(1e-3 * torch.randn(b.shape, generator=gen, device="cuda"))
+    batch = train_batches(small, 1, SEED + 7)[0]
+    reset_counts()
+    with plain_route():
+        want = loss_and_grads(tr, batch, SEED + 9)
+    check(not any(fa.LAUNCHES.values()), "the plain route launched a kernel")
+    gaps = {}
+    for name, plain, patches, launches in PARITY_ROUTES:
+        reset_counts()
+        with plain_route() if plain else nullcontext(), \
+                patched(*patches):
+            gaps[name] = parity_gap(loss_and_grads(tr, batch, SEED + 9),
+                                    want)
+        got = tuple(fa.LAUNCHES[k] for k, _ in FLASH_KERNELS)
+        check(got == launches, f"train_parity {name}: launches {got}, "
+              f"expected {launches}")
+    res = {"phase": "train_parity", "trunk_layers": 2,
+           "lm_loss": [gaps["kernel"]["lm_loss"], want[0]],
+           "diff_loss": [gaps["kernel"]["diff_loss"], want[1]],
+           **{k: v for k, v in gaps["kernel"].items()
+              if k not in ("lm_loss", "diff_loss")},
+           "routes": gaps}
+    emit(res)
+    check(res["lm_loss_rel"] <= TRAIN_PARITY_LOSS_TOL
+          and res["diff_loss_rel"] <= TRAIN_PARITY_LOSS_TOL,
+          f"train_parity losses {res['lm_loss']}, {res['diff_loss']}")
+    check(res["grad_max_rel"] <= TRAIN_PARITY_GRAD_TOL,
+          f"train_parity gradient {res['grad_worst']}: "
+          f"{res['grad_max_rel']} > {TRAIN_PARITY_GRAD_TOL}")
+    fault = gaps["fault_delta_dropped"]["grad_max_rel"]
+    check(fault > TRAIN_PARITY_GRAD_TOL,
+          f"train_parity: a dropped delta moved the gradients by {fault}, "
+          f"within the bar {TRAIN_PARITY_GRAD_TOL}")
+    del tr
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1120,8 +1578,14 @@ def main() -> int:
     for bits in (8, 4):
         phase_serve_parity(setokim, bits)
 
+    flash_entries = phase_flash_kernels(setokim)
+    launches = phase_train(setokim)
+    for name, e in flash_entries.items():
+        e["launches"] = launches[name]
+    phase_train_parity(setokim)
+
     emit({"kernels": [entry, *int8_entries.values(),
-                      *serve_entries.values()]})
+                      *serve_entries.values(), *flash_entries.values()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -142,9 +142,8 @@ class DetokenizerConfig:
 
 @dataclass(frozen=True)
 class DiffLossConfig:
-    """MAR diffusion head. The port does not run it yet (ROADMAP.md, Queue
-    A): `SetokimConfig` carries it so that a configuration reads the same in
-    both packages."""
+    """MAR diffusion head (losses/diffloss.py): the per-token denoiser's
+    widths, the sampling steps, the batch tiling and the mask-rate floor."""
 
     target_channels: int = 768
     z_channels: int = 768
@@ -197,6 +196,34 @@ class SetokimConfig:
                 f"target_num ({self.target_num}) must equal tokenizer.k_max "
                 f"({self.tokenizer.k_max}): a generation span expands to one "
                 "<target> slot per static token.")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation settings of the trainers (train/stage2.py): AdamW, a
+    linear warm-up then cosine decay, the global-norm clip (0 disables),
+    micro-batches per update, and the mixed-precision policy (float32
+    parameters, `compute_dtype` activations, `remat` per trunk block).
+    `mesh` of the JAX package's copy is left out: the port runs on one card.
+    """
+
+    learning_rate: float = 1e-3
+    disc_learning_rate: float = 1e-3
+    weight_decay: float = 0.0
+    max_grad_norm: float = 1.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    batch_size: int = 24
+    grad_accum_steps: int = 1
+    seed: int = 0
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    contrastive_weight: float = 1.0
+    rec_l1_weight: float = 1.0
+    lpips_weight: float = 1.0
 
 
 # ----------------------------------------------------------------------------

@@ -78,7 +78,8 @@ class SetokDeTokenizer(nn.Module):
                                 cfg.patch_size ** 2 * 3, dtype=dtype,
                                 device=device)
 
-    @torch.inference_mode()
+    # frozen in every path the port trains so far (stage-2)
+    @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
                 token_valid: Optional[torch.Tensor] = None) -> DetokenizerOutput:
         """tokens: (B, K, token_feat_dim); token_valid: (B, K) bool."""

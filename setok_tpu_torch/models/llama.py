@@ -1,4 +1,4 @@
-"""LLaMA trunk: the Setokim language model, for serving.
+"""LLaMA trunk: the Setokim language model, for serving and training.
 
 The counterpart of `setok_tpu/models/llama.py`, with the flax module names
 (`embed_tokens`, `model.layer_{i}.attn.q_proj`, ...) so that
@@ -21,9 +21,12 @@ dequantise before the attention, or, with `cache_kernel=True`, run
 `int8_cache_decode_attention` (kernels/cache_attention.py) where the JAX
 package would.
 
-Not ported here: `use_flash` (the flash-attention kernel of the stage-2
-training forward), `ring_mesh` (sequence-parallel training), `remat`, and
-calibration `row_weights` for int4; each raises `NotImplementedError`.
+Without a cache (the training forward), `use_flash` routes the attention
+through the flash-attention kernels (`kernels/flash_attention.py`, forward
+and backward), and `remat` recomputes each block in the backward pass
+(`torch.utils.checkpoint`), as the JAX package's `nn.remat` does. Not ported
+here: `ring_mesh` (sequence-parallel training) and calibration
+`row_weights` for int4; each raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -34,9 +37,11 @@ from typing import Any, Dict, NamedTuple, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from setok_tpu_torch.config import LlamaConfig
 from setok_tpu_torch.kernels import cache_attention as ca
+from setok_tpu_torch.kernels import flash_attention as fa
 from setok_tpu_torch.kernels.quant import (_div, quantize_weight,
                                            quantize_weight_int4)
 from setok_tpu_torch.ops.blocks import Dense, Quant4Dense, QuantDense
@@ -45,13 +50,8 @@ from setok_tpu_torch.utils.device import resolve_device
 NEG_INF = -1e30
 
 NOT_PORTED = {
-    "use_flash": "the flash-attention kernel runs only in the stage-2 "
-                 "training forward: ROADMAP.md, Queue A (stage-2 training) "
-                 "and Queue B row 10",
-    "ring_mesh": "sequence-parallel training: ROADMAP.md, Queue A (stage-2 "
-                 "training)",
-    "remat": "rematerialisation is a training option: ROADMAP.md, Queue A "
-             "(stage-2 training)",
+    "ring_mesh": "sequence-parallel training: ROADMAP.md, Queue A "
+                 "(parallel)",
     "row_weights": "calibrated int4 scale search: ROADMAP.md, Queue A "
                    "(serving features)",
 }
@@ -163,11 +163,13 @@ def write_index(start, l: int, s: int, b: int, device):
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32,
                  weight_bits: int = 16, quant_group: int = 0,
-                 cache_kernel: bool = False, device=None):
+                 cache_kernel: bool = False, use_flash: bool = False,
+                 device=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.cache_kernel = cache_kernel
+        self.use_flash = use_flash
         dense = _dense(weight_bits, quant_group, dtype, device)
         hd = cfg.head_dim
         self.q_proj = dense(cfg.hidden_size, cfg.num_heads * hd)
@@ -221,6 +223,12 @@ class LlamaAttention(nn.Module):
         if groups > 1:
             k = k.repeat_interleave(groups, dim=2)
             v = v.repeat_interleave(groups, dim=2)
+        if self.use_flash and cache_kv is None:
+            out = fa.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                mask[:, 0], 1.0 / math.sqrt(hd))
+            out = out.transpose(1, 2).to(self.dtype)
+            return self.o_proj(out.reshape(b, l, h * hd))
         attn = torch.einsum("blhd,bshd->bhls", q, k) / torch.tensor(
             math.sqrt(hd), dtype=q.dtype, device=q.device)
         attn = torch.where(mask, attn.float(), NEG_INF)
@@ -245,13 +253,15 @@ class LlamaMLP(nn.Module):
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32,
                  weight_bits: int = 16, quant_group: int = 0,
-                 cache_kernel: bool = False, device=None):
+                 cache_kernel: bool = False, use_flash: bool = False,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, weight_bits=weight_bits,
                   quant_group=quant_group, device=device)
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                   dtype=dtype, device=device)
-        self.attn = LlamaAttention(cfg, cache_kernel=cache_kernel, **kw)
+        self.attn = LlamaAttention(cfg, cache_kernel=cache_kernel,
+                                   use_flash=use_flash, **kw)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                       dtype=dtype, device=device)
         self.mlp = LlamaMLP(cfg, **kw)
@@ -288,15 +298,17 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32,
                  weight_bits: int = 16, quant_group: int = 0,
-                 cache_kernel: bool = False, device=None):
+                 cache_kernel: bool = False, use_flash: bool = False,
+                 remat: bool = False, device=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", LlamaBlock(
                 cfg, dtype=dtype, weight_bits=weight_bits,
                 quant_group=quant_group, cache_kernel=cache_kernel,
-                device=device))
+                use_flash=use_flash, device=device))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                   dtype=dtype, device=device)
 
@@ -310,13 +322,18 @@ class LlamaModel(nn.Module):
             positions, cfg.head_dim, cfg.rope_theta))
         index = (None if cache is None else
                  write_index(cache.length, l, cache.k.shape[2], b, x.device))
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(cfg.num_layers):
+            block = getattr(self, f"layer_{i}")
+            if remat:
+                x = checkpoint(block, x, mask, rope, use_reentrant=False)
+                continue
             cache_kv = None
             if cache is not None:
                 cache_kv = (cache.k[i], cache.v[i],
                             None if cache.k_scale is None else cache.k_scale[i],
                             None if cache.v_scale is None else cache.v_scale[i])
-            x = getattr(self, f"layer_{i}")(x, mask, rope, cache_kv, index)
+            x = block(x, mask, rope, cache_kv, index)
         x = self.final_norm(x)
         if cache is not None:
             cache = cache._replace(length=cache.length + inputs_embeds.shape[1])
@@ -331,7 +348,7 @@ class LlamaForCausalLM(nn.Module):
                  cache_kernel: bool = False, use_flash: bool = False,
                  ring_mesh: Any = None, remat: bool = False, device=None):
         super().__init__()
-        refuse(use_flash=use_flash, ring_mesh=ring_mesh, remat=remat)
+        refuse(ring_mesh=ring_mesh)
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
@@ -339,7 +356,9 @@ class LlamaForCausalLM(nn.Module):
                                          device=device)
         self.model = LlamaModel(cfg, dtype=dtype, weight_bits=weight_bits,
                                 quant_group=quant_group,
-                                cache_kernel=cache_kernel, device=device)
+                                cache_kernel=cache_kernel,
+                                use_flash=use_flash, remat=remat,
+                                device=device)
         self.lm_head = (None if cfg.tie_embeddings else
                         Dense(cfg.hidden_size, cfg.vocab_size, bias=False,
                               dtype=dtype, device=device))
@@ -358,7 +377,8 @@ class LlamaForCausalLM(nn.Module):
 
     @torch.inference_mode()
     def forward(self, input_ids, valid=None, cache: Optional[KVCache] = None):
-        """→ (logits, hidden, new cache or None)."""
+        """→ (logits, hidden, new cache or None), for serving callers (a
+        training forward calls `model` and `logits` itself)."""
         if valid is None:
             valid = torch.ones(input_ids.shape, dtype=torch.bool,
                                device=input_ids.device)

@@ -126,7 +126,8 @@ class QFormer(nn.Module):
                 has_cross_attention=(i % cross_attention_freq == 0),
                 quant8=quant8, dtype=dtype, device=device))
 
-    @torch.inference_mode()
+    # frozen in every path the port trains so far (stage-2)
+    @torch.no_grad()
     def forward(self, query_embeds, encoder_hidden_states,
                 encoder_attention_mask: Optional[torch.Tensor] = None):
         h = self.embed_norm(query_embeds.to(self.dtype))

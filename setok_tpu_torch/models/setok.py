@@ -40,6 +40,7 @@ class SeTok(nn.Module):
         self.detokenizer = SetokDeTokenizer(det_cfg, quant8=quant8,
                                             dtype=dtype, device=device)
 
+    @torch.inference_mode()
     def forward(self, images: torch.Tensor,
                 token_mask: Optional[torch.Tensor] = None) -> SetokOutput:
         """images: (B, H, W, 3) NHWC in [-1, 1] → SetokOutput."""

@@ -13,6 +13,12 @@ the card; every other case runs ops.clustering.cluster_dpc_knn.
 
 `quant8=True` (inference only) passes to the ViT and the two Blocks, which
 then run the fused int8 sublayer kernels and return float32.
+
+A `generator` runs the Blocks' dropout (`proj_drop`, `attn_drop`), as the
+JAX package's `deterministic=False` does. The tower is frozen in every path
+the port trains so far (stage-2: the JAX package stops the ViT's gradient
+and drops the rest), so its methods run under `torch.no_grad()` and hand
+out plain tensors that a trainable module downstream takes as constants.
 """
 
 from __future__ import annotations
@@ -60,11 +66,13 @@ class SetokTokenizer(nn.Module):
                             ("inter_encoder", cfg.intra_cluster_layers)):
             self.add_module(name, Block(
                 cfg.hidden_dim, cfg.nheads, cfg.dim_feedforward, depth=depth,
-                norm_eps=1e-5, quant8=quant8, dtype=dtype, device=device))
+                norm_eps=1e-5, proj_drop=cfg.proj_drop,
+                attn_drop=cfg.attn_drop, quant8=quant8, dtype=dtype,
+                device=device))
         self.out = Dense(cfg.hidden_dim, cfg.token_feat_dim, dtype=dtype,
                          device=device)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_features(self, images: torch.Tensor) -> torch.Tensor:
         """ViT features + 2-D sin-cos encoding, (B, N, hidden_dim)."""
         feats = self.image_feature_encoder(images)
@@ -72,7 +80,7 @@ class SetokTokenizer(nn.Module):
             feats = self.feat_proj(feats)
         return feats + self.pos.to(feats.dtype)[None]
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def cluster(self, x: torch.Tensor,
                 token_mask: Optional[torch.Tensor] = None,
                 threshold: Optional[float] = None,
@@ -92,15 +100,17 @@ class SetokTokenizer(nn.Module):
                                threshold=thr, token_mask=token_mask,
                                dist_norm=cfg.cluster_dist_norm)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def group_encode(self, x: torch.Tensor, res: ClusterResult,
-                     token_mask: Optional[torch.Tensor] = None
+                     token_mask: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
                      ) -> TokenizerOutput:
         """Masked inner Block, segment mean, inter Block and output linear
         over features x: (B, N, D) given their clustering."""
         k_max = self.cfg.k_max
         grouped = self.inner_encoder(
-            x, mask=same_cluster_mask(res.idx_cluster, token_mask))
+            x, mask=same_cluster_mask(res.idx_cluster, token_mask),
+            generator=generator)
         valid_tokens = (token_mask if token_mask is not None
                         else torch.ones(x.shape[:2], dtype=x.dtype,
                                         device=x.device))
@@ -108,7 +118,8 @@ class SetokTokenizer(nn.Module):
                                       valid_tokens)
         cluster_valid = counts > 0
         inter_mask = cluster_valid[:, None, :] & cluster_valid[:, :, None]
-        tokens = self.out(self.inter_encoder(pooled, mask=inter_mask))
+        tokens = self.out(self.inter_encoder(pooled, mask=inter_mask,
+                                             generator=generator))
         tokens = tokens * cluster_valid[..., None].to(tokens.dtype)
         return TokenizerOutput(tokens=tokens, token_valid=cluster_valid,
                                idx_cluster=res.idx_cluster, score=res.score,
@@ -117,16 +128,23 @@ class SetokTokenizer(nn.Module):
     def tokenize_features(self, x: torch.Tensor,
                           token_mask: Optional[torch.Tensor] = None,
                           threshold: Optional[float] = None,
-                          k: Optional[int] = None) -> TokenizerOutput:
+                          k: Optional[int] = None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> TokenizerOutput:
         """Cluster + group-encode pre-computed features x: (B, N, D)."""
         res = self.cluster(x, token_mask=token_mask, threshold=threshold, k=k)
-        return self.group_encode(x, res, token_mask=token_mask)
+        return self.group_encode(x, res, token_mask=token_mask,
+                                 generator=generator)
 
     def forward(self, images: torch.Tensor,
                 token_mask: Optional[torch.Tensor] = None,
                 threshold: Optional[float] = None,
-                k: Optional[int] = None) -> TokenizerOutput:
-        """images: (B, H, W, 3) → TokenizerOutput."""
+                k: Optional[int] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> TokenizerOutput:
+        """images: (B, H, W, 3) → TokenizerOutput; `generator` runs the
+        Blocks' dropout."""
         return self.tokenize_features(self.encode_features(images),
                                       token_mask=token_mask,
-                                      threshold=threshold, k=k)
+                                      threshold=threshold, k=k,
+                                      generator=generator)

@@ -85,7 +85,8 @@ class ViT(nn.Module):
                 c, cfg.num_heads, cfg.mlp_ratio, quant8=quant8, dtype=dtype,
                 device=device))
 
-    @torch.inference_mode()
+    # frozen wherever the port runs it (the JAX package stops its gradient)
+    @torch.no_grad()
     def forward(self, images: torch.Tensor,
                 select_layer: Optional[int] = None) -> torch.Tensor:
         cfg = self.cfg

@@ -26,6 +26,18 @@ does not have yet: the block raises `NotImplementedError`.
 `QuantDense` and `Quant4Dense` are the serving trunk's linears, whose
 weights live quantised (int8, or packed int4) as buffers; their forward is
 the w8a8 / w4a8 kernel of `kernels/quant_matmul.py`.
+
+Dropout sits where the flax `nn.Dropout` sites are (`Attention`'s
+`attn_drop` on the probabilities and `proj_drop` on the output, `Mlp`'s
+`drop` after the activation and after fc2). It runs only when the forward
+is given a `torch.Generator` (the JAX package's `deterministic=False` with
+a dropout key); without one the blocks are deterministic. Its bits are the
+generator's, not JAX's.
+
+A `Dense` may carry a LoRA adapter (`train/lora.py`): its weight is then
+`W + (alpha/r)·(A@B)ᵀ`, formed in float32 at each use and cast to the
+compute type, the numerics of the JAX package's `apply_lora` on the
+(in, out) kernel.
 """
 
 from __future__ import annotations
@@ -56,18 +68,39 @@ def check_int8_route(fits: bool, what: str) -> None:
         raise NotImplementedError(f"{what}: {UNFUSED_INT8}")
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: keep with probability 1 - rate, kept values
+    divided by 1 - rate. The identity without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class Dense(nn.Linear):
-    """`nn.Linear` that computes in `dtype` (float32 parameters)."""
+    """`nn.Linear` that computes in `dtype` (float32 parameters), with an
+    optional LoRA adapter (`lora`: the (A (in, r), B (r, out), alpha/r)
+    that `train.lora.apply_lora` attaches; kept out of the module's
+    parameters and state dict)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  *, dtype=torch.float32, device=None):
         super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = dtype
+        self.__dict__["lora"] = None
+
+    def effective_weight(self) -> torch.Tensor:
+        """The (out, in) weight in use: W, or W + scale·(A@B)ᵀ in float32."""
+        if self.lora is None:
+            return self.weight
+        a, b, scale = self.lora
+        return self.weight + scale * (a @ b).t()
 
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return F.linear(x.to(dt), self.effective_weight().to(dt), bias)
 
     def int8(self) -> QuantizedWeight:
         """The weight quantised per output channel. Cached until the weight
@@ -154,16 +187,20 @@ class Mlp(nn.Module):
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None, *,
-                 gelu_exact: bool = True, dtype=torch.float32, device=None):
+                 gelu_exact: bool = True, drop: float = 0.0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.approximate = "none" if gelu_exact else "tanh"
+        self.drop = drop
         self.fc1 = Dense(in_features, hidden_features, dtype=dtype,
                          device=device)
         self.fc2 = Dense(hidden_features, out_features or in_features,
                          dtype=dtype, device=device)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = dropout(F.gelu(self.fc1(x), approximate=self.approximate),
+                    self.drop, generator)
+        return dropout(self.fc2(x), self.drop, generator)
 
     def sublayer_int8(self, x, norm: LayerNorm):
         """x + MLP(norm(x)), the fused int8 kernel (tanh GELU, as the JAX
@@ -182,10 +219,11 @@ class Attention(nn.Module):
     """
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, dtype=torch.float32,
-                 device=None):
+                 qk_scale: Optional[float] = None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.qkv_bias = qkv_bias
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.dtype = dtype
@@ -193,7 +231,8 @@ class Attention(nn.Module):
                          device=device)
         self.proj = Dense(dim, dim, dtype=dtype, device=device)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         *batch, n, c = x.shape
         qkv = self.qkv(x).reshape(*batch, n, 3, self.num_heads,
                                   c // self.num_heads)
@@ -201,9 +240,10 @@ class Attention(nn.Module):
         scores = torch.matmul(q, k.transpose(-1, -2)) * self.scale
         if mask is not None and mask.dim() == scores.dim() - 1:
             mask = mask.unsqueeze(-3)
-        attn = masked_softmax(scores, mask).to(self.dtype)
+        attn = dropout(masked_softmax(scores, mask).to(self.dtype),
+                       self.attn_drop, generator)
         out = torch.matmul(attn, v).transpose(-3, -2).reshape(*batch, n, c)
-        return self.proj(out)
+        return dropout(self.proj(out), self.proj_drop, generator)
 
     def sublayer_int8(self, x, norm: LayerNorm, mask=None):
         """x + Attn(norm(x)), the fused int8 kernel."""
@@ -222,6 +262,7 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_hidden_dim: int, *,
                  depth: int = 1, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, norm_eps: float,
+                 proj_drop: float = 0.0, attn_drop: float = 0.0,
                  quant8: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.depth = depth
@@ -230,16 +271,22 @@ class Block(nn.Module):
         for i in range(depth):
             self.add_module(f"attn_{i}", Attention(
                 dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale,
-                dtype=dtype, device=device))
+                attn_drop=attn_drop, proj_drop=proj_drop, dtype=dtype,
+                device=device))
         self.norm2 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, mlp_hidden_dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, mlp_hidden_dim, drop=proj_drop, dtype=dtype,
+                       device=device)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         if self.quant8:
+            if generator is not None:
+                raise ValueError("quant8 is inference only: no dropout")
             return self._forward_int8(x, mask)
         for i in range(self.depth):
-            x = x + getattr(self, f"attn_{i}")(self.norm1(x), mask=mask)
-        return x + self.mlp(self.norm2(x))
+            x = x + getattr(self, f"attn_{i}")(self.norm1(x), mask=mask,
+                                               generator=generator)
+        return x + self.mlp(self.norm2(x), generator)
 
     def _forward_int8(self, x, mask):
         c = x.shape[-1]

@@ -18,18 +18,26 @@ conversions:
 Floating leaves become float32; integer leaves keep their type.
 `load_flax_params` is strict: every flax leaf fills exactly one parameter
 or buffer, and every one of the model's is filled, with the same shape and
-type. `skip` names the top-level subtrees the model does not hold (the
-Setokim port has no `diffloss` yet); any other unused leaf raises.
+type. `skip` names top-level subtrees the model does not hold; any other
+unused leaf raises.
+
+`lora_from_flax` carries the JAX package's LoRA tree ({flax kernel path:
+{'a': (in, r), 'b': (r, out)}}, paths such as
+"['params']['llama']['model']['layer_0']['attn']['q_proj']['kernel']") into
+the port's adapters ({module name: (A, B)}, the same layout), strictly.
 """
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Dict, Iterable
 
 import numpy as np
 import torch
 from torch import nn
+
+from setok_tpu_torch.ops.blocks import Dense
 
 
 def _leaves(tree, prefix=()):
@@ -39,6 +47,18 @@ def _leaves(tree, prefix=()):
             yield from _leaves(value, path)
         else:
             yield path, np.asarray(value)
+
+
+def flax_state_key(path) -> str:
+    """The state-dict key of a flax leaf path (a tuple of names, with or
+    without the leading 'params')."""
+    path = tuple(path)
+    if path and path[0] == "params":
+        path = path[1:]
+    *mod, leaf = path
+    if leaf in ("kernel", "scale", "embedding"):
+        leaf = "weight"
+    return ".".join([*mod, leaf])
 
 
 def from_flax(params, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
@@ -52,9 +72,8 @@ def from_flax(params, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
             path = path[1:]
         if path[0] in skip:
             continue
-        *mod, leaf = path
+        leaf = path[-1]
         if leaf == "kernel":
-            leaf = "weight"
             if value.ndim == 4:                 # HWIO conv → patchify matmul
                 value = value.reshape(-1, value.shape[-1])
             if value.ndim != 2:
@@ -66,9 +85,7 @@ def from_flax(params, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{'/'.join(path)}: int8 matrix expected, "
                                  f"got {value.dtype} {value.shape}")
             value = value.T
-        elif leaf in ("scale", "embedding"):
-            leaf = "weight"
-        key = ".".join([*mod, leaf])
+        key = flax_state_key(path)
         if key in state:
             raise KeyError(f"two flax leaves map to {key}")
         value = np.ascontiguousarray(value)
@@ -76,6 +93,33 @@ def from_flax(params, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
                       if np.issubdtype(value.dtype, np.integer)
                       else torch.tensor(value, dtype=torch.float32))
     return state
+
+
+def lora_from_flax(lora, model: nn.Module) -> Dict[str, tuple]:
+    """The JAX LoRA tree → {module name: (A, B)} float32 parameters on the
+    model's device. Every path must name a kernel of a `Dense` of `model`
+    and its factors fit that linear; anything else raises."""
+    mods = dict(model.named_modules())
+    out = {}
+    for path, ab in lora.items():
+        keys = re.findall(r"\['([^']*)'\]", path)
+        if keys[:1] == ["params"]:
+            keys = keys[1:]
+        name = ".".join(keys[:-1])
+        mod = mods.get(name)
+        if keys[-1:] != ["kernel"] or not isinstance(mod, Dense):
+            raise KeyError(f"LoRA path {path} names no Dense kernel of the "
+                           "model")
+        a, b = (np.asarray(ab[k], np.float32) for k in ("a", "b"))
+        if a.shape[0] != mod.in_features or b.shape[1] != mod.out_features \
+                or a.shape[1] != b.shape[0]:
+            raise ValueError(f"{path}: LoRA shapes {a.shape}, {b.shape} for "
+                             f"a {mod.in_features} → {mod.out_features} "
+                             "linear")
+        dev = mod.weight.device
+        out[name] = (nn.Parameter(torch.tensor(a, device=dev)),
+                     nn.Parameter(torch.tensor(b, device=dev)))
+    return out
 
 
 def load_flax_params(model: nn.Module, params,

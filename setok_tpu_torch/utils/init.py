@@ -1,4 +1,4 @@
-"""Seeded random weights."""
+"""Seeded random weights: the models' parameters and the LoRA adapters."""
 
 from __future__ import annotations
 
@@ -7,15 +7,23 @@ from torch import nn
 
 from setok_tpu_torch.models.llama import quantize_linear
 from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
+from setok_tpu_torch.train.lora import Lora, init_lora
 
 # parameters drawn from N(0, 0.02²), as their flax initializers are
 _EMBEDDINGS = ("pos_embed", "mask_tokens")
+_NORMAL_002 = ("time_embed.fc1.weight", "time_embed.fc2.weight")
+# the diffusion head's zero-initialised layers (its adaLN modulations and
+# its final projection)
+_ZEROS = ("adaLN.weight", "final_layer.linear.weight")
 
 
 def _draw(name: str, shape, gen: torch.Generator, device) -> torch.Tensor:
-    """Matrices LeCun-normal (std 1/sqrt(fan_in)), embeddings N(0, 0.02²),
-    norm weights 1, biases 0."""
-    if name.rsplit(".", 1)[-1] in _EMBEDDINGS:
+    """Matrices LeCun-normal (std 1/sqrt(fan_in)), embeddings and the
+    timestep MLP N(0, 0.02²), the diffusion head's modulations and final
+    projection 0, norm weights 1, biases 0."""
+    if name.endswith(_ZEROS):
+        return torch.zeros(shape, device=device)
+    if name.rsplit(".", 1)[-1] in _EMBEDDINGS or name.endswith(_NORMAL_002):
         return torch.randn(shape, generator=gen, device=device) * 0.02
     if len(shape) == 2:
         return (torch.randn(shape, generator=gen, device=device)
@@ -62,3 +70,11 @@ def init_setokim_random_(model: nn.Module, seed: int,
         for key, t in quantize_linear(w, bits, group, clip_search).items():
             getattr(mod, key).copy_(t)
     return model
+
+
+def init_lora_random(model: nn.Module, seed: int, rank: int) -> Lora:
+    """LoRA adapters for `model`'s trunk linears (train/lora.init_lora),
+    drawn on the model's device from a generator seeded with `seed`."""
+    device = next(model.parameters()).device
+    return init_lora(model, torch.Generator(device=device).manual_seed(seed),
+                     rank)

@@ -15,7 +15,11 @@ max-rel; the attentions 2e-3 max-rel with ≥ 99 % of the elements within
 which can flip a bf16 or int8 rounding step). The serving kernels:
 quant_matmul and quant4_matmul 1e-5 max-rel (exact int products, the same
 float epilogue); the int8-cache decode attention 2e-3 max-rel with ≥ 99 %
-of the elements within 1e-5 of the largest.
+of the elements within 1e-5 of the largest. The flash-attention kernels,
+with chip_smoke.flash_case's bars: the forward's o 2e-3 max-rel with ≥ 99 %
+within 1e-5 of the largest (p rounds to the input type before P.V), lse
+1e-5, dq/dk/dv 1e-4 (float32, sums in another order); a fully masked query
+row gives zeros.
 """
 
 import numpy as np
@@ -28,6 +32,7 @@ from setok_tpu_torch.kernels import cluster_dpc
 from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.kernels import cache_attention as ca
+from setok_tpu_torch.kernels import flash_attention as fa
 from setok_tpu_torch.kernels import quant_matmul as qm
 from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
                                            quant_matmul_plain,
@@ -199,3 +204,48 @@ def test_serving_routes_to_the_kernels(card, bits):
     assert qm.CALLS[name] == 7 * layers * (2 + 3)
     assert ca.LAUNCHES == layers * 3
     assert cluster_dpc.LAUNCHES == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("lq,lk,d", [(37, 37, 64), (70, 130, 128)])
+def test_flash_kernels_match_plain(card, dtype, lq, lk, d):
+    gen = torch.Generator(device=card).manual_seed(lq)
+    mask = torch.rand(2, lq, lk, generator=gen, device=card) > 0.3
+    mask[0, 5] = False                       # a fully masked query row
+    before = dict(fa.LAUNCHES)
+    chip_smoke.flash_case(2, 3, lq, lk, d, dtype, mask, seed=lq)
+    assert fa.LAUNCHES == {k: v + 1 for k, v in before.items()}
+
+
+def test_flash_trunk_trains_through_the_kernels(card):
+    """A 2-layer trunk with use_flash and remat: the kernels launch once
+    per layer for dq and dk/dv, twice for the forward (the recompute), and
+    the gradients agree with the plain route's."""
+    from setok_tpu_torch.models.llama import LlamaForCausalLM, \
+        make_attention_mask
+
+    cfg = cfgs.LlamaConfig(vocab_size=512, hidden_size=128,
+                           intermediate_size=256, num_layers=2, num_heads=2,
+                           num_kv_heads=2, head_dim=64)
+    model = init_random_(LlamaForCausalLM(cfg, use_flash=True, remat=True,
+                                          device=card), 0)
+    ids = torch.randint(1, 512, (2, 50), device=card)
+    valid = torch.ones_like(ids, dtype=torch.bool)
+    valid[1, 40:] = False
+    positions = torch.cumsum(valid.int(), 1) - 1
+    mask = make_attention_mask(valid, positions)
+
+    def grads():
+        hidden, _ = model.model(model.embed(ids), mask, positions)
+        loss = model.logits(hidden)[valid].float().logsumexp(-1).mean()
+        return torch.autograd.grad(loss, [model.model.layer_0.attn.q_proj
+                                          .weight])[0]
+
+    chip_smoke.reset_counts()
+    got = grads()
+    assert fa.LAUNCHES == {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}
+    with chip_smoke.plain_route():
+        want = grads()
+    assert fa.LAUNCHES["flash_fwd"] == 4
+    assert chip_smoke.max_rel(got, want) <= 1e-4

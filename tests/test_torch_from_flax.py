@@ -142,3 +142,49 @@ def test_type_mismatch_raises(llama_trees):
     attn["q_proj"]["s"] = attn["q_proj"]["s"].astype(np.int32)
     with pytest.raises(ValueError, match="q_proj.s"):
         load_flax_params(_llama(8), tree)
+
+
+def test_setokim_tree_with_diffloss_and_lora_loads_strictly():
+    """A tiny Setokim tree, diffloss included, fills the port's Setokim
+    with no skip; the JAX LoRA tree fills its adapters; a leaf or an
+    adapter path the port does not hold raises."""
+    from setok_tpu.constants import IMAGE_TOKEN_INDEX
+    from setok_tpu.models.setokim import Setokim as JSetokim
+    from setok_tpu.train.lora import init_lora as j_init_lora
+    from setok_tpu_torch.models.setokim import Setokim
+    from setok_tpu_torch.train.lora import lora_targets
+    from setok_tpu_torch.utils.from_flax import lora_from_flax
+
+    ids = np.zeros((1, 24), np.int64)
+    ids[0, 1:9] = IMAGE_TOKEN_INDEX
+    images = np.zeros((1, 32, 32, 3), np.float32)
+    jm = JSetokim(jcfg.tiny_setokim(), target_token_id=3)
+    params = jax.tree.map(np.asarray, jax.jit(lambda r: jm.init(
+        r, ids, images, ids, images, jax.random.PRNGKey(1),
+        method=jm.init_all))(jax.random.PRNGKey(0)))
+    assert "diffloss" in params["params"]
+    model = load_flax_params(Setokim(tcfg.tiny_setokim(), device="cpu"),
+                             params)
+    np.testing.assert_array_equal(
+        model.diffloss.net.res_0.mlp_fc1.weight.detach().numpy(),
+        params["params"]["diffloss"]["net"]["res_0"]["mlp_fc1"]["kernel"].T)
+
+    lora = jax.tree.map(np.asarray,
+                        j_init_lora(params, jax.random.PRNGKey(2), 4))
+    got = lora_from_flax(lora, model)
+    assert set(got) == set(lora_targets(model)) and len(got) == 14
+    path = "['params']['llama']['model']['layer_1']['mlp']['up_proj']['kernel']"
+    a, b = got["llama.model.layer_1.mlp.up_proj"]
+    np.testing.assert_array_equal(a.detach().numpy(), lora[path]["a"])
+    assert tuple(b.shape) == (4, 128)
+
+    stray = jax.tree.map(lambda x: x, params)
+    stray["params"]["diffloss"]["net"]["extra"] = {"bias": np.zeros(3)}
+    with pytest.raises(KeyError, match="unused"):
+        load_flax_params(Setokim(tcfg.tiny_setokim(), device="cpu"), stray)
+    bad = {path.replace("up_proj", "lm_head"): lora[path]}
+    with pytest.raises(KeyError, match="no Dense"):
+        lora_from_flax(bad, model)
+    wrong = {path: {"a": lora[path]["a"][:3], "b": lora[path]["b"]}}
+    with pytest.raises(ValueError, match="LoRA shapes"):
+        lora_from_flax(wrong, model)

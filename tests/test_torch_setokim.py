@@ -72,7 +72,7 @@ def port_model(params, bits=16, group=0, cache_kernel=False):
     model = Setokim(tcfg.tiny_setokim(), target_token_id=3, weight_bits=bits,
                     quant_group=group, cache_kernel=cache_kernel,
                     device="cpu")
-    return load_flax_params(model, params, skip=("diffloss",))
+    return load_flax_params(model, params)
 
 
 def run_jax(params, bits, group, cache_kernel, cache_dtype, ids, images):
@@ -172,8 +172,9 @@ def test_multi_image_splice_matches_jax(flax_params):
     w_emb, w_valid, w_pos = jm.apply(flax_params, jnp.asarray(ids),
                                      jnp.asarray(images),
                                      method=jm.prepare_multimodal)
-    emb, valid, pos = port_model(flax_params).prepare_multimodal(
-        torch.from_numpy(ids), torch.from_numpy(images))
+    with torch.no_grad():      # the splice is differentiable (training)
+        emb, valid, pos = port_model(flax_params).prepare_multimodal(
+            torch.from_numpy(ids), torch.from_numpy(images))
     np.testing.assert_array_equal(valid.numpy(), np.asarray(w_valid))
     np.testing.assert_array_equal(pos.numpy(), np.asarray(w_pos))
     assert max_rel(emb, w_emb) <= 1e-4
