@@ -23,6 +23,21 @@ the last line:
   throughput    the full forward in images/s at B=64: float32, bf16, and
                 int8 with bf16 glue (the form bench.py times on the TPU),
                 and one profiled forward each (device time by kernel kind);
+  unfused_kernels  the unfused int8 route's kernels against their plain
+                versions at every path shape: fused_mlp_int8 (576 tokens
+                of 768, hidden 3072) and fused_attention_int8 (2 heads of
+                384, the inner Block's cluster mask at N=256 and the inter
+                Block's validity mask with fully masked rows at N=80), and
+                quant_matmul at the Dense shapes of the three
+                configurations below; times, bounds, plain times;
+  forward_unfused  the int8 forward of base @384, base with a 4096-wide
+                tokenizer MLP (full depth, B=2) and so400m (full width,
+                ViT depth 4, decoder depth 2), card against CPU stage by
+                stage, calls per forward against expected_calls; then the
+                full-depth so400m forward on the card alone;
+  throughput_unfused  img/s of the three configurations, bf16 beside int8
+                with bf16 glue (B=64, 64, 8), a profiled forward each,
+                peak memory;
   serve_kernels quant_matmul (w8) and quant4_matmul (w4, per channel and
                 group 128) at the seven Vicuna-7B trunk linears, decode
                 M=4 and prefill M=512 rows, and the int8-cache decode
@@ -87,7 +102,9 @@ from setok_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from setok_tpu_torch.kernels import _build, cluster_dpc
 from setok_tpu_torch.kernels import cache_attention as ca
 from setok_tpu_torch.kernels import flash_attention as fa
+from setok_tpu_torch.kernels import fused_attention_int8 as fai
 from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
+from setok_tpu_torch.kernels import fused_mlp as fm
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.kernels import quant_matmul as qm
 from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
@@ -141,6 +158,10 @@ INT8_SOURCES = {
         "setok_tpu/kernels/fused_bert_attention_int8.py:100"),
     "mlp_postnorm_int8": ("setok_tpu_torch/csrc/fused_sublayer.cu",
                           "setok_tpu/kernels/fused_sublayer.py:304"),
+    "fused_mlp_int8": ("setok_tpu_torch/csrc/fused_mlp.cu",
+                       "setok_tpu/kernels/fused_mlp.py:46"),
+    "fused_attention_int8": ("setok_tpu_torch/csrc/fused_attention_int8.cu",
+                             "setok_tpu/kernels/fused_attention_int8.py:84"),
 }
 
 
@@ -395,20 +416,21 @@ def int8_bound(name: str, args) -> tuple:
                                        else "bytes")
 
 
-def check_int8_case(name, label, kernel, plain, args, kw) -> dict:
+def check_int8_case(name, label, kernel, plain, args, kw,
+                    phase: str = "kernels") -> dict:
     got = kernel(*args, **kw)
     torch.cuda.synchronize()
     want = plain(*args, **kw)
     diff = (got.double() - want.double()).abs()
     scale = float(want.abs().max())
-    case = {"phase": "kernels", "kernel": name, "shape": label,
+    case = {"phase": phase, "kernel": name, "shape": label,
             "input": list(args[0].shape), "max_rel": float(diff.max()) / scale,
             "max_abs": float(diff.max()),
             "share_within_1e-5": float((diff <= 1e-5 * scale).double().mean()),
             "finite": bool(torch.isfinite(got).all())}
     emit(case)
     check(case["finite"], f"{name} {label}: output not finite")
-    if name in ("mlp_sublayer_int8", "mlp_postnorm_int8"):
+    if name in ("mlp_sublayer_int8", "mlp_postnorm_int8", "fused_mlp_int8"):
         check(case["max_rel"] <= INT8_MLP_TOL,
               f"{name} {label}: max-rel {case['max_rel']} > {INT8_MLP_TOL}")
     else:
@@ -503,20 +525,30 @@ def reset_counts() -> None:
     cluster_dpc.LAUNCHES = 0
     fs.reset_counts()
     fba.reset_counts()
+    fm.reset_counts()
+    fai.reset_counts()
     qm.reset_counts()
     ca.reset_counts()
     fa.reset_counts()
 
 
 def int8_counts() -> tuple:
-    """(wrapper calls that launched, CUDA launches) per int8 kernel."""
-    return ({**fs.CALLS, **fba.CALLS}, {**fs.LAUNCHES, **fba.LAUNCHES})
+    """(wrapper calls that launched, CUDA launches) per int8 kernel of the
+    SeTok forward, `quant_matmul` included."""
+    mods = (fs, fba, fm, fai)
+    calls = {k: v for m in mods for k, v in m.CALLS.items()}
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    calls["quant_matmul"] = qm.CALLS["quant_matmul"]
+    launches["quant_matmul"] = qm.LAUNCHES["quant_matmul"]
+    return calls, launches
 
 
 def staged_forward(cpu_model: SeTok, gpu_model: SeTok, seed: int,
-                   tol: float, name: str) -> dict:
-    """The main path once on the card at B=4, every count reset just before
-    it and read just after, then card vs CPU stage by stage: (a) features;
+                   tol: float, name: str, batch: int = 4,
+                   config: str = "base_tokenizer/base_detokenizer") -> dict:
+    """The main path once on the card at B=batch, every count reset just
+    before it and read just after, then card vs CPU stage by stage: (a)
+    features;
     (b) the card's clustering of the card's features against the plain
     version on the same features on the CPU (and that plain route against
     ops.clustering's), held by the near-tie rule; (c) group encoding +
@@ -525,7 +557,7 @@ def staged_forward(cpu_model: SeTok, gpu_model: SeTok, seed: int,
     tok_cfg = gpu_model.tokenizer.cfg
     size = tok_cfg.vit.image_size
     images = np.random.RandomState(seed).uniform(
-        -1.0, 1.0, (4, size, size, 3)).astype(np.float32)
+        -1.0, 1.0, (batch, size, size, 3)).astype(np.float32)
     img_c = torch.from_numpy(images)
     img_g = img_c.cuda()
 
@@ -534,7 +566,9 @@ def staged_forward(cpu_model: SeTok, gpu_model: SeTok, seed: int,
     torch.cuda.synchronize()
     calls, launches = int8_counts()
     launches["dpc_density_parent"] = cluster_dpc.LAUNCHES
-    check(tuple(out.recon.shape) == (4, size, size, 3)
+    det_cfg = gpu_model.detokenizer.cfg
+    det_size = det_cfg.grid * det_cfg.patch_size
+    check(tuple(out.recon.shape) == (batch, det_size, det_size, 3)
           and bool(torch.isfinite(out.recon).all())
           and bool(torch.isfinite(out.tokens).all()),
           f"{name} output has the wrong shape or is not finite")
@@ -559,9 +593,9 @@ def staged_forward(cpu_model: SeTok, gpu_model: SeTok, seed: int,
            "recon_max_rel": max_rel(det_g.image, det_c.image),
            "forward_vs_staged_recon_max_rel": max_rel(out.recon,
                                                       det_g.image)}
-    emit({"phase": name, "config": "base_tokenizer/base_detokenizer",
+    emit({"phase": name, "config": config,
           "params": sum(p.numel() for p in gpu_model.parameters()),
-          "batch": 4, "calls": calls, "launches": launches,
+          "batch": batch, "calls": calls, "launches": launches,
           "clusters": compare_clusters(res_gc, res_p, f_gc, tok_cfg),
           "num_clusters": res_g.num_clusters.tolist(),
           "plain_vs_ops_route": compare_clusters(res_p, res_x, f_gc, tok_cfg),
@@ -598,8 +632,9 @@ def phase_forward_int8(cpu_model: SeTok, gpu_model: SeTok) -> dict:
 
 def images_per_sec(model: SeTok, images: torch.Tensor, n_small: int,
                    n_big: int) -> dict:
-    """As bench.py: forwards chained through the clipped reconstruction;
-    the per-batch time is the slope between two chain lengths."""
+    """As bench.py: forwards chained through the clipped reconstruction
+    (or, where its size differs from the input's, through its mean); the
+    per-batch time is the slope between two chain lengths."""
 
     def chain(n):
         x = images
@@ -608,7 +643,9 @@ def images_per_sec(model: SeTok, images: torch.Tensor, n_small: int,
         start.record()
         for _ in range(n):
             out = model(x)
-            x = out.recon.clamp(-1, 1).to(images.dtype)
+            r = out.recon.clamp(-1, 1).to(images.dtype)
+            # so400m: 384 px in, 252 px out; chain through a scalar there
+            x = r if r.shape == x.shape else images + r.mean()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / 1e3, out
@@ -645,6 +682,274 @@ def phase_throughput(gpu_model: SeTok) -> None:
         check(res["images_per_sec"] > 0, "throughput slope is not positive")
         emit({"phase": "profile", "dtype": name, "batch": batch,
               **device_time_breakdown(lambda: model(images))})
+
+
+# ----------------------------------------------------------------------------
+# the unfused int8 route: base @384, a 4096-wide tokenizer MLP, so400m
+
+UNFUSED_KERNELS = ("fused_mlp_int8", "fused_attention_int8")
+# the Dense shapes of quant_matmul on these paths: (label, K, N)
+DENSE_SHAPES = (("vit384 qkv", 768, 2304), ("vit384 proj", 768, 768),
+                ("ff4096 fc1", 768, 4096), ("ff4096 fc2", 4096, 768),
+                ("so400m qkv", 1152, 3456), ("so400m proj", 1152, 1152),
+                ("so400m fc1", 1152, 4304), ("so400m fc2", 4304, 1152))
+SO400M_BATCH = 8                 # bench.py's batch at that scale
+# rows of a Dense call at the throughput batch: B=64 images of 576 and 256
+# tokens, B=8 of 729
+DENSE_ROWS = {"vit384": 64 * 576, "ff4096": 64 * 256,
+              "so400m": SO400M_BATCH * 729}
+
+
+def unfused_configs() -> dict:
+    """The slice's three configurations, built as eval_recon.py and
+    bench.py build them: base at 384 px (ViT and detokenizer image_size),
+    base with the reference tokenizer's 4096-wide MLP, and so400m."""
+    tok, det = cfgs.base_tokenizer(), cfgs.base_detokenizer()
+    return {
+        "base384": (cfgs.replace(tok, vit=cfgs.replace(tok.vit,
+                                                       image_size=384)),
+                    cfgs.replace(det, image_size=384)),
+        "ff4096": (cfgs.replace(tok, dim_feedforward=4096), det),
+        "so400m": (cfgs.so400m_tokenizer(), cfgs.so400m_detokenizer()),
+    }
+
+
+def unfused_cases(b: int, device, seed: int = SEED, shapes: str = "path"):
+    """(name, label, kernel, plain version, args, kwargs) for rows 6 and 7
+    at their path shapes, B images: fused_mlp_int8 at 576 tokens of 768
+    (the ViT, the inner Block and the decoder at 384 px), and
+    fused_attention_int8 with 2 heads of 384 at the inner Block (N=256,
+    the same-cluster mask) and the inter Block (N=80, the validity mask
+    with fully masked rows). shapes="timing": the MLP and the inner
+    attention."""
+    rs = np.random.RandomState(seed + 5)
+    c, hid = 768, 3072
+
+    def x(n):
+        return torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(
+            device)
+
+    def mlp(label, n):
+        args = (x(n), _weight(rs, hid, c, device), _vec(rs, hid, device),
+                _weight(rs, c, hid, device), _vec(rs, c, device))
+        return ("fused_mlp_int8", label, fm.fused_mlp_int8,
+                fm.fused_mlp_int8_reference, args, {})
+
+    def attn(label, n, mask):
+        args = (x(n), _weight(rs, 3 * c, c, device), _vec(rs, 3 * c, device),
+                _weight(rs, c, c, device), _vec(rs, c, device), 2)
+        return ("fused_attention_int8", label, fai.fused_attention_int8,
+                fai.fused_attention_int8_reference, args, {"mask": mask})
+
+    inner, inter, _ = blob_masks(b, device)
+    if shapes == "timing":
+        return [mlp("384px", 576), attn("inner", 256, inner)]
+    return [mlp("384px", 576), attn("inner", 256, inner),
+            attn("inter", 80, inter), attn("unmasked", 256, None)]
+
+
+def unfused_bound(name: str, args) -> tuple:
+    """(bound ms, bound_by) of one call: int8 operations over the int8
+    peak plus the f32 attention products over the f32 peak, against the
+    bytes (f32 input and output, int8 weights, f32 scales and biases, the
+    byte mask, each once). The products count only the unmasked score
+    cells, as flash_bounds does: a masked cell adds an exact 0."""
+    x = args[0]
+    c = x.shape[-1]
+    rows = x.numel() // c
+    if name == "fused_mlp_int8":
+        hid, c_out = args[1].values.shape[0], args[3].values.shape[0]
+        int8, f32 = 2.0 * rows * hid * (c + c_out), 0.0
+        nbytes = 4.0 * rows * (c + c_out) + hid * (c + c_out) \
+            + 8.0 * (hid + c_out)
+    else:
+        b, n, _ = x.shape
+        mask = args[6] if len(args) > 6 else None
+        int8 = 8.0 * rows * c * c                 # qkv (3C) and proj (C)
+        cells = float(b * n * n) if mask is None else float(mask.sum())
+        f32 = 4.0 * cells * c                     # scores and PV, all heads
+        nbytes = 8.0 * rows * c + 4 * c * c + 32.0 * c
+        nbytes += 0 if mask is None else b * n * n
+    t_ops = int8 / PEAK_INT8_OPS + f32 / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_unfused_kernels(b_check: int = 3, b_time: int = 64) -> dict:
+    """Rows 6 and 7 against their plain versions at every path shape
+    (B=b_check: 1728 rows, not a multiple of the 128-row tile), with the
+    launches of one call; row 8 at the Dense shapes of these paths; then
+    each kernel's time, plain time and bound at the throughput batch.
+    Returns the kernels-line entries of rows 6 and 7 and row 8's timings
+    at the Dense shapes."""
+    dev = torch.device("cuda")
+    errs = dict.fromkeys(UNFUSED_KERNELS, 0.0)
+    steps = {"fused_mlp_int8": 4, "fused_attention_int8": 5}
+    for case in unfused_cases(b_check, dev):
+        name = case[0]
+        before = int8_counts()[1][name]
+        res = check_int8_case(*case, phase="unfused_kernels")
+        launched = int8_counts()[1][name] - before
+        check(launched == steps[name],
+              f"{name}: {launched} launches for one call, not {steps[name]}")
+        errs[name] = max(errs[name], res["max_abs"])
+        if case[1] == "inter":
+            # a fully masked query row attends to nothing: out = b_proj
+            args, mask = case[4], case[5]["mask"]
+            rows = ~mask.any(-1)
+            got = case[2](*args, **case[5])
+            check(bool(rows.any()) and torch.equal(
+                got[rows], args[4].expand(int(rows.sum()), -1)),
+                "fused_attention_int8: a fully masked row is not b_proj")
+
+    entries = {}
+    for name, label, kernel, plain, args, kw in unfused_cases(
+            b_time, dev, shapes="timing"):
+        ms = time_ms(lambda: kernel(*args, **kw))
+        plain_ms = time_ms(lambda: plain(*args, **kw), reps=5, warmup=1)
+        bound_ms, bound_by = unfused_bound(name, (*args, kw.get("mask")))
+        source, replaces = INT8_SOURCES[name]
+        entries[name] = {"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": None,
+                         "max_abs_err": errs[name], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None,
+                         "timing": f"{label}, input "
+                                   f"{list(args[0].shape)}"}
+        emit({"phase": "unfused_kernels", "kernel": name,
+              "timing_shape": label, "input": list(args[0].shape),
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by})
+        del args
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    dense = []
+    for label, k, n in DENSE_SHAPES:
+        w = quantize_weight(torch.randn(n, k, generator=gen, device=dev)
+                            * k ** -0.5)
+        for m in (b_check * 243, DENSE_ROWS[label.split()[0]]):
+            x = torch.randn(m, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            got = qm.quant_matmul(x, w, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            case = check_close("quant_matmul", f"{label} M={m}", got,
+                               quant_matmul_plain(x, w, torch.float32),
+                               QUANT_TOL)
+            case["phase"] = "unfused_kernels"
+            if m != b_check * 243:
+                t_bytes, t_ops = quant_bound(m, k, n, 8, 1)
+                case.update(
+                    ms=time_ms(lambda: qm.quant_matmul(x, w)),
+                    plain_ms=time_ms(lambda: quant_matmul_plain(x, w),
+                                     reps=5, warmup=1),
+                    library_ms=time_ms(library_int_mm(x.float(),
+                                                      w.values)),
+                    bound_ms=1e3 * max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+                dense.append({"shape": case["shape"], "K": k, "N": n,
+                              **{key: case[key] for key in (
+                                  "ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by", "max_abs")}})
+            emit(case)
+    return {"entries": entries, "dense": dense}
+
+
+def expect_calls(name: str, counts: dict, tok_cfg, det_cfg) -> None:
+    want = expected_calls(tok_cfg, det_cfg)
+    check(counts["calls"] == want,
+          f"{name}: int8 calls per forward {counts['calls']}, expected "
+          f"{want}")
+
+
+def so400m_cut(tok_cfg, det_cfg):
+    """so400m at full width with the depth cut for the CPU comparison: ViT
+    depth 4 (select_layer -2: 3 blocks run), decoder depth 2."""
+    return (cfgs.replace(tok_cfg, vit=cfgs.replace(tok_cfg.vit, depth=4)),
+            cfgs.replace(det_cfg, decoder_depth=2))
+
+
+def phase_forward_unfused() -> dict:
+    """Each configuration's int8 forward (quant8=True) on the card against
+    the same weights on the CPU, stage by stage, and its calls per forward
+    against `expected_calls`: base @384 and ff4096 at full depth, so400m
+    at full width with the depth cut; then the full-depth so400m forward
+    on the card alone (shapes, finite output, calls). Returns each run's
+    counts."""
+    runs = {}
+    for name, (tok_cfg, det_cfg) in unfused_configs().items():
+        if name == "so400m":
+            tok_cfg, det_cfg = so400m_cut(tok_cfg, det_cfg)
+        cpu8 = init_random_(SeTok(tok_cfg, det_cfg, device="cpu",
+                                  quant8=True), SEED)
+        gpu8 = SeTok(tok_cfg, det_cfg, quant8=True)
+        gpu8.load_state_dict(cpu8.state_dict())
+        label = name if name != "so400m" else "so400m, ViT depth 4, decoder 2"
+        counts = staged_forward(cpu8, gpu8, SEED + 2, FWD_INT8_TOL,
+                                "forward_unfused", batch=2, config=label)
+        expect_calls(name, counts, tok_cfg, det_cfg)
+        runs[name] = counts
+        del cpu8, gpu8
+        torch.cuda.empty_cache()
+
+    tok_cfg, det_cfg = unfused_configs()["so400m"]
+    model = init_setokim_random_(SeTok(tok_cfg, det_cfg, quant8=True), SEED)
+    size = tok_cfg.vit.image_size
+    images = torch.rand(2, size, size, 3, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(SEED)) * 2 - 1
+    reset_counts()
+    out = model(images)
+    torch.cuda.synchronize()
+    calls, launches = int8_counts()
+    det_size = det_cfg.grid * det_cfg.patch_size
+    ok = (tuple(out.recon.shape) == (2, det_size, det_size, 3)
+          and tuple(out.tokens.shape) == (2, tok_cfg.k_max,
+                                          tok_cfg.token_feat_dim)
+          and bool(torch.isfinite(out.recon).all())
+          and bool(torch.isfinite(out.tokens).all()))
+    emit({"phase": "forward_unfused", "config": "so400m, full depth",
+          "params": sum(p.numel() for p in model.parameters()), "batch": 2,
+          "calls": calls, "launches": launches,
+          "num_clusters": out.num_clusters.tolist(),
+          "recon_shape": list(out.recon.shape), "finite_and_shaped": ok})
+    check(ok, "so400m: output has the wrong shape or is not finite")
+    expect_calls("so400m", {"calls": calls}, tok_cfg, det_cfg)
+    runs["so400m_full"] = {"calls": calls, "launches": launches}
+    del model, out
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_throughput_unfused() -> None:
+    """img/s by the slope method for each configuration, bf16 beside int8
+    with bf16 glue, one profiled forward each and the peak memory: base
+    @384 and ff4096 at B=64, so400m at B=8. Weights random from the seed,
+    drawn on the card."""
+    batches = {"base384": 64, "ff4096": 64, "so400m": SO400M_BATCH}
+    for name, (tok_cfg, det_cfg) in unfused_configs().items():
+        batch, size = batches[name], tok_cfg.vit.image_size
+        images = torch.rand(batch, size, size, 3, device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(SEED)) * 2 - 1
+        for dtype_name, quant8 in (("bfloat16", False), ("int8", True)):
+            # the same weights twice: the draw is a function of the seed
+            model = init_setokim_random_(
+                SeTok(tok_cfg, det_cfg, dtype=torch.bfloat16, quant8=quant8),
+                SEED)
+            torch.cuda.reset_peak_memory_stats()
+            res = images_per_sec(model, images, 2, 8)
+            emit({"phase": "throughput_unfused", "config": name,
+                  "dtype": dtype_name, "batch": batch, **res,
+                  "peak_memory_gb":
+                      torch.cuda.max_memory_allocated() / 1e9})
+            check(res["images_per_sec"] > 0,
+                  "throughput slope is not positive")
+            emit({"phase": "profile_unfused", "config": name,
+                  "dtype": dtype_name, "batch": batch,
+                  **device_time_breakdown(lambda: model(images))})
+            del model
+            torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------------
@@ -1565,6 +1870,15 @@ def main() -> int:
     del gpu_model
     torch.cuda.empty_cache()
 
+    unfused = phase_unfused_kernels()
+    runs = phase_forward_unfused()
+    unfused_entries = unfused["entries"]
+    for name, e in unfused_entries.items():
+        run = runs["base384" if name == "fused_mlp_int8" else "ff4096"]
+        e["launches"] = run["launches"][name]
+        e["calls"] = run["calls"][name]
+    phase_throughput_unfused()
+
     serve_entries = phase_serve_kernels()
     setokim = cfgs.base_setokim()
     for bits, name in ((8, "quant_matmul"), (4, "quant4_matmul")):
@@ -1572,6 +1886,11 @@ def main() -> int:
         serve_entries[name]["launches"] = counts["launches"]
         serve_entries[name]["calls"] = counts["calls"]
         if bits == 8:
+            # the int8 SeTok's Dense route, beside the serving trunk's
+            serve_entries[name]["unfused_launches"] = {
+                cfg: run["launches"]["quant_matmul"]
+                for cfg, run in runs.items()}
+            serve_entries[name]["unfused_dense"] = unfused["dense"]
             cache_entry = serve_entries["int8_cache_decode_attention"]
             cache_entry["launches"] = cache_entry["calls"] = \
                 counts["cache_launches"]
@@ -1585,7 +1904,8 @@ def main() -> int:
     phase_train_parity(setokim)
 
     emit({"kernels": [entry, *int8_entries.values(),
-                      *serve_entries.values(), *flash_entries.values()]})
+                      *unfused_entries.values(), *serve_entries.values(),
+                      *flash_entries.values()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -25,13 +25,6 @@
 
 using namespace int8k;
 
-#define STEP(call)                                  \
-  do {                                              \
-    cudaError_t e_ = (call);                        \
-    if (e_ != cudaSuccess) return (int)e_;          \
-    ++*launched;                                    \
-  } while (0)
-
 // x, out: (B, N, C) f32; kv: (B, M, C) f32, or the same pointer as x for
 // self-attention. wq, wk, wv, wo: (C, C) int8 with per-row scales and
 // biases. kv_mask: (B, M) bytes, nonzero = attend, or null. Scratch:

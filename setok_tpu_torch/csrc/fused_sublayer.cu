@@ -38,13 +38,6 @@ bool gemm_shape_ok(int N, int K) { return N >= 2 && N % 2 == 0 && K % 16 == 0; }
 
 }  // namespace
 
-#define STEP(call)                                  \
-  do {                                              \
-    cudaError_t e_ = (call);                        \
-    if (e_ != cudaSuccess) return (int)e_;          \
-    ++*launched;                                    \
-  } while (0)
-
 // x, out: (B*N, C) f32. w_qkv (3C, C) int8 with scales s_qkv and bias b_qkv
 // (3C), the q columns pre-scaled; w_proj (C, C). mask: (B, N, N) bytes,
 // nonzero = attend, or null. Scratch: x8 (B*N*C) int8, xs (B*N), qkv

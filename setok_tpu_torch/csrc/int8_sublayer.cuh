@@ -1,5 +1,6 @@
-// Building blocks of the int8 sublayer kernels (fused_sublayer.cu and
-// fused_bert_attention_int8.cu). Each TPU kernel of those files becomes a
+// Building blocks of the int8 sublayer kernels (fused_sublayer.cu,
+// fused_bert_attention_int8.cu, fused_mlp.cu and fused_attention_int8.cu).
+// Each TPU kernel of those files becomes a
 // short chain of the three kernels below; every intermediate goes through
 // device memory, and the numerics follow the JAX kernels operation by
 // operation:
@@ -15,14 +16,19 @@
 //                   (mma.sync m16n8k32 s8, exact), a 128x128 tile per block
 //                   with a two-stage cp.async ring over K, and the epilogue
 //                   acc * x_scale * w_scale + bias in that order, then one of
-//                   bf16(v * post_scale), gelu_tanh(v) or resid + v.
+//                   bf16(v * post_scale), gelu_tanh(v), resid + v or v.
 //   attn_kernel     one block per (image, head, 64 queries); every score of
 //                   the tile's rows stays in shared memory, so the softmax is
-//                   the exact two-pass one of the JAX kernel (row max and
-//                   sum in f32, p = exp(s - m) cast to bf16 for PV, 1/l
-//                   after PV, fully masked rows -> 0). The bf16 products run
-//                   on the CUDA cores as f32 FMAs: a bf16 x bf16 product is
-//                   exact in f32, so only the order of the f32 sums differs.
+//                   the exact two-pass one of the JAX kernels (row max and
+//                   sum in f32, p = exp(s - m), 1/l after PV, fully masked
+//                   rows -> 0). Over bf16 q, k, v (the sublayer and BERT
+//                   kernels) p is cast to bf16 for PV, as those JAX kernels
+//                   do; over f32 q, k, v (fused_attention_int8) p stays f32.
+//                   The products run on the CUDA cores as f32 FMAs: a bf16 x
+//                   bf16 product is exact in f32, and the f32 one is the JAX
+//                   kernel's f32 dot, so only the order of the f32 sums
+//                   differs. The head dim is walked in chunks of 16 (scores)
+//                   and 64 (PV), so a 384-wide head fits.
 //
 // Every multiply and add whose rounding the JAX kernel fixes is written with
 // __fmul_rn/__fadd_rn so that nvcc contracts none of them into an FMA.
@@ -34,6 +40,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// One launch of a host entry point's chain: return the CUDA error, else count
+// the launch in *launched.
+#define STEP(call)                                  \
+  do {                                              \
+    cudaError_t e_ = (call);                        \
+    if (e_ != cudaSuccess) return (int)e_;          \
+    ++*launched;                                    \
+  } while (0)
 
 namespace int8k {
 
@@ -120,7 +135,7 @@ inline cudaError_t launch_rows(const float* x, const float* g, const float* b,
 // (W in the torch (out, in) layout, so each column of the product reads a
 // contiguous row of W). K % 16 == 0, N even.
 
-enum Epilogue { kBf16 = 0, kGelu = 1, kResid = 2 };
+enum Epilogue { kBf16 = 0, kGelu = 1, kResid = 2, kF32 = 3 };
 
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int BKP = 48;   // padded smem row: fragment loads hit 32 banks
@@ -248,8 +263,10 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const float* __restrict__ a_scale,
                 __float2bfloat16_rn(__fmul_rn(v, post_scale));
           else if (EPI == kGelu)
             static_cast<float*>(out)[at] = gelu_tanh(v);
-          else
+          else if (EPI == kResid)
             static_cast<float*>(out)[at] = __fadd_rn(resid[at], v);
+          else
+            static_cast<float*>(out)[at] = v;
         }
     }
 }
@@ -267,9 +284,9 @@ inline cudaError_t launch_gemm(const int8_t* A, const float* a_scale,
 }
 
 // ---------------------------------------------------------------------------
-// Attention over bf16 q, k, v of one head (columns h*D .. h*D+D-1 of their
-// rows): o = softmax(q.k^T + mask bias) v, f32. Element (b, i, j) of the
-// mask is mask[b*m_sb + i*m_sr + j] (m_sr = 0: a key mask), nonzero =
+// Attention over bf16 or f32 q, k, v of one head (columns h*D .. h*D+D-1 of
+// their rows): o = softmax(q.k^T + mask bias) v, f32. Element (b, i, j) of
+// the mask is mask[b*m_sb + i*m_sr + j] (m_sr = 0: a key mask), nonzero =
 // attend; mask == nullptr: none.
 
 constexpr int TQ = 64;     // queries per block
@@ -283,7 +300,7 @@ inline size_t attn_smem_bytes(int Nk) {
   return sizeof(float) * ((size_t)TQ * (nkp + 4) + TQ + 2 * DC * AS);
 }
 
-__device__ __forceinline__ float4 load_bf16x4(const __nv_bfloat16* p) {
+__device__ __forceinline__ float4 load_x4(const __nv_bfloat16* p) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
@@ -291,26 +308,38 @@ __device__ __forceinline__ float4 load_bf16x4(const __nv_bfloat16* p) {
                      __high2float(hi));
 }
 
+__device__ __forceinline__ float4 load_x4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// p as the PV product reads it: rounded to bf16 beside bf16 inputs
+__device__ __forceinline__ float p_value(float p, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(p));
+}
+
+__device__ __forceinline__ float p_value(float p, const float*) { return p; }
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, int q_sr,
-            const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v, long long kv_sb, int kv_sr,
+attn_kernel(const T* __restrict__ q, long long q_sb, int q_sr,
+            const T* __restrict__ k, const T* __restrict__ v, long long kv_sb,
+            int kv_sr,
             const uint8_t* __restrict__ mask, long long m_sb, int m_sr,
             float* __restrict__ o, long long o_sb, int o_sr, int Nq, int Nk,
             int D) {
   extern __shared__ __align__(16) float smem[];
   const int nkp = (Nk + TK - 1) / TK * TK;
   const int SP = nkp + 4;
-  float* S = smem;               // TQ x SP scores, then bf16-rounded p
+  float* S = smem;               // TQ x SP scores, then p
   float* lr_s = S + TQ * SP;     // TQ: 1/l, or 0 on fully masked rows
   float* A_s = lr_s + TQ;        // DC x AS: q chunk, [d][query]
   float* B_s = A_s + DC * AS;    // DC x AS: k chunk [d][key], v chunk [key][d]
 
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * TQ;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const __nv_bfloat16* qb = q + b * q_sb + (size_t)h * D;
-  const __nv_bfloat16* kb = k + b * kv_sb + (size_t)h * D;
-  const __nv_bfloat16* vb = v + b * kv_sb + (size_t)h * D;
+  const T* qb = q + b * q_sb + (size_t)h * D;
+  const T* kb = k + b * kv_sb + (size_t)h * D;
+  const T* vb = v + b * kv_sb + (size_t)h * D;
 
   // 1. scores of the tile's TQ rows against every key
   const int lrow = tid >> 2, ld = (tid & 3) * 4;   // 64 rows x 4 groups of 4
@@ -323,10 +352,10 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, int q_sr,
     for (int d0 = 0; d0 < D; d0 += DC) {
       const int gd = d0 + ld, gi = i0 + lrow, gj = j0 + lrow;
       const float4 qa = (gi < Nq && gd < D)
-                            ? load_bf16x4(qb + (size_t)gi * q_sr + gd)
+                            ? load_x4(qb + (size_t)gi * q_sr + gd)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
       const float4 ka = (gj < Nk && gd < D)
-                            ? load_bf16x4(kb + (size_t)gj * kv_sr + gd)
+                            ? load_x4(kb + (size_t)gj * kv_sr + gd)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
       A_s[(ld + 0) * AS + lrow] = qa.x;
       A_s[(ld + 1) * AS + lrow] = qa.y;
@@ -358,7 +387,7 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, int q_sr,
   __syncthreads();
 
   // 2. softmax, one warp per row: mask bias, max and sum in f32; p is kept
-  //    rounded to bf16 for PV; padding keys get p = 0
+  //    as PV reads it (p_value); padding keys get p = 0
   const int warp = tid >> 5, lane = tid & 31;
   for (int r = warp; r < TQ; r += kThreads / 32) {
     float* Sr = S + r * SP;
@@ -380,7 +409,7 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, int q_sr,
       if (j < Nk) {
         const float p = expf(__fsub_rn(Sr[j], m));
         l += p;
-        Sr[j] = __bfloat162float(__float2bfloat16_rn(p));
+        Sr[j] = p_value(p, q);
       } else {
         Sr[j] = 0.f;
       }
@@ -401,7 +430,7 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, int q_sr,
     for (int j0 = 0; j0 < nkp; j0 += DC) {
       const int gj = j0 + vk, gd = c0 + vd;
       *reinterpret_cast<float4*>(&B_s[vk * AS + vd]) =
-          (gj < Nk && gd < D) ? load_bf16x4(vb + (size_t)gj * kv_sr + gd)
+          (gj < Nk && gd < D) ? load_x4(vb + (size_t)gj * kv_sr + gd)
                               : make_float4(0.f, 0.f, 0.f, 0.f);
       __syncthreads();
 #pragma unroll
@@ -431,21 +460,22 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb, int q_sr,
   }
 }
 
-inline cudaError_t launch_attn(const __nv_bfloat16* q, long long q_sb,
-                               int q_sr, const __nv_bfloat16* k,
-                               const __nv_bfloat16* v, long long kv_sb,
+template <typename T>
+inline cudaError_t launch_attn(const T* q, long long q_sb, int q_sr,
+                               const T* k, const T* v, long long kv_sb,
                                int kv_sr, const uint8_t* mask, long long m_sb,
                                int m_sr, float* o, long long o_sb, int o_sr,
                                int B, int H, int Nq, int Nk, int D,
                                cudaStream_t s) {
   const size_t smem = attn_smem_bytes(Nk);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Nq + TQ - 1) / TQ, H, B);
-  attn_kernel<<<grid, kThreads, smem, s>>>(q, q_sb, q_sr, k, v, kv_sb, kv_sr,
-                                           mask, m_sb, m_sr, o, o_sb, o_sr,
-                                           Nq, Nk, D);
+  attn_kernel<T><<<grid, kThreads, smem, s>>>(q, q_sb, q_sr, k, v, kv_sb,
+                                              kv_sr, mask, m_sb, m_sr, o,
+                                              o_sb, o_sr, Nq, Nk, D);
   return cudaGetLastError();
 }
 

@@ -348,13 +348,6 @@ cudaError_t launch_product(const int8_t* x8, const float* xs, const int8_t* W,
 
 }  // namespace
 
-#define STEP(call)                                  \
-  do {                                              \
-    cudaError_t e_ = (call);                        \
-    if (e_ != cudaSuccess) return (int)e_;          \
-    ++*launched;                                    \
-  } while (0)
-
 // x: (M, K) f32; w: (N, K) int8 (bits 8) or (N, K/2) packed (bits 4);
 // ws: (n_scales, N) f32, n_scales 1 or K/G. out: (M, N) f32. Scratch: x8
 // (M*K) int8, xs (M) f32.

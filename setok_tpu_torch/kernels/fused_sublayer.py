@@ -95,18 +95,22 @@ def gelu_tanh(x):
     return x * cdf
 
 
-def attention_reference(q16, k16, v16, mask: Optional[torch.Tensor]):
-    """q16: (B, H, N, D), k16/v16: (B, H, M, D) bf16; mask: bool,
+def attention_reference(q, k, v, mask: Optional[torch.Tensor]):
+    """q: (B, H, N, D), k/v: (B, H, M, D), all bf16 or all f32; mask: bool,
     broadcastable to (B, H, N, M), True = attend, or None. → (B, H, N, D)
-    f32, fully masked rows 0."""
-    s = torch.matmul(q16.float(), k16.float().transpose(-1, -2))
+    f32, fully masked rows 0. Scores, softmax and PV are f32; beside bf16
+    inputs P is cast to bf16 for PV (the sublayer and BERT kernels), beside
+    f32 ones it stays f32 (fused_attention_int8)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if mask is not None:
         s = s + NEG_INF * (1.0 - mask.float())
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l_r = 1.0 / p.sum(-1, keepdim=True).clamp_min(1e-30)
     l_r = torch.where(m > 0.5 * NEG_INF, l_r, 0.0)
-    return torch.matmul(p.to(torch.bfloat16).float(), v16.float()) * l_r
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
+    return torch.matmul(p, v.float()) * l_r
 
 
 def fold_sm_scale(w_qkv: QuantizedWeight, b_qkv: torch.Tensor, c: int,
@@ -118,7 +122,8 @@ def fold_sm_scale(w_qkv: QuantizedWeight, b_qkv: torch.Tensor, c: int,
             torch.cat([b[:c] * scale, b[c:]]))
 
 
-def _sm_scale(c: int, num_heads: int, sm_scale: Optional[float]) -> float:
+def sm_scale_or_default(c: int, num_heads: int,
+                        sm_scale: Optional[float]) -> float:
     return sm_scale if sm_scale is not None else (c // num_heads) ** -0.5
 
 
@@ -132,8 +137,8 @@ def attn_sublayer_int8_reference(x, ln_g, ln_b, w_qkv: QuantizedWeight,
     x = x.float()
     b, n, c = x.shape
     hd = c // num_heads
-    s_qkv, b_qkv = fold_sm_scale(w_qkv, b_qkv, c,
-                                 _sm_scale(c, num_heads, sm_scale))
+    s_qkv, b_qkv = fold_sm_scale(
+        w_qkv, b_qkv, c, sm_scale_or_default(c, num_heads, sm_scale))
     y8, ys = quant_rows(layernorm(x, ln_g, ln_b, ln_eps))
     qkv = int8_dense(y8, ys, w_qkv.values, s_qkv, b_qkv).to(torch.bfloat16)
     q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
@@ -142,7 +147,9 @@ def attn_sublayer_int8_reference(x, ln_g, ln_b, w_qkv: QuantizedWeight,
     return x + int8_dense(o8, os_, w_proj.values, w_proj.scales, b_proj)
 
 
-def _mlp_core(y, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2):
+def mlp_int8_core(y, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2):
+    """fc2(gelu_tanh(fc1 y)), int8, f32 in and out (no LayerNorm, no
+    residual): the plain steps of the int8 MLP kernels."""
     y8, ys = quant_rows(y)
     h = gelu_tanh(int8_dense(y8, ys, w1.values, w1.scales, b1))
     h8, hs = quant_rows(h)
@@ -154,7 +161,8 @@ def mlp_sublayer_int8_reference(x, ln_g, ln_b, w1: QuantizedWeight, b1,
                                 ln_eps: float = 1e-6):
     """Plain version of `mlp_sublayer_int8`."""
     x = x.float()
-    return x + _mlp_core(layernorm(x, ln_g, ln_b, ln_eps), w1, b1, w2, b2)
+    return x + mlp_int8_core(layernorm(x, ln_g, ln_b, ln_eps), w1, b1, w2,
+                             b2)
 
 
 def mlp_postnorm_int8_reference(x, w1: QuantizedWeight, b1,
@@ -162,7 +170,8 @@ def mlp_postnorm_int8_reference(x, w1: QuantizedWeight, b1,
                                 ln_eps: float = 1e-12):
     """Plain version of `mlp_postnorm_int8`."""
     x = x.float()
-    return layernorm(_mlp_core(x, w1, b1, w2, b2) + x, ln_g, ln_b, ln_eps)
+    return layernorm(mlp_int8_core(x, w1, b1, w2, b2) + x, ln_g, ln_b,
+                     ln_eps)
 
 
 # ----------------------------------------------------------------------------
@@ -240,8 +249,8 @@ def attn_sublayer_int8(x, ln_g, ln_b, w_qkv: QuantizedWeight, b_qkv,
     check_weight("w_proj", w_proj, c, c, dev)
     check_vectors(dev, ln_g=(ln_g, c), ln_b=(ln_b, c), b_qkv=(b_qkv, 3 * c),
                   b_proj=(b_proj, c))
-    s_qkv, bq = fold_sm_scale(w_qkv, b_qkv, c,
-                              _sm_scale(c, num_heads, sm_scale))
+    s_qkv, bq = fold_sm_scale(
+        w_qkv, b_qkv, c, sm_scale_or_default(c, num_heads, sm_scale))
     m8 = None
     if mask is not None:
         if mask.device != dev:

@@ -37,12 +37,16 @@ def unpatchify(x: torch.Tensor, patch_size: int, channels: int = 3) -> torch.Ten
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
-    """(B, H, W, c) image → (B, h·w, p²·c) patches, each flattened in
-    (row, column, channel) order (the inverse of unpatchify)."""
+    """(B, H, W, c) image → (B, h·w, p²·c) patches, h = H // p, each
+    flattened in (row, column, channel) order (the inverse of unpatchify).
+    A side that is not a multiple of p loses its last H % p rows (W % p
+    columns), as a VALID stride-p convolution drops them (so400m: 384 px
+    in patches of 14)."""
     b, hh, ww, c = images.shape
     p = patch_size
     h, w = hh // p, ww // p
-    x = images.reshape(b, h, p, w, p, c).permute(0, 1, 3, 2, 4, 5)
+    x = images[:, :h * p, :w * p].reshape(b, h, p, w, p, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h * w, p * p * c)
 
 

@@ -6,9 +6,12 @@ blocks: LayerNorm eps 1e-6 (flax's default) and the tanh form of GELU
 as a patchify reshape and a matmul with the HWIO kernel reshaped to
 (p·p·3, C), which is the same product and needs no cuDNN.
 
-`quant8=True` runs each block as the two fused int8 sublayer kernels, as
-the JAX `ViTEncoderBlock` does where its gates pass (LayerNorm eps 1e-6);
-the block output is then float32.
+`quant8=True` routes each block as the JAX `ViTEncoderBlock` does: the two
+whole-sublayer int8 kernels where its gates pass (LayerNorm eps 1e-6, the
+block output float32), else the float block structure with `Attention` and
+`Mlp` in their int8 forwards (ops/blocks.py): at 384 px the attention's
+int8 `Dense`s and `fused_mlp_int8`, at so400m every linear through
+`quant_matmul`.
 """
 
 from __future__ import annotations
@@ -20,9 +23,8 @@ from torch import nn
 
 from setok_tpu_torch.config import ViTConfig
 from setok_tpu_torch.models.detokenizer import patchify
-from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.ops.blocks import (Attention, Dense, LayerNorm, Mlp,
-                                        check_int8_route)
+                                        fused_int8_fits)
 from setok_tpu_torch.utils.device import resolve_device
 
 VIT_LN_EPS = 1e-6
@@ -36,19 +38,14 @@ class ViTEncoderBlock(nn.Module):
         super().__init__()
         self.quant8 = quant8
         self.norm1 = LayerNorm(dim, eps=VIT_LN_EPS, dtype=dtype, device=device)
-        self.attn = Attention(dim, num_heads, qkv_bias=True, dtype=dtype,
-                              device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias=True, quant8=quant8,
+                              dtype=dtype, device=device)
         self.norm2 = LayerNorm(dim, eps=VIT_LN_EPS, dtype=dtype, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_exact=False,
-                       dtype=dtype, device=device)
+                       quant8=quant8, dtype=dtype, device=device)
 
     def forward(self, x):
-        if self.quant8:
-            c = x.shape[-1]
-            check_int8_route(
-                x.dim() == 3 and fs.attn_fits_vmem(x.shape[-2], c)
-                and fs.mlp_fits_vmem(c, self.mlp.fc1.out_features),
-                "ViTEncoderBlock")
+        if self.quant8 and fused_int8_fits(self.attn, self.mlp, x):
             x = self.attn.sublayer_int8(x.float(), self.norm1)
             return self.mlp.sublayer_int8(x, self.norm2)
         x = x + self.attn(self.norm1(x))

@@ -15,13 +15,22 @@ as the flax tree so that `utils/from_flax.py` is a plain rename:
 Attention is written as matmul → softmax → matmul on purpose: PyTorch's
 fused attention is a library kernel, and its fully-masked-row result differs.
 
-`quant8=True` (inference only) routes `Block` and `ViTBlock` as the JAX
-package does: where its gates (`attn_fits_vmem`, `mlp_fits_vmem`) pass,
-each sublayer is one call of the fused int8 kernels of
-`kernels/fused_sublayer.py`, in float32 whatever `dtype` is, on int8 weights
-that each `Dense` quantises once and caches (`Dense.int8`). Where the gates
-fail, the JAX package falls back to its unfused int8 kernels, which the port
-does not have yet: the block raises `NotImplementedError`.
+`quant8=True` (inference only) routes every block as the JAX package does,
+on int8 weights that each `Dense` quantises once and caches (`Dense.int8`):
+
+  * where the block's gates (`attn_fits_vmem`, `mlp_fits_vmem`) both pass,
+    each sublayer is one call of the whole-sublayer int8 kernels of
+    `kernels/fused_sublayer.py` (LayerNorm and residual inside), in float32
+    whatever `dtype` is;
+  * otherwise the block keeps its float structure (LayerNorms in `dtype`,
+    the shared `norm1`, the residuals) and its `Attention` and `Mlp` run
+    their int8 forwards, the unfused route: `Attention` takes
+    `kernels/fused_attention_int8.py` where its own gate passes, `Mlp`
+    takes `kernels/fused_mlp.py` where its gate passes (both return
+    float32, and `x + f32` promotes a bf16 residual, as in JAX); else
+    each `Dense` runs `quant_matmul` while in·out <= 8 Mi
+    (`DENSE_INT8_MAX`) and its float product in `dtype` above that,
+    where no weight is quantised.
 
 `QuantDense` and `Quant4Dense` are the serving trunk's linears, whose
 weights live quantised (int8, or packed int4) as buffers; their forward is
@@ -48,24 +57,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from setok_tpu_torch.kernels import fused_attention_int8 as fai
+from setok_tpu_torch.kernels import fused_mlp as fm
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.kernels import quant_matmul as qm
 from setok_tpu_torch.kernels.quant import (Quant4Weight, QuantizedWeight,
                                            quantize_weight)
 
 NEG_INF = -1e30
-
-UNFUSED_INT8 = (
-    "quant8 at this size takes the JAX package's unfused int8 kernels "
-    "(fused_mlp_int8, fused_attention_int8, and quant_matmul through "
-    "Dense), which the port's modules do not take yet: ROADMAP.md, "
-    "Queue B rows 6-8")
-
-
-def check_int8_route(fits: bool, what: str) -> None:
-    """Raise where the JAX package would leave the fused int8 sublayers."""
-    if not fits:
-        raise NotImplementedError(f"{what}: {UNFUSED_INT8}")
+# the JAX Dense's int8 gate (`ops/blocks.py:52`): in·out at most 8 Mi
+DENSE_INT8_MAX = 8 * 1024 * 1024
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -82,11 +83,17 @@ class Dense(nn.Linear):
     """`nn.Linear` that computes in `dtype` (float32 parameters), with an
     optional LoRA adapter (`lora`: the (A (in, r), B (r, out), alpha/r)
     that `train.lora.apply_lora` attaches; kept out of the module's
-    parameters and state dict)."""
+    parameters and state dict).
+
+    `quant8=True` (inference only): while in·out <= `DENSE_INT8_MAX`, the
+    forward is `quant_dense` of the JAX package, `quant_matmul` of x in
+    `dtype` on the cached int8 weight, output in `dtype`, then + bias in
+    that type; above it, the float forward."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, dtype=torch.float32, device=None):
+                 *, quant8: bool = False, dtype=torch.float32, device=None):
         super().__init__(in_features, out_features, bias=bias, device=device)
+        self.quant8 = quant8
         self.compute_dtype = dtype
         self.__dict__["lora"] = None
 
@@ -99,6 +106,10 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
+        if (self.quant8
+                and self.in_features * self.out_features <= DENSE_INT8_MAX):
+            y = qm.quant_matmul(x.to(dt), self.int8())
+            return y if self.bias is None else y + self.bias.to(y.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.effective_weight().to(dt), bias)
 
@@ -183,21 +194,32 @@ def masked_softmax(scores: torch.Tensor,
 
 class Mlp(nn.Module):
     """fc1 → GELU → fc2. GELU is the exact erf form unless `gelu_exact` is
-    False (the tanh form of SigLIP)."""
+    False (the tanh form of SigLIP).
+
+    `quant8=True`: where `mlp_fits_vmem` passes, the whole MLP is one call
+    of `fused_mlp_int8` (float32 out, tanh GELU whatever `gelu_exact`
+    says); otherwise fc1 and fc2 run their int8 `Dense` forwards around the
+    module's own GELU."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None, *,
                  gelu_exact: bool = True, drop: float = 0.0,
-                 dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.approximate = "none" if gelu_exact else "tanh"
         self.drop = drop
-        self.fc1 = Dense(in_features, hidden_features, dtype=dtype,
-                         device=device)
-        self.fc2 = Dense(hidden_features, out_features or in_features,
+        self.quant8 = quant8
+        self.fc1 = Dense(in_features, hidden_features, quant8=quant8,
                          dtype=dtype, device=device)
+        self.fc2 = Dense(hidden_features, out_features or in_features,
+                         quant8=quant8, dtype=dtype, device=device)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        if self.quant8 and fs.mlp_fits_vmem(x.shape[-1],
+                                            self.fc1.out_features):
+            return fm.fused_mlp_int8(x.float().contiguous(), self.fc1.int8(),
+                                     self.fc1.bias, self.fc2.int8(),
+                                     self.fc2.bias)
         x = dropout(F.gelu(self.fc1(x), approximate=self.approximate),
                     self.drop, generator)
         return dropout(self.fc2(x), self.drop, generator)
@@ -216,24 +238,39 @@ class Attention(nn.Module):
 
     `mask` broadcasts against (B, H, N, N); a (B, N, N) mask gets the head
     axis added.
+
+    `quant8=True`: with one batch axis, a qkv bias, `attn_fits_vmem` and
+    no mask or a (B, N, N) one, the whole attention is one call of
+    `fused_attention_int8` (float32 out; a fully masked row gives the proj
+    bias); otherwise qkv and proj run their int8 `Dense` forwards around
+    the float masked attention in `dtype`.
     """
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, dtype=torch.float32, device=None):
+                 proj_drop: float = 0.0, quant8: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.qkv_bias = qkv_bias
+        self.quant8 = quant8
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.dtype = dtype
-        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
-                         device=device)
-        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, quant8=quant8,
+                         dtype=dtype, device=device)
+        self.proj = Dense(dim, dim, quant8=quant8, dtype=dtype, device=device)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         *batch, n, c = x.shape
+        if (self.quant8 and len(batch) == 1 and self.qkv_bias
+                and fs.attn_fits_vmem(n, c)
+                and (mask is None or mask.dim() == 3)):
+            return fai.fused_attention_int8(
+                x.float().contiguous(), self.qkv.int8(), self.qkv.bias,
+                self.proj.int8(), self.proj.bias, self.num_heads, mask,
+                self.scale)
         qkv = self.qkv(x).reshape(*batch, n, 3, self.num_heads,
                                   c // self.num_heads)
         q, k, v = (t.transpose(-3, -2) for t in qkv.unbind(-3))  # (.., H, n, hd)
@@ -254,6 +291,17 @@ class Attention(nn.Module):
                                      sm_scale=self.scale, ln_eps=norm.eps)
 
 
+def fused_int8_fits(attn: Attention, mlp: Mlp, x: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> bool:
+    """The JAX blocks' gate of the whole-sublayer int8 kernels: one batch
+    axis, a qkv bias, both VMEM gates, and no mask or a (B, N, N) one."""
+    c = x.shape[-1]
+    return (attn.qkv_bias and x.dim() == 3
+            and fs.attn_fits_vmem(x.shape[-2], c)
+            and fs.mlp_fits_vmem(c, mlp.fc1.out_features)
+            and (mask is None or mask.dim() == 3))
+
+
 class Block(nn.Module):
     """SeTok block: `depth` attention sub-layers sharing one pre-norm, then
     one MLP sub-layer (LayerNorm eps 1e-5, as torch's default in the
@@ -271,34 +319,27 @@ class Block(nn.Module):
         for i in range(depth):
             self.add_module(f"attn_{i}", Attention(
                 dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale,
-                attn_drop=attn_drop, proj_drop=proj_drop, dtype=dtype,
-                device=device))
+                attn_drop=attn_drop, proj_drop=proj_drop, quant8=quant8,
+                dtype=dtype, device=device))
         self.norm2 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, mlp_hidden_dim, drop=proj_drop, dtype=dtype,
-                       device=device)
+        self.mlp = Mlp(dim, mlp_hidden_dim, drop=proj_drop, quant8=quant8,
+                       dtype=dtype, device=device)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         if self.quant8:
             if generator is not None:
                 raise ValueError("quant8 is inference only: no dropout")
-            return self._forward_int8(x, mask)
+            if fused_int8_fits(self.attn_0, self.mlp, x, mask):
+                x = x.float()
+                for i in range(self.depth):
+                    x = getattr(self, f"attn_{i}").sublayer_int8(
+                        x, self.norm1, mask)
+                return self.mlp.sublayer_int8(x, self.norm2)
         for i in range(self.depth):
             x = x + getattr(self, f"attn_{i}")(self.norm1(x), mask=mask,
                                                generator=generator)
         return x + self.mlp(self.norm2(x), generator)
-
-    def _forward_int8(self, x, mask):
-        c = x.shape[-1]
-        check_int8_route(
-            self.attn_0.qkv_bias and x.dim() == 3
-            and fs.attn_fits_vmem(x.shape[-2], c)
-            and fs.mlp_fits_vmem(c, self.mlp.fc1.out_features)
-            and (mask is None or mask.dim() == 3), "Block")
-        x = x.float()
-        for i in range(self.depth):
-            x = getattr(self, f"attn_{i}").sublayer_int8(x, self.norm1, mask)
-        return self.mlp.sublayer_int8(x, self.norm2)
 
 
 class ViTBlock(nn.Module):
@@ -310,19 +351,14 @@ class ViTBlock(nn.Module):
         super().__init__()
         self.quant8 = quant8
         self.norm1 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
-        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, dtype=dtype,
-                              device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
+                              quant8=quant8, dtype=dtype, device=device)
         self.norm2 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant8=quant8, dtype=dtype,
+                       device=device)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        if self.quant8:
-            c = x.shape[-1]
-            check_int8_route(
-                self.attn.qkv_bias and x.dim() == 3
-                and fs.attn_fits_vmem(x.shape[-2], c)
-                and fs.mlp_fits_vmem(c, self.mlp.fc1.out_features)
-                and (mask is None or mask.dim() == 3), "ViTBlock")
+        if self.quant8 and fused_int8_fits(self.attn, self.mlp, x, mask):
             x = self.attn.sublayer_int8(x.float(), self.norm1, mask)
             return self.mlp.sublayer_int8(x, self.norm2)
         x = x + self.attn(self.norm1(x), mask=mask)

@@ -9,10 +9,13 @@ does not need). This file imports no JAX.
 Bars: density and row max rtol 1e-5 (float32, summation order only);
 scores rtol 1e-4 on the peaks and within 1e-3 on ≥ 90 % of tokens, because a
 parent can flip between same-blob density near-ties. The int8 kernels at
-every shape of the base forward, with chip_smoke.py's bars: the MLPs 1e-5
-max-rel; the attentions 2e-3 max-rel with ≥ 99 % of the elements within
-1e-5 of the largest (scores sum in another order than the plain version's,
-which can flip a bf16 or int8 rounding step). The serving kernels:
+every shape of the base forward, and the unfused route's fused_mlp_int8
+and fused_attention_int8 at theirs, with chip_smoke.py's bars: the MLPs
+1e-5 max-rel; the attentions 2e-3 max-rel with ≥ 99 % of the elements
+within 1e-5 of the largest (scores sum in another order than the plain
+version's, which can flip a bf16 or int8 rounding step); an int8 Block
+at the 4096-wide MLP's shape, card against CPU, 5e-2 (chip_smoke.py's
+FWD_INT8_TOL). The serving kernels:
 quant_matmul and quant4_matmul 1e-5 max-rel (exact int products, the same
 float epilogue); the int8-cache decode attention 2e-3 max-rel with ≥ 99 %
 of the elements within 1e-5 of the largest. The flash-attention kernels,
@@ -29,7 +32,9 @@ import torch
 import chip_smoke
 from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.kernels import cluster_dpc
+from setok_tpu_torch.kernels import fused_attention_int8 as fai
 from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
+from setok_tpu_torch.kernels import fused_mlp as fm
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.kernels import cache_attention as ca
 from setok_tpu_torch.kernels import flash_attention as fa
@@ -120,6 +125,59 @@ def test_int8_kernel_matches_reference(card, index):
     chip_smoke.check_int8_case(*case)          # raises SystemExit on a miss
     assert {**fs.LAUNCHES, **fba.LAUNCHES}[name] == launches[name] + steps
     assert {**fs.CALLS, **fba.CALLS}[name] == calls[name] + 1
+
+
+# the cases of chip_smoke.unfused_cases, and the CUDA launches of one call
+UNFUSED_CASES = [("fused_mlp_int8", "384px", 4),
+                 ("fused_attention_int8", "inner", 5),
+                 ("fused_attention_int8", "inter", 5),
+                 ("fused_attention_int8", "unmasked", 5)]
+
+
+@pytest.mark.parametrize("index", range(len(UNFUSED_CASES)),
+                         ids=[f"{n}-{s}" for n, s, _ in UNFUSED_CASES])
+def test_unfused_kernel_matches_reference(card, index):
+    """Rows 6 and 7 against their plain versions at the path shapes (the
+    MLP at 576 tokens of 768, the attention with 2 heads of 384)."""
+    name, label, steps = UNFUSED_CASES[index]
+    case = chip_smoke.unfused_cases(1, card)[index]
+    assert case[:2] == (name, label)
+    mod = fm if name == "fused_mlp_int8" else fai
+    launches, calls = mod.LAUNCHES[name], mod.CALLS[name]
+    chip_smoke.check_int8_case(*case)          # raises SystemExit on a miss
+    assert mod.LAUNCHES[name] == launches + steps
+    assert mod.CALLS[name] == calls + 1
+
+
+def test_int8_block_at_ff4096_takes_the_fused_attention(card):
+    """An int8 tokenizer Block at the 4096-wide MLP's shape (N=256,
+    C=768, 2 heads, a cluster mask) takes fused_attention_int8 for its
+    attention sublayers and quant_matmul for its MLP, and matches the same
+    block on the CPU."""
+    from setok_tpu_torch.ops.blocks import Block
+
+    tok = cfgs.replace(cfgs.base_tokenizer(), dim_feedforward=4096)
+    c, hidden = tok.hidden_dim, tok.dim_feedforward
+    cpu = init_random_(Block(c, tok.nheads, hidden, depth=2, norm_eps=1e-5,
+                             quant8=True, device="cpu"), 0)
+    gpu = Block(c, tok.nheads, hidden, depth=2, norm_eps=1e-5, quant8=True,
+                device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randn(2, 256, c).astype(np.float32))
+    mask = torch.from_numpy(rs.randint(0, 4, (2, 256)))
+    mask = mask[:, :, None] == mask[:, None, :]
+    chip_smoke.reset_counts()
+    qm.reset_counts()
+    with torch.inference_mode():
+        got = gpu(x.to(card), mask.to(card))
+        torch.cuda.synchronize()
+        want = cpu(x, mask)
+    assert fai.CALLS["fused_attention_int8"] == 2
+    assert fai.LAUNCHES["fused_attention_int8"] == 10
+    assert qm.CALLS["quant_matmul"] == 2
+    assert fs.CALLS["attn_sublayer_int8"] == 0
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 5e-2
 
 
 def test_int8_forward_routes_to_the_kernels(card):

@@ -61,6 +61,22 @@ def test_vit_matches_jax():
                    want0) <= TOL
 
 
+def test_vit_drops_the_ragged_edge_as_jax():
+    """An image side that is not a multiple of the patch (so400m: 384 px
+    in patches of 14) loses its last rows and columns, as the JAX ViT's
+    VALID stride-p convolution drops them."""
+    jvit = jcfg.replace(jcfg.tiny_tokenizer().vit, image_size=38)
+    tvit = tcfg.replace(tcfg.tiny_tokenizer().vit, image_size=38)
+    x = images(4, size=38)
+    jm = JViT(jvit)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want = np.asarray(jm.apply(params, jnp.asarray(x)))
+    tm = load_flax_params(ViT(tvit, device="cpu"), to_np(params))
+    got = tm(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 16, jvit.width)
+    assert max_abs(got, want) <= TOL
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_tokenizer_matches_jax(seed):
     x = images(seed)
