@@ -61,7 +61,10 @@ the last line:
                 splice of a synthetic batch: image-slot holes, a pad tail,
                 fully masked query rows) and at a ragged one (L=1000),
                 with their times, bounds and SDPA's (forward, and forward
-                + backward);
+                + backward); the path mask's shares of empty, full and
+                mixed 64 x 64 tiles; the bf16 backward kernels' registers
+                and spills (ptxas), shared memory and blocks per SM; and
+                their times with no cell and with every cell attending;
   train         stage-2 LoRA training of base_setokim() at full width
                 (r 128, alpha 256, lr 2e-4, mm_in projector lr 2e-5, flash
                 attention, remat, bf16 compute, clip 1.0), random weights
@@ -1443,27 +1446,59 @@ def splice_mask(cfg, b: int, length: int, seed: int, device) -> torch.Tensor:
     return make_attention_mask(valid, positions)[:, 0].to(device)
 
 
-def flash_case(b: int, h: int, lq: int, lk: int, d: int, dtype, mask,
-               seed: int) -> dict:
-    """The three kernels against their plain versions on one input: the
-    backward ones on the plain forward's o (cast) and lse. Checks the bars
-    and returns the case (with its inputs, for timing)."""
-    dev = mask.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                   for shape in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d),
-                                 (b, h, lq, d)))
-    sc = d ** -0.5
-    o, lse = fa.flash_fwd(q, k, v, mask, sc)
-    torch.cuda.synchronize()
-    po, plse = fa.flash_fwd_plain(q, k, v, mask, sc)
-    rows = mask.any(-1)[:, None].expand_as(plse)
-    o_t = po.to(dtype)
+def flash_inputs(b: int, h: int, lq: int, lk: int, d: int, dtype, device,
+                 seed: int):
+    """q, k, v and the upstream gradient do, normal draws from the seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=device).to(dtype)
+                 for shape in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d),
+                               (b, h, lq, d)))
+
+
+def flash_bwd_case(q, k, v, do, mask, po, plse) -> dict:
+    """The dq and dk/dv kernels against their plain versions on the plain
+    forward's o (cast to the input type) and lse. Checks the gradient bar,
+    finite outputs and dq exactly 0 on fully masked query rows; returns the
+    readings, with (o, delta) for timing under "inputs"."""
+    sc = q.shape[-1] ** -0.5
+    o_t = po.to(q.dtype)
     dq, delta = fa.flash_dq(q, k, v, mask, o_t, do, plse, sc)
     dk, dv = fa.flash_dkv(q, k, v, mask, do, plse, delta, sc)
     torch.cuda.synchronize()
     pdq = fa.flash_dq_plain(q, k, v, mask, o_t, do, plse, sc)
     pdk, pdv = fa.flash_dkv_plain(q, k, v, mask, o_t, do, plse, sc)
+    rows = mask.any(-1)[:, None].expand_as(plse)
+    case = {"dq_max_rel": max_rel(dq, pdq), "dk_max_rel": max_rel(dk, pdk),
+            "dv_max_rel": max_rel(dv, pdv),
+            "max_abs": {"flash_dq": float((dq - pdq).abs().max()),
+                        "flash_dkv": max(float((dk - pdk).abs().max()),
+                                         float((dv - pdv).abs().max()))},
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in (dq, dk, dv))}
+    shape = [*q.shape[:3], k.shape[2], q.shape[3]]
+    check(case["finite"], f"flash backward {shape}: output not finite")
+    check(bool((dq[~rows] == 0).all()),
+          f"flash_dq {shape}: a fully masked row is not zero")
+    for key in ("dq_max_rel", "dk_max_rel", "dv_max_rel"):
+        check(case[key] <= FLASH_GRAD_TOL,
+              f"flash {shape}: {key} {case[key]} > {FLASH_GRAD_TOL}")
+    case["inputs"] = (o_t, delta)
+    return case
+
+
+def flash_case(b: int, h: int, lq: int, lk: int, d: int, dtype, mask,
+               seed: int) -> dict:
+    """The three kernels against their plain versions on one input: the
+    backward ones on the plain forward's o (cast) and lse. Checks the bars
+    and returns the case (with its inputs, for timing)."""
+    q, k, v, do = flash_inputs(b, h, lq, lk, d, dtype, mask.device, seed)
+    sc = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, mask, sc)
+    torch.cuda.synchronize()
+    po, plse = fa.flash_fwd_plain(q, k, v, mask, sc)
+    rows = mask.any(-1)[:, None].expand_as(plse)
+    bwd = flash_bwd_case(q, k, v, do, mask, po, plse)
+    o_t, delta = bwd.pop("inputs")
     diff = (o.double() - po.double()).abs()
     scale = float(po.double().abs().max())
     case = {"phase": "flash_kernels", "shape": [b, h, lq, lk, d],
@@ -1473,54 +1508,84 @@ def flash_case(b: int, h: int, lq: int, lk: int, d: int, dtype, mask,
             "o_max_rel": float(diff.max()) / scale,
             "o_share_within_1e-5": float((diff <= 1e-5 * scale)
                                          .double().mean()),
-            "lse_max_rel": max_rel(lse[rows], plse[rows]),
-            "dq_max_rel": max_rel(dq, pdq), "dk_max_rel": max_rel(dk, pdk),
-            "dv_max_rel": max_rel(dv, pdv),
-            "max_abs": {"flash_fwd": float(diff.max()),
-                        "flash_dq": float((dq - pdq).abs().max()),
-                        "flash_dkv": max(float((dk - pdk).abs().max()),
-                                         float((dv - pdv).abs().max()))},
-            "finite": all(bool(torch.isfinite(t).all())
-                          for t in (o, dq, dk, dv))}
+            "lse_max_rel": max_rel(lse[rows], plse[rows]), **bwd,
+            "max_abs": {"flash_fwd": float(diff.max()), **bwd["max_abs"]},
+            "finite": bwd["finite"] and bool(torch.isfinite(o).all())}
     check(case["finite"], f"flash {case['shape']}: output not finite")
-    check(bool((o[~rows] == 0).all()) and bool((dq[~rows] == 0).all()),
+    check(bool((o[~rows] == 0).all()),
           f"flash {case['shape']}: a fully masked row is not zero")
     check(case["o_max_rel"] <= FLASH_FWD_TOL
           and case["o_share_within_1e-5"] >= INT8_ATTN_SHARE
           and case["lse_max_rel"] <= FLASH_LSE_TOL,
           f"flash_fwd {case['shape']}: o {case['o_max_rel']} (share "
           f"{case['o_share_within_1e-5']}), lse {case['lse_max_rel']}")
-    for key in ("dq_max_rel", "dk_max_rel", "dv_max_rel"):
-        check(case[key] <= FLASH_GRAD_TOL,
-              f"flash {case['shape']}: {key} {case[key]} > {FLASH_GRAD_TOL}")
     case["inputs"] = (q, k, v, do, o_t, plse, delta, sc)
     return case
 
 
 def flash_bounds(q, mask) -> dict:
     """(bound ms, bound_by) of each kernel on these inputs: the unmasked
-    score cells times 2·D per product, against the bytes (q, k, v, o, do,
-    dq, dk, dv in the input type, the mask, lse and delta read or written
-    once). A product of two input-type operands runs at the input type's
-    peak (bf16: the forward's S and P·V, the backward's S and dP); one
-    with a float32 operand (dS·K, dSᵀ·Q, Pᵀ·dO) at the f32 peak."""
+    score cells times 2·D per product pass, against the bytes (q, k, v, o,
+    do, dq, dk, dv in the input type, the mask, lse and delta read or
+    written once). A product of two input-type operands is one pass at the
+    input type's peak (bf16: the forward's S and P·V, the backward's S and
+    dP). A product with a float32 operand (dS·K, dSᵀ·Q, Pᵀ·dO) is, for bf16
+    inputs, two bf16 passes (the operand split hi/lo, the least the card
+    can do for an f32-accurate product on its tensor cores) and, for
+    float32 inputs, one pass at the f32 peak: dq 4 bf16 passes, dk/dv 6."""
     b, h, lq, d = q.shape
     lk = mask.shape[-1]
     cells = float(h) * float(mask.sum())
     el = q.element_size()
     qb, kb, mb = b * h * lq * d * el, b * h * lk * d * el, b * lq * lk
     rows = 4.0 * b * h * lq
-    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    # (products at the input type's peak, products at the f32 peak, bytes)
+    if q.dtype == torch.bfloat16:
+        t_typed, t_f32 = 1 / PEAK_BF16_FLOPS, 2 / PEAK_BF16_FLOPS
+    else:
+        t_typed = t_f32 = 1 / PEAK_F32_FLOPS
+    # (products of two input-type operands, products with an f32 one, bytes)
     work = {"flash_fwd": (2, 0, qb + 2 * kb + mb + qb + rows),
             "flash_dq": (2, 1, 3 * qb + 2 * kb + mb + rows + qb + rows),
             "flash_dkv": (2, 2, 2 * qb + 2 * kb + mb + 2 * rows + 2 * kb)}
     out = {}
     for name, (typed, f32, nbytes) in work.items():
-        t_ops = 2.0 * d * cells * (typed / peak + f32 / PEAK_F32_FLOPS)
+        t_ops = 2.0 * d * cells * (typed * t_typed + f32 * t_f32)
         t_bytes = nbytes / PEAK_BYTES
         out[name] = (1e3 * max(t_ops, t_bytes),
                      "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def tile_occupancy(mask, tile: int = 64) -> dict:
+    """Shares of the (tile x tile) tiles of a (B, Lq, Lk) mask that are
+    empty, full and mixed, as the bf16 backward kernels class them: cells
+    past Lq or Lk count as masked."""
+    b, lq, lk = mask.shape
+    padded = F.pad(mask.bool(), (0, -lk % tile, 0, -lq % tile))
+    tiles = padded.view(b, padded.shape[1] // tile, tile,
+                        padded.shape[2] // tile, tile)
+    valid = tiles.sum((2, 4))
+    n = valid.numel()
+    empty = int((valid == 0).sum())
+    full = int((valid == tile * tile).sum())
+    return {"empty": empty / n, "full": full / n,
+            "mixed": (n - empty - full) / n, "tiles": n}
+
+
+def bwd_kernel_usage(d: int, lq: int, lk: int) -> dict:
+    """The bf16 dq and dk/dv kernels at head_dim d: ptxas's registers and
+    spills (from the build's `-Xptxas -v` log) and the runtime's shared
+    memory and resident blocks per SM."""
+    ptxas = _build.ptxas_usage(_build.build_log("flash_attention"))
+    out = {}
+    for name, kernel, length in (("flash_dq", "flash_dq_mma_kernel", lk),
+                                 ("flash_dkv", "flash_dkv_mma_kernel", lq)):
+        mangled = [m for m in ptxas
+                   if f"{len(kernel)}{kernel}ILi{d}E" in m]
+        check(len(mangled) == 1, f"ptxas log: {kernel}<{d}> found "
+              f"{len(mangled)} times")
+        out[name] = {**ptxas[mangled[0]],
+                     **fa.bwd_kernel_info(name, d, length)}
     return out
 
 
@@ -1549,6 +1614,9 @@ def phase_flash_kernels(cfg) -> dict:
     q, k, v, do, o_t, lse, delta, sc = path
     mask = path_mask
     bounds = flash_bounds(q, mask)
+    emit({"phase": "flash_kernels", "path_mask_tiles": tile_occupancy(mask),
+          "cell_density": float(mask.double().mean()),
+          "bwd_kernels": bwd_kernel_usage(d, TRAIN_LEN, TRAIN_LEN)})
     sdpa_mask = mask[:, None]
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
 
@@ -1590,7 +1658,24 @@ def phase_flash_kernels(cfg) -> dict:
                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     emit({"phase": "flash_kernels", "sdpa_forward_ms": lib_fwd,
           "sdpa_forward_backward_ms": lib_fwd_bwd})
-    del path, q, k, v, do, o_t, lse, delta, qg, kg, vg
+    # the bf16 backward's fixed cost (no cell attends: the mask read and
+    # classed, zeros written) and its dense rate (every cell attends)
+    sweep = {}
+    for label, m in (("no_cell_attends", torch.zeros_like(mask)),
+                     ("every_cell_attends", torch.ones_like(mask))):
+        o_m, lse_m = fa.flash_fwd(q, k, v, m, sc)
+        o_m = o_m.to(q.dtype)
+        delta_m = fa.flash_dq(q, k, v, m, o_m, do, lse_m, sc)[1]
+        bounds_m = flash_bounds(q, m)
+        sweep[label] = {
+            "flash_dq": time_ms(lambda: fa.flash_dq(q, k, v, m, o_m, do,
+                                                    lse_m, sc), reps=10),
+            "flash_dkv": time_ms(lambda: fa.flash_dkv(q, k, v, m, do, lse_m,
+                                                      delta_m, sc), reps=10),
+            "bound_ms": {name: bounds_m[name][0]
+                         for name in ("flash_dq", "flash_dkv")}}
+    emit({"phase": "flash_kernels", "mask_sweep": sweep})
+    del path, q, k, v, do, o_t, lse, delta, qg, kg, vg, m, o_m, lse_m, delta_m
     torch.cuda.empty_cache()
     return entries
 

@@ -3,7 +3,9 @@
 Each `setok_tpu_torch/csrc/<name>.cu` becomes its own shared library with a
 plain C interface, `build/torch_kernels/lib<name>-<hash>.so` in the checkout,
 built at first use. The hash covers the sources and the flags, so an edited
-source is rebuilt. `build_all()` starts one nvcc per source, all at once.
+source is rebuilt. `build_all()` starts one nvcc per source, all at once,
+and keeps each nvcc's output (ptxas's registers, spills and stack per
+kernel, from `-Xptxas -v`) beside its library; `build_log()` reads it.
 Nothing here falls back: a missing nvcc, a failed build or a failed load
 raises.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,7 +24,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # nvcc on PATH first, then the toolkit's default install location
 NVCC_CANDIDATES = ("nvcc", "/usr/local/cuda/bin/nvcc")
@@ -70,10 +73,45 @@ def build_all() -> Dict[str, Path]:
             if proc.returncode != 0:
                 failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return targets
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for csrc/<name>.cu, building it if needed."""
+    path = _library_path(name)
+    if not path.exists():
+        build_all()
+    return path.with_suffix(".log").read_text()
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Per kernel (its mangled name) in a `-Xptxas -v` log: registers, spill
+    stores and loads (bytes), stack frame (bytes)."""
+    usage: Dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -21,10 +21,18 @@ the card it launches or raises. `flash_attention_plain` is the same
 Function on the plain versions wherever the tensors lie (the card's parity
 runs compare the two). The kernels write float32; o, dq, dk and dv are cast
 to the input type afterwards, as the JAX kernels' refs are. The kernels
-take float32 or bfloat16 inputs and head_dim 64 or 128; the bf16 forward's
-products run on the tensor cores, every other product in float32 on the
-CUDA cores (csrc/flash_attention.cu says why).
-"""
+take float32 or bfloat16 inputs and head_dim 64 or 128.
+
+bfloat16 (the training path) runs every product on the tensor cores. The
+backward's S and dP take the bf16 operands as they are; its products with
+a float32 operand (dS·K, Pᵀ·dO, dSᵀ·Q) split that operand into two bf16
+terms, hi = bf16(x) and lo = bf16(x - hi), which keeps it to 2⁻¹⁶ relative.
+The backward skips the 64 × 64 tiles where the mask is empty (their
+contribution is exactly zero) and tests the mask only in mixed tiles.
+float32 inputs run on the CUDA cores over every tile. csrc/flash_attention.cu
+says why; `bwd_kernel_info` reports the bf16 backward kernels' shared
+memory and blocks per SM (their registers and spills are in the build log,
+`_build.build_log`)."""
 
 from __future__ import annotations
 
@@ -207,6 +215,21 @@ def flash_bwd(q, k, v, mask, o, do, lse, sm_scale: float):
     return dq, dk, dv
 
 
+def bwd_kernel_info(kernel: str, head_dim: int, length: int,
+                    device=None) -> dict:
+    """The bf16 backward kernel `kernel` ("flash_dq" or "flash_dkv") as the
+    card runs it at `head_dim` and sweep length `length` (Lk for dq, Lq for
+    dk/dv): dynamic shared memory bytes a block, resident blocks per SM."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    info = (ctypes.c_int * 2)()
+    err = _entry("flash_bwd_info")(("flash_dq", "flash_dkv").index(kernel),
+                                   head_dim, length, index, info)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_info failed with CUDA error {err}")
+    return {"smem_bytes": info[0], "blocks_per_sm": info[1]}
+
+
 def _route(q, plain: bool):
     if plain or q.device.type == "cpu":
         return "plain"
@@ -261,6 +284,9 @@ def _entry(name: str):
     fn = getattr(load_library("flash_attention"), name)
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "flash_bwd_info":
+        fn.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        return fn
     n_ptr = {"flash_fwd": 6, "flash_dq": 9, "flash_dkv": 9}[name]
     fn.argtypes = ([p] * n_ptr + [i] * 6 + [ctypes.c_float, i, p,
                                             ctypes.POINTER(i)])

@@ -13,8 +13,9 @@ import torch
 
 # first match wins; names are CUDA kernel names as the profiler reports them
 CATEGORIES = (
-    ("flash_attention", ("flash_fwd", "flash_dq_kernel",
-                         "flash_dkv_kernel")),
+    ("flash_forward", ("flash_fwd",)),
+    ("flash_dq", ("flash_dq",)),
+    ("flash_dkv", ("flash_dkv",)),
     ("cluster_dpc", ("density_kernel", "parent_kernel", "sqnorm_kernel")),
     ("int8_gemm", ("gemm_s8_kernel",)),
     ("quant_gemv", ("gemv_kernel",)),

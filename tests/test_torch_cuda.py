@@ -21,8 +21,10 @@ float epilogue); the int8-cache decode attention 2e-3 max-rel with ≥ 99 %
 of the elements within 1e-5 of the largest. The flash-attention kernels,
 with chip_smoke.flash_case's bars: the forward's o 2e-3 max-rel with ≥ 99 %
 within 1e-5 of the largest (p rounds to the input type before P.V), lse
-1e-5, dq/dk/dv 1e-4 (float32, sums in another order); a fully masked query
-row gives zeros.
+1e-5, dq/dk/dv 1e-4 (float32, sums in another order; bf16's f32 operands
+split in two bf16 terms); a fully masked query row gives zeros. The
+backward alone also on masks of empty, full and mixed 64 x 64 tiles and at
+Lk = 1000.
 """
 
 import numpy as np
@@ -274,6 +276,46 @@ def test_flash_kernels_match_plain(card, dtype, lq, lk, d):
     before = dict(fa.LAUNCHES)
     chip_smoke.flash_case(2, 3, lq, lk, d, dtype, mask, seed=lq)
     assert fa.LAUNCHES == {k: v + 1 for k, v in before.items()}
+
+
+def tiled_mask(b: int, lq: int, lk: int, gen, tile: int = 64):
+    """A (b, lq, lk) mask of (tile x tile) tiles that are, in turn along
+    each batch row and tile row, empty, full and random (half the cells):
+    the three classes of the bf16 backward."""
+    dev = gen.device
+    kind = (torch.arange(b, device=dev)[:, None, None]
+            + torch.arange(lq, device=dev)[None, :, None] // tile
+            + torch.arange(lk, device=dev)[None, None, :] // tile
+            + int(torch.randint(3, (1,), generator=gen, device=dev))) % 3
+    cells = torch.rand(b, lq, lk, generator=gen, device=dev) > 0.5
+    return (kind == 1) | ((kind == 2) & cells)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("lq,lk,d", [(70, 130, 128), (200, 1000, 64),
+                                     (130, 1000, 128), (67, 1001, 64)])
+@pytest.mark.parametrize("kind", ["random", "tiles"])
+def test_flash_backward_kernels_match_plain(card, kind, dtype, lq, lk, d):
+    """dq and dk/dv on the plain forward's o and lse. Random masks leave
+    every 64 x 64 tile mixed; tiled ones have empty, full and mixed tiles,
+    which the bf16 kernels skip, run without a mask test and test per
+    cell. Lk = 1000 and 1001 are not multiples of 16: the bf16 kernels read
+    the mask 8 bytes and 1 byte a load there."""
+    gen = torch.Generator(device=card).manual_seed(lq)
+    if kind == "random":
+        mask = torch.rand(2, lq, lk, generator=gen, device=card) > 0.3
+    else:
+        mask = tiled_mask(2, lq, lk, gen)
+        occ = chip_smoke.tile_occupancy(mask)
+        assert min(occ["empty"], occ["full"], occ["mixed"]) > 0
+    mask[0, 5] = False                       # a fully masked query row
+    q, k, v, do = chip_smoke.flash_inputs(2, 3, lq, lk, d, dtype, card, lq)
+    po, plse = fa.flash_fwd_plain(q, k, v, mask, d ** -0.5)
+    before = dict(fa.LAUNCHES)
+    chip_smoke.flash_bwd_case(q, k, v, do, mask, po, plse)
+    assert fa.LAUNCHES == {**before, "flash_dq": before["flash_dq"] + 1,
+                           "flash_dkv": before["flash_dkv"] + 1}
 
 
 def test_flash_trunk_trains_through_the_kernels(card):
