@@ -29,7 +29,9 @@ the last line:
                 384, the inner Block's cluster mask at N=256 and the inter
                 Block's validity mask with fully masked rows at N=80), and
                 quant_matmul at the Dense shapes of the three
-                configurations below; times, bounds, plain times;
+                configurations below (bf16 x, bf16 and f32 out; the row
+                pass and the GEMM apart, the GEMM beside torch._int_mm);
+                times, bounds, plain times;
   forward_unfused  the int8 forward of base @384, base with a 4096-wide
                 tokenizer MLP (full depth, B=2) and so400m (full width,
                 ViT depth 4, decoder depth 2), card against CPU stage by
@@ -42,8 +44,10 @@ the last line:
                 group 128) at the seven Vicuna-7B trunk linears, decode
                 M=4 and prefill M=512 rows, and the int8-cache decode
                 attention at B=4, S=512 with holes in the key mask, each
-                against its plain version, with its time, bound and the
-                nearest library call's time (torch._int_mm, SDPA);
+                against its plain version (the count of elements that
+                differ), with its time, its device time split into the
+                row pass and the product, the host µs a call, its bound
+                and the nearest library call's time (torch._int_mm, SDPA);
   serve         base_setokim() at full width (32 trunk layers, hidden 4096,
                 ViT-B/16 SeTok), random weights from the seed, bits 8 then
                 bits 4 (group 128, clip search 8), int8 KV cache with the
@@ -60,10 +64,11 @@ the last line:
                 32 heads, L=2048, head_dim 128, bf16, a mask from the
                 splice of a synthetic batch: image-slot holes, a pad tail,
                 fully masked query rows) and at a ragged one (L=1000),
+                the forward's share beside its float64-score twin's,
                 with their times, bounds and SDPA's (forward, and forward
                 + backward); the path mask's shares of empty, full and
-                mixed 64 x 64 tiles; the bf16 backward kernels' registers
-                and spills (ptxas), shared memory and blocks per SM; and
+                mixed 64 x 64 tiles; the bf16 kernels' registers and
+                spills (ptxas), shared memory and blocks per SM; and
                 their times with no cell and with every cell attending;
   train         stage-2 LoRA training of base_setokim() at full width
                 (r 128, alpha 256, lr 2e-4, mm_in projector lr 2e-5, flash
@@ -834,28 +839,52 @@ def phase_unfused_kernels(b_check: int = 3, b_time: int = 64) -> dict:
         for m in (b_check * 243, DENSE_ROWS[label.split()[0]]):
             x = torch.randn(m, k, generator=gen, device=dev).to(
                 torch.bfloat16)
-            got = qm.quant_matmul(x, w, out_dtype=torch.float32)
-            torch.cuda.synchronize()
-            case = check_close("quant_matmul", f"{label} M={m}", got,
-                               quant_matmul_plain(x, w, torch.float32),
-                               QUANT_TOL)
-            case["phase"] = "unfused_kernels"
-            if m != b_check * 243:
-                t_bytes, t_ops = quant_bound(m, k, n, 8, 1)
-                case.update(
-                    ms=time_ms(lambda: qm.quant_matmul(x, w)),
-                    plain_ms=time_ms(lambda: quant_matmul_plain(x, w),
-                                     reps=5, warmup=1),
-                    library_ms=time_ms(library_int_mm(x.float(),
-                                                      w.values)),
-                    bound_ms=1e3 * max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
-                dense.append({"shape": case["shape"], "K": k, "N": n,
-                              **{key: case[key] for key in (
-                                  "ms", "plain_ms", "library_ms",
-                                  "bound_ms", "bound_by", "max_abs")}})
-            emit(case)
+            # bf16 x, as under bf16 glue; bf16 out as Dense writes it, and
+            # f32 out
+            for out_dtype in (torch.bfloat16, torch.float32):
+                got = qm.quant_matmul(x, w, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                want = quant_matmul_plain(x, w, out_dtype)
+                case = check_close("quant_matmul", f"{label} M={m}", got,
+                                   want, QUANT_TOL)
+                case.update(phase="unfused_kernels",
+                            out_dtype=str(out_dtype).replace("torch.", ""),
+                            elements_differing=int((got != want).sum()))
+                del got, want
+                if m != b_check * 243 and out_dtype == torch.bfloat16:
+                    case.update(dense_timing(x, w))
+                    dense.append({"shape": case["shape"], "K": k, "N": n,
+                                  **{key: case[key] for key in (
+                                      "ms", "plain_ms", "library_ms",
+                                      "gemm_ms", "rows_ms", "int_mm_ms",
+                                      "bound_ms", "bound_by",
+                                      "bound_ms_f32_counting", "max_abs",
+                                      "elements_differing")}})
+                emit(case)
     return {"entries": entries, "dense": dense}
+
+
+def dense_timing(x, w) -> dict:
+    """One Dense call's timings at bf16 in and out: the whole call by
+    events, its device time split into the row pass and the GEMM (the
+    profiler), the GEMM beside torch._int_mm on the same int8 operands
+    (library_ms, int_mm_ms), the plain version, and the bound counted in
+    the types the call moves beside the earlier float32 counting."""
+    m, k = x.shape
+    n = w.values.shape[0]
+    t_bytes, t_ops = quant_bound(m, k, n, 8, 1, x_size=2, out_size=2)
+    f32_bytes, _ = quant_bound(m, k, n, 8, 1, x_size=4, out_size=4)
+    split = device_split(lambda: qm.quant_matmul(x, w))
+    int_mm = time_ms(library_int_mm(x.float(), w.values))
+    return {"ms": time_ms(lambda: qm.quant_matmul(x, w)),
+            "plain_ms": time_ms(lambda: quant_matmul_plain(x, w), reps=5,
+                                warmup=1),
+            "library_ms": int_mm, "int_mm_ms": int_mm,
+            "gemm_ms": split["product_ms"], "rows_ms": split["rows_ms"],
+            "device_ms": split["device_ms"],
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_f32_counting": 1e3 * max(f32_bytes, t_ops)}
 
 
 def expect_calls(name: str, counts: dict, tok_cfg, det_cfg) -> None:
@@ -975,12 +1004,14 @@ def trunk_shapes(cfg) -> dict:
             "down_proj": (i, h)}
 
 
-def quant_bound(m: int, k: int, n: int, bits: int, n_scales: int) -> tuple:
+def quant_bound(m: int, k: int, n: int, bits: int, n_scales: int,
+                x_size: int, out_size: int) -> tuple:
     """(seconds at the memory rate, seconds at the int8 rate) of one call:
-    x f32 in, the weight and its scales, the f32 output; 2·M·N·K int8
-    operations."""
-    nbytes = 4.0 * m * k + n * k * bits / 8 + 4.0 * n * n_scales \
-        + 4.0 * m * n
+    x in, the weight and its scales, the output, each once and in the type
+    the call moves (x_size and out_size bytes an element: 2 under bf16
+    glue, 4 where x is float32); 2·M·N·K int8 operations."""
+    nbytes = float(x_size) * m * k + n * k * bits / 8 + 4.0 * n * n_scales \
+        + float(out_size) * m * n
     return nbytes / PEAK_BYTES, 2.0 * m * n * k / PEAK_INT8_OPS
 
 
@@ -994,10 +1025,28 @@ def library_int_mm(x: torch.Tensor, w8: torch.Tensor):
     return lambda: torch._int_mm(x8, wt)
 
 
-def kernel_device_ms(fn, reps: int = 10) -> float:
-    """Device time of one fn() from the profiler: the kernels' sum."""
-    return device_time_breakdown(lambda: [fn() for _ in range(reps)]
-                                 )["device_ms"] / reps
+def device_split(fn, reps: int = 10) -> dict:
+    """Device ms of one fn() from the profiler (the kernels' sum), and of
+    its row pass and its product (GEMV or GEMM)."""
+    by = device_time_breakdown(lambda: [fn() for _ in range(reps)])
+    cats = by["by_category_ms"]
+    return {"device_ms": by["device_ms"] / reps,
+            "rows_ms": cats.get("quant_rows", 0.0) / reps,
+            "product_ms": (cats.get("quant_gemm", 0.0)
+                           + cats.get("quant_gemv", 0.0)) / reps}
+
+
+def host_us_per_call(fn, device_ms: float, n: int = 200) -> tuple:
+    """(host µs a call, wall ms a call): the wall time of a loop of n calls
+    ended by a synchronize, minus the device time of a call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t) / n
+    return 1e3 * (wall_ms - device_ms), wall_ms
 
 
 def check_close(name: str, label: str, got, want, tol: float,
@@ -1045,26 +1094,37 @@ def phase_serve_kernels() -> dict:
                          else quant4_matmul_plain)
                 got = kernel(x, wq)
                 torch.cuda.synchronize()
-                case = check_close(name, f"{lin} {fmt} M={m}", got,
-                                   plain(x, wq), QUANT_TOL)
+                want = plain(x, wq)
+                case = check_close(name, f"{lin} {fmt} M={m}", got, want,
+                                   QUANT_TOL)
+                case["elements_differing"] = int((got != want).sum())
                 errs[name] = max(errs[name], case["max_abs"])
                 lib = library_int_mm(x, wq.values if fmt == "w8"
                                      else unpacked)
                 bits = 8 if fmt == "w8" else 4
                 t_bytes, t_ops = quant_bound(m, k, n, bits,
-                                             wq.scales.numel() // n)
+                                             wq.scales.numel() // n,
+                                             x_size=4, out_size=4)
+                split = device_split(lambda: kernel(x, wq))
                 case.update(
                     ms=time_ms(lambda: kernel(x, wq)),
-                    device_ms=kernel_device_ms(lambda: kernel(x, wq)),
+                    device_ms=split["device_ms"], rows_ms=split["rows_ms"],
+                    product_ms=split["product_ms"],
                     plain_ms=time_ms(lambda: plain(x, wq), reps=5,
                                      warmup=1),
                     library_ms=time_ms(lib), bound_ms=1e3 * max(t_bytes,
                                                                 t_ops))
+                case["host_us"], case["wall_ms"] = host_us_per_call(
+                    lambda: kernel(x, wq), split["device_ms"])
                 emit(case)
                 tot = totals.setdefault((fmt, m), {
-                    "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-                    "library_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0})
-                for key in ("ms", "device_ms", "plain_ms", "library_ms"):
+                    "ms": 0.0, "device_ms": 0.0, "rows_ms": 0.0,
+                    "product_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                    "host_us": 0.0, "wall_ms": 0.0, "t_bytes": 0.0,
+                    "t_ops": 0.0})
+                for key in ("ms", "device_ms", "rows_ms", "product_ms",
+                            "plain_ms", "library_ms", "host_us",
+                            "wall_ms"):
                     tot[key] += case[key]
                 tot["t_bytes"] += t_bytes
                 tot["t_ops"] += t_ops
@@ -1089,8 +1149,13 @@ def phase_serve_kernels() -> dict:
             "bound_by": "bytes" if tot["t_bytes"] >= tot["t_ops"]
             else "operations",
             "library_ms": tot["library_ms"], "device_ms": tot["device_ms"],
+            "rows_ms": tot["rows_ms"], "product_ms": tot["product_ms"],
+            "host_us": tot["host_us"], "wall_ms": tot["wall_ms"],
             "timing": f"the seven trunk linears of one layer, {fmt}, "
                       f"M={SERVE_BATCH} (decode)"}
+    entries["quant_matmul"]["wgmma_gemm_ptxas"] = {
+        out: ptxas_of("quant_matmul", "wgmma_gemm_kernel", arg)
+        for out, arg in (("bfloat16", "13__nv_bfloat16E"), ("float32", "fE"))}
     entries["int8_cache_decode_attention"] = cache_attention_case(cfg, gen)
     return entries
 
@@ -1130,8 +1195,8 @@ def cache_attention_case(cfg, gen) -> dict:
     t_bytes, t_ops = nbytes / PEAK_BYTES, 4.0 * b * h * s * d / PEAK_F32_FLOPS
     case.update(
         ms=time_ms(lambda: ca.int8_cache_decode_attention(*args, sm)),
-        device_ms=kernel_device_ms(
-            lambda: ca.int8_cache_decode_attention(*args, sm)),
+        device_ms=device_split(
+            lambda: ca.int8_cache_decode_attention(*args, sm))["device_ms"],
         plain_ms=time_ms(lambda: ca.int8_cache_decode_attention_plain(
             *args, sm), reps=5, warmup=1),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -1486,40 +1551,82 @@ def flash_bwd_case(q, k, v, do, mask, po, plse) -> dict:
     return case
 
 
+def share_within_1e5(got, want) -> float:
+    """The share of elements within 1e-5 of the largest |want|."""
+    diff = (got.double() - want.double()).abs()
+    return float((diff <= 1e-5 * want.double().abs().max()).double().mean())
+
+
+def flash_fwd_twin(q, k, v, mask, sm_scale):
+    """The plain forward with its scores summed in float64 and rounded
+    once: a legal reordering of the plain version's sums, the yardstick of
+    the forward's share bar."""
+    with mock.patch.object(fa, "_scores", scores_f64):
+        return fa.flash_fwd_plain(q, k, v, mask, sm_scale)
+
+
+def flash_fwd_check(q, k, v, mask, twin_bar: bool = False) -> dict:
+    """The forward kernel against its plain version on one input, with the
+    float64-score twin's share beside the kernel's. Bars: o max-rel 2e-3,
+    o exactly 0 on fully masked rows, lse 1e-5 on the others, and a share
+    of o within 1e-5 of the largest of at least 99 % or, with twin_bar
+    where the twin falls under 99 %, no more than 0.01 under the twin's
+    share. Over ~700 valid keys a row's largest |o| is ~0.45, and one
+    flipped bf16 rounding of one p moves o by ~2^-8·|v|/700, the size of
+    that threshold: a kernel whose score sums run in another order than
+    the plain version's can miss 99 % there without being wrong, and so
+    does the twin. Returns the readings, with (o, lse) of the plain
+    version under "plain"."""
+    sc = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, mask, sc)
+    torch.cuda.synchronize()
+    po, plse = fa.flash_fwd_plain(q, k, v, mask, sc)
+    twin = flash_fwd_twin(q, k, v, mask, sc)[0]
+    rows = mask.any(-1)[:, None].expand_as(plse)
+    diff = (o.double() - po.double()).abs()
+    case = {"o_max_rel": float(diff.max()) / float(po.double().abs().max()),
+            "o_share_within_1e-5": share_within_1e5(o, po),
+            "twin_share_within_1e-5": share_within_1e5(twin, po),
+            "twin_max_rel": max_rel(twin, po),
+            "lse_max_rel": max_rel(lse[rows], plse[rows]),
+            "max_abs": float(diff.max()),
+            "finite": bool(torch.isfinite(o).all())}
+    share_bar = INT8_ATTN_SHARE
+    if twin_bar:
+        share_bar = min(share_bar, case["twin_share_within_1e-5"] - 0.01)
+    case["share_bar"] = share_bar
+    shape = [*q.shape[:3], k.shape[2], q.shape[3]]
+    check(case["finite"], f"flash_fwd {shape}: output not finite")
+    check(bool((o[~rows] == 0).all()),
+          f"flash_fwd {shape}: a fully masked row is not zero")
+    check(case["o_max_rel"] <= FLASH_FWD_TOL
+          and case["o_share_within_1e-5"] >= share_bar
+          and case["lse_max_rel"] <= FLASH_LSE_TOL,
+          f"flash_fwd {shape}: o {case['o_max_rel']} (share "
+          f"{case['o_share_within_1e-5']}, bar {share_bar}, twin "
+          f"{case['twin_share_within_1e-5']}), lse {case['lse_max_rel']}")
+    case["plain"] = (po, plse)
+    return case
+
+
 def flash_case(b: int, h: int, lq: int, lk: int, d: int, dtype, mask,
                seed: int) -> dict:
     """The three kernels against their plain versions on one input: the
     backward ones on the plain forward's o (cast) and lse. Checks the bars
-    and returns the case (with its inputs, for timing)."""
+    (the forward's share at 99 %) and returns the case (with its inputs,
+    for timing)."""
     q, k, v, do = flash_inputs(b, h, lq, lk, d, dtype, mask.device, seed)
-    sc = d ** -0.5
-    o, lse = fa.flash_fwd(q, k, v, mask, sc)
-    torch.cuda.synchronize()
-    po, plse = fa.flash_fwd_plain(q, k, v, mask, sc)
-    rows = mask.any(-1)[:, None].expand_as(plse)
+    fwd = flash_fwd_check(q, k, v, mask)
+    po, plse = fwd.pop("plain")
     bwd = flash_bwd_case(q, k, v, do, mask, po, plse)
     o_t, delta = bwd.pop("inputs")
-    diff = (o.double() - po.double()).abs()
-    scale = float(po.double().abs().max())
     case = {"phase": "flash_kernels", "shape": [b, h, lq, lk, d],
             "dtype": str(dtype).replace("torch.", ""),
             "mask_density": float(mask.double().mean()),
-            "fully_masked_rows": int((~mask.any(-1)).sum()),
-            "o_max_rel": float(diff.max()) / scale,
-            "o_share_within_1e-5": float((diff <= 1e-5 * scale)
-                                         .double().mean()),
-            "lse_max_rel": max_rel(lse[rows], plse[rows]), **bwd,
-            "max_abs": {"flash_fwd": float(diff.max()), **bwd["max_abs"]},
-            "finite": bwd["finite"] and bool(torch.isfinite(o).all())}
-    check(case["finite"], f"flash {case['shape']}: output not finite")
-    check(bool((o[~rows] == 0).all()),
-          f"flash {case['shape']}: a fully masked row is not zero")
-    check(case["o_max_rel"] <= FLASH_FWD_TOL
-          and case["o_share_within_1e-5"] >= INT8_ATTN_SHARE
-          and case["lse_max_rel"] <= FLASH_LSE_TOL,
-          f"flash_fwd {case['shape']}: o {case['o_max_rel']} (share "
-          f"{case['o_share_within_1e-5']}), lse {case['lse_max_rel']}")
-    case["inputs"] = (q, k, v, do, o_t, plse, delta, sc)
+            "fully_masked_rows": int((~mask.any(-1)).sum()), **fwd, **bwd,
+            "max_abs": {"flash_fwd": fwd["max_abs"], **bwd["max_abs"]},
+            "finite": bwd["finite"] and fwd["finite"]}
+    case["inputs"] = (q, k, v, do, o_t, plse, delta, d ** -0.5)
     return case
 
 
@@ -1572,20 +1679,27 @@ def tile_occupancy(mask, tile: int = 64) -> dict:
             "mixed": (n - empty - full) / n, "tiles": n}
 
 
-def bwd_kernel_usage(d: int, lq: int, lk: int) -> dict:
-    """The bf16 dq and dk/dv kernels at head_dim d: ptxas's registers and
-    spills (from the build's `-Xptxas -v` log) and the runtime's shared
-    memory and resident blocks per SM."""
-    ptxas = _build.ptxas_usage(_build.build_log("flash_attention"))
+def ptxas_of(source: str, kernel: str, template_arg: str) -> dict:
+    """ptxas's registers and spills of `kernel<template_arg>` (its mangled
+    name's prefix) from the build's `-Xptxas -v` log of csrc/<source>.cu."""
+    ptxas = _build.ptxas_usage(_build.build_log(source))
+    mangled = [m for m in ptxas
+               if f"{len(kernel)}{kernel}I{template_arg}" in m]
+    check(len(mangled) == 1, f"ptxas log: {kernel}<{template_arg}> found "
+          f"{len(mangled)} times")
+    return ptxas[mangled[0]]
+
+
+def flash_kernel_usage(d: int, lq: int, lk: int) -> dict:
+    """The bf16 forward, dq and dk/dv kernels at head_dim d: ptxas's
+    registers and spills and the runtime's shared memory and resident
+    blocks per SM."""
     out = {}
-    for name, kernel, length in (("flash_dq", "flash_dq_mma_kernel", lk),
+    for name, kernel, length in (("flash_fwd", "flash_fwd_mma_kernel", lk),
+                                 ("flash_dq", "flash_dq_mma_kernel", lk),
                                  ("flash_dkv", "flash_dkv_mma_kernel", lq)):
-        mangled = [m for m in ptxas
-                   if f"{len(kernel)}{kernel}ILi{d}E" in m]
-        check(len(mangled) == 1, f"ptxas log: {kernel}<{d}> found "
-              f"{len(mangled)} times")
-        out[name] = {**ptxas[mangled[0]],
-                     **fa.bwd_kernel_info(name, d, length)}
+        out[name] = {**ptxas_of("flash_attention", kernel, f"Li{d}E"),
+                     **fa.kernel_info(name, d, length)}
     return out
 
 
@@ -1616,7 +1730,7 @@ def phase_flash_kernels(cfg) -> dict:
     bounds = flash_bounds(q, mask)
     emit({"phase": "flash_kernels", "path_mask_tiles": tile_occupancy(mask),
           "cell_density": float(mask.double().mean()),
-          "bwd_kernels": bwd_kernel_usage(d, TRAIN_LEN, TRAIN_LEN)})
+          "bf16_kernels": flash_kernel_usage(d, TRAIN_LEN, TRAIN_LEN)})
     sdpa_mask = mask[:, None]
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
 
@@ -1658,8 +1772,8 @@ def phase_flash_kernels(cfg) -> dict:
                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     emit({"phase": "flash_kernels", "sdpa_forward_ms": lib_fwd,
           "sdpa_forward_backward_ms": lib_fwd_bwd})
-    # the bf16 backward's fixed cost (no cell attends: the mask read and
-    # classed, zeros written) and its dense rate (every cell attends)
+    # the bf16 kernels' fixed cost (no cell attends: the mask read and
+    # classed, zeros written) and their dense rate (every cell attends)
     sweep = {}
     for label, m in (("no_cell_attends", torch.zeros_like(mask)),
                      ("every_cell_attends", torch.ones_like(mask))):
@@ -1668,12 +1782,15 @@ def phase_flash_kernels(cfg) -> dict:
         delta_m = fa.flash_dq(q, k, v, m, o_m, do, lse_m, sc)[1]
         bounds_m = flash_bounds(q, m)
         sweep[label] = {
+            "flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, m, sc),
+                                 reps=10),
             "flash_dq": time_ms(lambda: fa.flash_dq(q, k, v, m, o_m, do,
                                                     lse_m, sc), reps=10),
             "flash_dkv": time_ms(lambda: fa.flash_dkv(q, k, v, m, do, lse_m,
                                                       delta_m, sc), reps=10),
             "bound_ms": {name: bounds_m[name][0]
-                         for name in ("flash_dq", "flash_dkv")}}
+                         for name in ("flash_fwd", "flash_dq",
+                                      "flash_dkv")}}
     emit({"phase": "flash_kernels", "mask_sweep": sweep})
     del path, q, k, v, do, o_t, lse, delta, qg, kg, vg, m, o_m, lse_m, delta_m
     torch.cuda.empty_cache()
@@ -1775,7 +1892,8 @@ def phase_train(cfg) -> dict:
            "peak_memory_gb": peak_gb, "profiled_micro_batch": profile}
     emit(res)
     layers = cfg.llama.num_layers
-    want = {"flash_fwd": 2 * layers, "flash_dq": layers,
+    want = {"flash_fwd": 2 * layers * fa.FWD_LAUNCHES_BF16,
+            "flash_dq": layers,
             "flash_dkv": layers, "dpc_density_parent": 6}
     check(all(np.isfinite(v) for row in losses for v in row.values()),
           "a training loss is not finite")
@@ -1857,16 +1975,17 @@ def patched(*patches):
 
 # the routes of train_parity besides the kernels', each against the plain
 # route: (name, plain route?, patches of the flash module, launches)
+FWD_2L = 4 * fa.FWD_LAUNCHES_BF16    # 2 layers, forward and recompute
 PARITY_ROUTES = (
     ("plain_again", True, (), (0, 0, 0)),
     ("plain_scores_f64", True, (("_scores", scores_f64),), (0, 0, 0)),
     ("kernel_bwd_on_plain_o", False,
      (("flash_fwd", fa.flash_fwd_plain),), (0, 2, 2)),
     ("kernel_fwd_plain_bwd", False, (("flash_bwd", flash_bwd_plain),),
-     (4, 0, 0)),
-    ("kernel", False, (), (4, 2, 2)),
+     (FWD_2L, 0, 0)),
+    ("kernel", False, (), (FWD_2L, 2, 2)),
     ("fault_delta_dropped", False,
-     (("flash_dq", flash_dq_without_delta),), (4, 2, 2)),
+     (("flash_dq", flash_dq_without_delta),), (FWD_2L, 2, 2)),
 )
 
 

@@ -23,7 +23,6 @@
 //            in float32. o = acc / l, zero for a row without a valid key;
 //            lse = m + log(l). Two sweeps keep the JAX rounding of p: an
 //            online-softmax rescale would round p against a running max.
-//            bf16: mma.sync m16n8k16; float32: the CUDA cores.
 //   dq       one block per (64 queries, head, batch row) over key tiles:
 //            p = exp(s - lse) * mask, dp = dO.V^T, delta = rowsum(dO * o)
 //            (computed once here and written out for dk/dv),
@@ -32,15 +31,20 @@
 //            same p and ds, dv += P^T.dO, dk += dS^T.Q. Each block owns its
 //            keys' rows, so no atomics and the sums are deterministic.
 //
-// The bf16 backward (the training path) is built for Hopper's tensor cores.
-// What bounds it: at B = 4, H = 32, L = 2048, D = 128 the training splice
+// The bf16 kernels (the training path) are built for Hopper's tensor cores.
+// What bounds them: at B = 4, H = 32, L = 2048, D = 128 the training splice
 // mask leaves 29.6 % of the score cells, and each product over them costs
-// 4.1e10 FLOP. dq does four such passes and dk/dv six (below), 0.16 and
-// 0.25 ms at the bf16 peak of 989 TFLOP/s, against 0.04 ms for their bytes
-// at 3.35 TB/s: both are bound by operations. What the design does:
+// 4.1e10 FLOP. The forward does two such passes (S and P.V), dq four and
+// dk/dv six (below): 0.08, 0.16 and 0.25 ms at the bf16 peak of 989
+// TFLOP/s. The forward's bytes (q, k, v, the mask, f32 o and lse) take
+// 0.09 ms at 3.35 TB/s, the backward's 0.04: the forward is bound by
+// bytes, the backward by operations. The two-sweep forward computes S
+// twice, three passes over its non-empty tiles. What the design does:
 //
-//   * Every product on mma.sync m16n8k16 (bf16 in, f32 accumulation).
-//     S = Q.K^T and dP = dO.V^T take the bf16 inputs as they stand: the
+//   * Every product on mma.sync m16n8k16 (bf16 in, f32 accumulation; the
+//     forward's S sums each 16-wide slice of D from zero and adds the
+//     slices in f32, chunk_scores says why).
+//     S = Q.K^T, P.V and dP = dO.V^T take bf16 operands as they stand: the
 //     products are exact in f32, so only the order of the sums differs from
 //     the JAX f32 kernel. dq = dS.K, dv = P^T.dO and dk = dS^T.Q have one
 //     f32 operand, which is split in two bf16 terms, hi = bf16(x) and
@@ -48,7 +52,10 @@
 //     x is kept to 2^-16 relative, far inside the 1e-4 gradient bar (TF32,
 //     at 2^-11, misses it). Four MMA passes for dq, six for dk/dv.
 //   * No round trip through shared memory for P or dS. A warp owns 16 rows
-//     of the output (queries for dq, keys for dk/dv); dk/dv computes S^T =
+//     of the output (queries for the forward and dq, keys for dk/dv), and
+//     the forward keeps its rows' Q fragments in registers for both
+//     sweeps, its P going from the score accumulators into the A fragment
+//     of P.V 16 keys at a time. dk/dv computes S^T =
 //     K.Q^T and dP^T = V.dO^T, so that in both kernels two adjacent n8
 //     accumulator tiles of S and dP form one k16 A fragment of the next
 //     product. dq keeps its rows' Q and dO fragments in registers for the
@@ -56,7 +63,7 @@
 //     V, Q and dO reach the B operand through ldmatrix / ldmatrix.trans
 //     from one copy each, in 64-row tiles whose 16-byte chunks are XOR-
 //     swizzled by row, so that every ldmatrix is free of bank conflicts.
-//   * Empty tiles are skipped. Before its sweep a block reads the mask of
+//   * Empty tiles are skipped. Before its sweep(s) a block reads the mask of
 //     its 64-row slab once, 16 bytes a load (narrower where Lk is not a
 //     multiple of 16), and classes each 64 x 64 tile as empty, full or
 //     mixed (a block-wide OR and AND of the bytes). An empty tile, whose
@@ -66,9 +73,9 @@
 //   * The next non-empty tile's bf16 operands (and mask, lse, delta) are in
 //     flight through cp.async (16-byte copies, zero-filled past L) into a
 //     two-stage ring while this one computes. 128 threads a block; shared
-//     memory about 75 KB (dq) and 107 KB (dk/dv) at D = 128, so that two
-//     blocks fit an SM; dk/dv's 2 x 16 x D f32 accumulators take 128
-//     registers a thread.
+//     memory about 75 KB (forward, dq) and 107 KB (dk/dv) at D = 128, so
+//     that three forward blocks and two backward blocks fit an SM; dk/dv's
+//     2 x 16 x D f32 accumulators take 128 registers a thread.
 //
 // float32 inputs, off the training path, keep the CUDA-core kernels (f32
 // tiles in shared memory, register micro-tiles of 4 x 4, 4 x 2 and
@@ -274,212 +281,6 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<float4*>(orow + 64 * s) = t;
     }
     if (tx == 0) lse[head * Lq + i] = m[r] + logf(lr);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward, bfloat16 inputs: the same two sweeps with the products on the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulation: the JAX
-// kernel's dots, products exact, sums in f32). 4 warps, 16 query rows each;
-// a thread holds its rows' Q fragments, the (16 x 64) score tile of a key
-// tile as 8 accumulator fragments, and the (16 x D) output as D/8. P, in
-// bf16, goes from the score fragments straight into the A fragments of
-// P.V (the layouts line up). K is kept [key][d] and V transposed [d][key]
-// in shared memory, rows padded by 8 values so that each fragment load of
-// a warp touches 32 distinct banks.
-
-constexpr int kMmaThreads = 128;
-constexpr int kMmaBQ = 64, kMmaBK = 64;
-
-template <int D>
-constexpr size_t fwd_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-         ((size_t)kMmaBQ * (D + 8) + (size_t)kMmaBK * (D + 8) +
-          (size_t)D * (kMmaBK + 8));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + n) of an (L, D) bf16 slab → shared [r][ld] (transposed:
-// [d][ldt]), 16 bytes a thread; rows past L are 0
-template <int D>
-__device__ __forceinline__ void load_bf16_tile(
-    const __nv_bfloat16* __restrict__ src, int L, int r0, int n,
-    __nv_bfloat16* rm, int ld, __nv_bfloat16* tr, int ldt) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < n * kChunks; idx += kMmaThreads) {
-    const int r = idx / kChunks, c = (idx - r * kChunks) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < L)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    if (rm != nullptr) *reinterpret_cast<uint4*>(rm + r * ld + c) = v;
-    if (tr != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(c + i) * ldt + r] = e[i];
-    }
-  }
-}
-
-// s[nb][e] = Q.K^T of the thread's row (e < 2: g, else g + 8) and key
-// nb * 8 + t4 * 2 + (e & 1) of the tile; `kr` is the K tile offset by the
-// thread's (g, t4)
-template <int D>
-__device__ __forceinline__ void mma_scores(const uint32_t (&qf)[D / 16][4],
-                                           const __nv_bfloat16* kr,
-                                           float (&s)[kMmaBK / 8][4]) {
-#pragma unroll
-  for (int nb = 0; nb < kMmaBK / 8; ++nb) {
-    s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-    const __nv_bfloat16* r = kr + nb * 8 * (D + 8);
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      mma_bf16(s[nb], qf[kc][0], qf[kc][1], qf[kc][2], qf[kc][3],
-               ld32(r + kc * 16), ld32(r + kc * 16 + 8));
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const uint8_t* __restrict__ mask,
-                         float* __restrict__ o, float* __restrict__ lse,
-                         int H, int Lq, int Lk, float scale) {
-  constexpr int LQ = D + 8, LV = kMmaBK + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kMmaBQ * LQ;   // [key][d]
-  __nv_bfloat16* vt = ks + kMmaBK * LQ;   // [d][key]
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t head = (size_t)b * H + h;
-  const __nv_bfloat16* kh = k + head * Lk * D;
-  const __nv_bfloat16* vh = v + head * Lk * D;
-  const uint8_t* mb = mask + (size_t)b * Lq * Lk;
-  const int q0 = blockIdx.x * kMmaBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  // this thread's two query rows: g and g + 8 of the warp's 16
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  load_bf16_tile<D>(q + head * Lq * D, Lq, q0, kMmaBQ, qs, LQ, nullptr, 0);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* r = qs + (warp * 16 + g) * LQ + t4 * 2;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      qf[kc][0] = ld32(r + kc * 16);
-      qf[kc][1] = ld32(r + 8 * LQ + kc * 16);
-      qf[kc][2] = ld32(r + kc * 16 + 8);
-      qf[kc][3] = ld32(r + 8 * LQ + kc * 16 + 8);
-    }
-  }
-
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  bool any[2] = {false, false};
-  float s[kMmaBK / 8][4];
-
-  // sweep 1: the exact row max of the masked scores
-  for (int k0 = 0; k0 < Lk; k0 += kMmaBK) {
-    __syncthreads();
-    load_bf16_tile<D>(kh, Lk, k0, kMmaBK, ks, LQ, nullptr, 0);
-    __syncthreads();
-    mma_scores<D>(qf, ks + g * LQ + t4 * 2, s);
-#pragma unroll
-    for (int nb = 0; nb < kMmaBK / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok =
-            attends(mb, rows[e >> 1], k0 + nb * 8 + t4 * 2 + (e & 1), Lq, Lk);
-        m[e >> 1] = fmaxf(m[e >> 1], ok ? s[nb][e] * scale : kNegInf);
-        any[e >> 1] = any[e >> 1] || ok;
-      }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], off));
-      any[r] = __shfl_xor_sync(0xffffffffu, (int)any[r], off) || any[r];
-    }
-
-  // sweep 2: p = exp(s - m), l over the unrounded p, O += bf16(P).V
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  for (int k0 = 0; k0 < Lk; k0 += kMmaBK) {
-    __syncthreads();
-    load_bf16_tile<D>(kh, Lk, k0, kMmaBK, ks, LQ, nullptr, 0);
-    load_bf16_tile<D>(vh, Lk, k0, kMmaBK, nullptr, 0, vt, LV);
-    __syncthreads();
-    mma_scores<D>(qf, ks + g * LQ + t4 * 2, s);
-    uint32_t pf[kMmaBK / 16][4];
-#pragma unroll
-    for (int nb = 0; nb < kMmaBK / 8; ++nb) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok =
-            attends(mb, rows[e >> 1], k0 + nb * 8 + t4 * 2 + (e & 1), Lq, Lk);
-        p[e] = ok ? expf(s[nb][e] * scale - m[e >> 1]) : 0.f;
-        l[e >> 1] += p[e];
-      }
-      // n-block nb is keys [8 nb, 8 nb + 8): the low or high half of the
-      // 16-key A fragment of chunk nb / 2
-      pf[nb >> 1][(nb & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pf[nb >> 1][(nb & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const __nv_bfloat16* vr = vt + (nd * 8 + g) * LV + t4 * 2;
-#pragma unroll
-      for (int kc = 0; kc < kMmaBK / 16; ++kc)
-        mma_bf16(acc[nd], pf[kc][0], pf[kc][1], pf[kc][2], pf[kc][3],
-                 ld32(vr + kc * 16), ld32(vr + kc * 16 + 8));
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1)
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = rows[r];
-    if (i >= Lq) continue;
-    const float lr = fmaxf(l[r], 1e-30f);
-    const float valid = any[r] ? 1.f : 0.f;
-    float* orow = o + (head * Lq + i) * D + t4 * 2;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<float2*>(orow + nd * 8) =
-          make_float2((acc[nd][2 * r] / lr) * valid,
-                      (acc[nd][2 * r + 1] / lr) * valid);
-    if (t4 == 0) lse[head * Lq + i] = m[r] + logf(lr);
   }
 }
 
@@ -747,6 +548,22 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   mma_bf16(c, a[0], a[1], a[2], a[3], b0, b1);
@@ -935,6 +752,279 @@ __device__ __forceinline__ void stage_mask(uint8_t* dst,
       *reinterpret_cast<uint4*>(d) =
           mask_chunk<false>(mb, Lq, Lk, qi, kj, vec);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, bfloat16 inputs (the training path): the header's two sweeps on
+// the tensor cores, built from the backward's pieces. 4 warps a block, each
+// the owner of 16 query rows, whose Q fragments it keeps in registers for
+// both sweeps. Before the sweeps the block classes the 64 x 64 tiles of its
+// mask slab: empty tiles cost nothing in either sweep (their p is exactly
+// 0, so m, l and o get no bit from them), full ones take no mask test, and
+// only mixed ones stage their mask tile in shared memory. The next
+// non-empty tile's K (sweep 1) or K, V and mask (sweep 2) are in flight
+// through cp.async while this one computes. Each 16-key chunk of a tile
+// runs S = Q.K^T (K's B fragments by ldmatrix from the swizzled row-major
+// tile), and in sweep 2 turns its two n8 score tiles into the bf16 A
+// fragment of P.V at once (V's B fragments by ldmatrix.trans from its
+// row-major tile), so that a thread holds Q (D/16 x 4 registers), the
+// (16 x D) output (D/8 x 4) and one chunk's scores (8).
+
+// the class of every 64 x 64 tile of the mask, once a call for all heads:
+// one block per (64-row slab, batch row), classes[(b * nq + slab) * nk + t]
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_classes_kernel(const uint8_t* __restrict__ mask,
+                         uint8_t* __restrict__ classes, int Lq, int Lk,
+                         int vec) {
+  __shared__ uint32_t red[2 * kBwdThreads / 32];
+  extern __shared__ uint8_t slab_cls[];
+  const int nk = (Lk + kBwdTile - 1) / kBwdTile;
+  classify(slab_cls, red, mask + (size_t)blockIdx.y * Lq * Lk, Lq, Lk,
+           blockIdx.x * kBwdTile, 0, 0, kBwdTile, nk, vec);
+  uint8_t* out = classes + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * nk;
+  for (int t = threadIdx.x; t < nk; t += kBwdThreads) out[t] = slab_cls[t];
+}
+
+// the forward's shared memory (bytes): two stages of (K tile, V tile, mask
+// tile), then the block's row of tile classes
+template <int D>
+struct FwdSmem {
+  static constexpr int kTile = kBwdTile * D * 2;
+  static constexpr int kStage = 2 * kTile + kBwdTile * kMaskLd;
+  static constexpr int kCls = 2 * kStage;
+  static size_t bytes(int n_tiles) {
+    return (size_t)kCls + ((n_tiles + 15) & ~15);
+  }
+};
+
+// key tile t's K (and V, unless vh is null) and, if mixed, its mask tile
+// into ring stage st
+template <int D>
+__device__ __forceinline__ void fwd_stage(unsigned char* smem, int st,
+                                          const __nv_bfloat16* kh,
+                                          const __nv_bfloat16* vh,
+                                          const uint8_t* mb,
+                                          const uint8_t* cls, int t, int Lq,
+                                          int Lk, int q0, int vec) {
+  using S = FwdSmem<D>;
+  unsigned char* stage = smem + st * S::kStage;
+  const int k0 = t * kBwdTile;
+  cp_tile<D>(smem_addr(stage), kh, Lk, k0);
+  if (vh != nullptr) cp_tile<D>(smem_addr(stage + S::kTile), vh, Lk, k0);
+  if (cls[t] == kMixed)
+    stage_mask(stage + 2 * S::kTile, mb, Lq, Lk, q0, k0, vec);
+}
+
+// s[nt][e] = Q.K^T of the warp's rows and keys kc*16 + nt*8 .. +7 of the
+// K tile at shared address ks (the m16n8 accumulator layout). Each 16-wide
+// slice of D is one MMA from a zero accumulator, and the D/16 slice sums
+// are added in f32 (round to nearest): chained MMAs align every product to
+// the running sum and truncate, and at D = 128 over ~700 keys a row that
+// error flipped more bf16 roundings of p than a reordering of the f32 sums
+// does (NVIDIA H100 80GB HBM3 at 700 W, (130, 1000, 128) with a random
+// mask: 97.5 % of o within 1e-5 of the largest, against 99.1 % for the
+// plain version's float64-score twin).
+template <int D>
+__device__ __forceinline__ void chunk_scores(float (&s)[2][4],
+                                             uint32_t (&qf)[D / 16][4],
+                                             uint32_t ks, int kc, int lane) {
+  const int rb = kc * 16 + halves_row(lane);
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    uint32_t kb[4];
+    ldsm_x4(kb, ks + swz<D>(rb, 2 * c + halves_chunk(lane)));
+    float t[2][4] = {};
+    mma_bf16(t[0], qf[c], kb[0], kb[1]);
+    mma_bf16(t[1], qf[c], kb[2], kb[3]);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nt][e] = c == 0 ? t[nt][e] : __fadd_rn(s[nt][e], t[nt][e]);
+  }
+}
+
+// the mask bytes of the thread's row `row` and keys kl, kl + 1 of a staged
+// mask tile (both 1 in a full tile)
+__device__ __forceinline__ uint32_t mask_pair(const uint8_t* ms, bool full,
+                                              int row, int kl) {
+  return full ? 0x0101u
+              : *reinterpret_cast<const uint16_t*>(ms + row * kMaskLd + kl);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 3)
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const uint8_t* __restrict__ mask,
+                         const uint8_t* __restrict__ classes,
+                         float* __restrict__ o, float* __restrict__ lse,
+                         int H, int Lq, int Lk, float scale, int vec) {
+  using S = FwdSmem<D>;
+  extern __shared__ __align__(128) unsigned char fwd_smem[];
+  unsigned char* smem = fwd_smem;
+  uint8_t* cls = smem + S::kCls;
+  const uint32_t base = smem_addr(smem);
+
+  const int b = blockIdx.z;
+  const uint8_t* mb = mask + (size_t)b * Lq * Lk;
+  const int q0 = blockIdx.x * kBwdTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_tiles = (Lk + kBwdTile - 1) / kBwdTile;
+  const size_t head = (size_t)b * H + blockIdx.y;
+  const __nv_bfloat16* kh = k + head * Lk * D;
+  const __nv_bfloat16* vh = v + head * Lk * D;
+
+  // the block's Q into stage 1's K slot, its slab's tile classes
+  cp_tile<D>(base + S::kStage, q + head * Lq * D, Lq, q0);
+  cp_async_commit();
+  {
+    const uint8_t* row = classes + ((size_t)b * gridDim.x + blockIdx.x) *
+                                       n_tiles;
+    for (int i = threadIdx.x; i < n_tiles; i += kBwdThreads) cls[i] = row[i];
+    __syncthreads();
+  }
+
+  int t = next_tile(cls, 0, n_tiles);
+  if (t < n_tiles)
+    fwd_stage<D>(smem, 0, kh, nullptr, mb, cls, t, Lq, Lk, q0, vec);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // the warp's 16 rows of Q as A fragments, for both sweeps
+  uint32_t qf[D / 16][4];
+  {
+    const int r = warp * 16 + pairs_row(lane);
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c)
+      ldsm_x4(qf[c], base + S::kStage + swz<D>(r, 2 * c + pairs_chunk(lane)));
+  }
+  const int row[2] = {warp * 16 + g, warp * 16 + g + 8};
+  __syncthreads();
+
+  // sweep 1: the exact row max of the masked scores
+  float m[2] = {kNegInf, kNegInf};
+  bool any[2] = {false, false};
+  for (int st = 0; t < n_tiles; st ^= 1) {
+    const int tn = next_tile(cls, t + 1, n_tiles);
+    if (tn < n_tiles)
+      fwd_stage<D>(smem, st ^ 1, kh, nullptr, mb, cls, tn, Lq, Lk, q0, vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const uint32_t ks = base + st * S::kStage;
+    const uint8_t* ms = smem + st * S::kStage + 2 * S::kTile;
+    const bool full = cls[t] == kFull;
+#pragma unroll
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) {
+      float s[2][4];
+      chunk_scores<D>(s, qf, ks, kc, lane);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const uint32_t m2 =
+              mask_pair(ms, full, row[e2], kc * 16 + nt * 8 + 2 * t4);
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const bool ok = (m2 >> (8 * e1)) & 0xffu;
+            m[e2] = fmaxf(m[e2],
+                          ok ? __fmul_rn(s[nt][e2 * 2 + e1], scale) : kNegInf);
+            any[e2] = any[e2] || ok;
+          }
+        }
+    }
+    __syncthreads();
+    t = tn;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], off));
+      any[r] = __shfl_xor_sync(0xffffffffu, (int)any[r], off) || any[r];
+    }
+
+  // sweep 2: p = exp(s - m), l over the unrounded p, O += bf16(P).V
+  t = next_tile(cls, 0, n_tiles);
+  if (t < n_tiles) fwd_stage<D>(smem, 0, kh, vh, mb, cls, t, Lq, Lk, q0, vec);
+  cp_async_commit();
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int st = 0; t < n_tiles; st ^= 1) {
+    const int tn = next_tile(cls, t + 1, n_tiles);
+    if (tn < n_tiles)
+      fwd_stage<D>(smem, st ^ 1, kh, vh, mb, cls, tn, Lq, Lk, q0, vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const uint32_t ks = base + st * S::kStage, vs = ks + S::kTile;
+    const uint8_t* ms = smem + st * S::kStage + 2 * S::kTile;
+    const bool full = cls[t] == kFull;
+#pragma unroll
+    for (int kc = 0; kc < kBwdTile / 16; ++kc) {
+      float s[2][4];
+      chunk_scores<D>(s, qf, ks, kc, lane);
+      // P of keys kc*16 .. +15 in bf16: the A fragment of P.V
+      uint32_t pf[4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const uint32_t m2 =
+              mask_pair(ms, full, row[e2], kc * 16 + nt * 8 + 2 * t4);
+          float p[2];
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            p[e1] = (m2 >> (8 * e1)) & 0xffu
+                        ? expf(__fmul_rn(s[nt][e2 * 2 + e1], scale) - m[e2])
+                        : 0.f;
+            l[e2] += p[e1];
+          }
+          pf[nt * 2 + e2] = pack_bf16(p[0], p[1]);
+        }
+      // O += P.V: V's B fragments by ldmatrix.trans of the V tile
+      const int ra = kc * 16 + pairs_row(lane);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vs + swz<D>(ra, 2 * c + pairs_chunk(lane)));
+        mma_bf16(acc[2 * c], pf, vb[0], vb[1]);
+        mma_bf16(acc[2 * c + 1], pf, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();
+    t = tn;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int i = q0 + row[e2];
+    if (i >= Lq) continue;
+    const float lr = fmaxf(l[e2], 1e-30f);
+    const float valid = any[e2] ? 1.f : 0.f;
+    float* orow = o + (head * Lq + i) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2((acc[n][2 * e2] / lr) * valid,
+                      (acc[n][2 * e2 + 1] / lr) * valid);
+    if (t4 == 0) lse[head * Lq + i] = m[e2] + logf(lr);
   }
 }
 
@@ -1354,35 +1444,6 @@ bool shape_ok(int B, int H, int Lq, int Lk, int D) {
   return B >= 1 && H >= 1 && Lq >= 1 && Lk >= 1 && (D == 64 || D == 128);
 }
 
-template <typename T, int D>
-cudaError_t fwd(const void* q, const void* k, const void* v,
-                const uint8_t* mask, float* o, float* lse, int B, int H,
-                int Lq, int Lk, float scale, int device, void* stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const dim3 grid((Lq + kMmaBQ - 1) / kMmaBQ, H, B);
-    const size_t bytes = fwd_mma_smem_bytes<D>();
-    const cudaError_t err = prepare(flash_fwd_mma_kernel<D>, bytes, device);
-    if (err != cudaSuccess) return err;
-    flash_fwd_mma_kernel<D><<<grid, kMmaThreads, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), mask, o, lse, H, Lq, Lk, scale);
-    return cudaGetLastError();
-  } else {
-    const dim3 grid((Lq + kFwdBQ - 1) / kFwdBQ, H, B);
-    const size_t floats = fwd_smem_floats<D>();
-    const cudaError_t err =
-        prepare(flash_fwd_kernel<D>, floats * sizeof(float), device);
-    if (err != cudaSuccess) return err;
-    flash_fwd_kernel<D><<<grid, kThreads, floats * sizeof(float),
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), mask, o, lse, H, Lq, Lk, scale);
-    return cudaGetLastError();
-  }
-}
-
 // the widest load (16, 8, 4, 2 or 1 bytes) that keeps every mask row's
 // 16-byte chunks aligned
 int mask_vec(const void* mask, int Lk) {
@@ -1390,6 +1451,49 @@ int mask_vec(const void* mask, int Lk) {
   int vec = 16;
   while (vec > 1 && (Lk % vec != 0 || addr % vec != 0)) vec >>= 1;
   return vec;
+}
+
+// bf16: the class map (into `classes`, B x ceil(Lq/64) x ceil(Lk/64)
+// bytes), then the forward; *launched counts each kernel queued
+template <typename T, int D>
+cudaError_t fwd(const void* q, const void* k, const void* v,
+                const uint8_t* mask, uint8_t* classes, float* o, float* lse,
+                int B, int H, int Lq, int Lk, float scale, int device,
+                void* stream, int* launched) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int nq = (Lq + kBwdTile - 1) / kBwdTile;
+    const int nk = (Lk + kBwdTile - 1) / kBwdTile;
+    const int vec = mask_vec(mask, Lk);
+    const size_t bytes = FwdSmem<D>::bytes(nk);
+    cudaError_t err = prepare(flash_fwd_mma_kernel<D>, bytes, device);
+    if (err != cudaSuccess) return err;
+    flash_classes_kernel<<<dim3(nq, B), kBwdThreads, (nk + 15) & ~15, s>>>(
+        mask, classes, Lq, Lk, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+    flash_fwd_mma_kernel<D><<<dim3(nq, H, B), kBwdThreads, bytes, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), mask, classes, o, lse, H, Lq,
+        Lk, scale, vec);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++*launched;
+    return err;
+  } else {
+    const dim3 grid((Lq + kFwdBQ - 1) / kFwdBQ, H, B);
+    const size_t floats = fwd_smem_floats<D>();
+    cudaError_t err =
+        prepare(flash_fwd_kernel<D>, floats * sizeof(float), device);
+    if (err != cudaSuccess) return err;
+    flash_fwd_kernel<D><<<grid, kThreads, floats * sizeof(float), s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), mask, o, lse, H, Lq, Lk, scale);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++*launched;
+    return err;
+  }
 }
 
 template <typename T, int D>
@@ -1450,7 +1554,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v,
 }
 
 // dynamic shared memory bytes a block and resident blocks per SM of one
-// bf16 backward kernel
+// bf16 tensor-core kernel
 template <typename Kernel>
 cudaError_t kernel_info(Kernel kernel, size_t bytes, int device, int* info) {
   cudaError_t err = prepare(kernel, bytes, device);
@@ -1466,29 +1570,31 @@ cudaError_t kernel_info(Kernel kernel, size_t bytes, int device, int* info) {
 }  // namespace
 
 // bf16: 1 for bfloat16 inputs, 0 for float32. Each entry returns the CUDA
-// error of its launch (0 on success) and sets *launched to 1 once the kernel
-// is queued.
+// error of its launch (0 on success) and sets *launched to the number of
+// kernels queued (the bf16 forward: 2, its class map and itself; else 1).
 
+// classes: scratch of B x ceil(Lq/64) x ceil(Lk/64) bytes for the bf16
+// forward's tile classes (unused for float32)
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         const uint8_t* mask, float* o, float* lse, int B,
-                         int H, int Lq, int Lk, int D, int bf16, float scale,
-                         int device, void* stream, int* launched) {
+                         const uint8_t* mask, uint8_t* classes, float* o,
+                         float* lse, int B, int H, int Lq, int Lk, int D,
+                         int bf16, float scale, int device, void* stream,
+                         int* launched) {
   *launched = 0;
   if (!shape_ok(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
   if (bf16)
-    err = D == 64 ? fwd<__nv_bfloat16, 64>(q, k, v, mask, o, lse, B, H, Lq,
-                                           Lk, scale, device, stream)
-                  : fwd<__nv_bfloat16, 128>(q, k, v, mask, o, lse, B, H, Lq,
-                                            Lk, scale, device, stream);
-  else
-    err = D == 64 ? fwd<float, 64>(q, k, v, mask, o, lse, B, H, Lq, Lk, scale,
-                                   device, stream)
-                  : fwd<float, 128>(q, k, v, mask, o, lse, B, H, Lq, Lk,
-                                    scale, device, stream);
-  if (err != cudaSuccess) return (int)err;
-  *launched = 1;
-  return 0;
+    return (int)(D == 64 ? fwd<__nv_bfloat16, 64>(q, k, v, mask, classes, o,
+                                                  lse, B, H, Lq, Lk, scale,
+                                                  device, stream, launched)
+                         : fwd<__nv_bfloat16, 128>(q, k, v, mask, classes, o,
+                                                   lse, B, H, Lq, Lk, scale,
+                                                   device, stream, launched));
+  return (int)(D == 64 ? fwd<float, 64>(q, k, v, mask, classes, o, lse, B, H,
+                                        Lq, Lk, scale, device, stream,
+                                        launched)
+                       : fwd<float, 128>(q, k, v, mask, classes, o, lse, B,
+                                         H, Lq, Lk, scale, device, stream,
+                                         launched));
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
@@ -1543,16 +1649,22 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
   return 0;
 }
 
-// kernel 0: the bf16 dq kernel, 1: the bf16 dk/dv kernel, at head_dim D and
-// sweep length L (Lk for dq, Lq for dk/dv). info[0] = dynamic shared memory
-// bytes a block, info[1] = resident blocks per SM. Returns the CUDA error.
-extern "C" int flash_bwd_info(int kernel, int D, int L, int device,
-                              int* info) {
-  if (!(D == 64 || D == 128) || L < 1 || kernel < 0 || kernel > 1)
+// kernel 0: the bf16 forward, 1: the bf16 dq kernel, 2: the bf16 dk/dv
+// kernel, at head_dim D and sweep length L (Lk for the forward and dq, Lq
+// for dk/dv). info[0] = dynamic shared memory bytes a block, info[1] =
+// resident blocks per SM. Returns the CUDA error.
+extern "C" int flash_kernel_info(int kernel, int D, int L, int device,
+                                 int* info) {
+  if (!(D == 64 || D == 128) || L < 1 || kernel < 0 || kernel > 2)
     return (int)cudaErrorInvalidValue;
   const int n = (L + kBwdTile - 1) / kBwdTile;
   cudaError_t err;
   if (kernel == 0)
+    err = D == 64 ? kernel_info(flash_fwd_mma_kernel<64>,
+                                FwdSmem<64>::bytes(n), device, info)
+                  : kernel_info(flash_fwd_mma_kernel<128>,
+                                FwdSmem<128>::bytes(n), device, info);
+  else if (kernel == 1)
     err = D == 64 ? kernel_info(flash_dq_mma_kernel<64>, DqSmem<64>::bytes(n),
                                 device, info)
                   : kernel_info(flash_dq_mma_kernel<128>,

@@ -24,15 +24,15 @@ to the input type afterwards, as the JAX kernels' refs are. The kernels
 take float32 or bfloat16 inputs and head_dim 64 or 128.
 
 bfloat16 (the training path) runs every product on the tensor cores. The
-backward's S and dP take the bf16 operands as they are; its products with
-a float32 operand (dS·K, Pᵀ·dO, dSᵀ·Q) split that operand into two bf16
-terms, hi = bf16(x) and lo = bf16(x - hi), which keeps it to 2⁻¹⁶ relative.
-The backward skips the 64 × 64 tiles where the mask is empty (their
-contribution is exactly zero) and tests the mask only in mixed tiles.
-float32 inputs run on the CUDA cores over every tile. csrc/flash_attention.cu
-says why; `bwd_kernel_info` reports the bf16 backward kernels' shared
-memory and blocks per SM (their registers and spills are in the build log,
-`_build.build_log`)."""
+forward's S and P·V and the backward's S and dP take bf16 operands as they
+are; the backward's products with a float32 operand (dS·K, Pᵀ·dO, dSᵀ·Q)
+split that operand into two bf16 terms, hi = bf16(x) and lo = bf16(x - hi),
+which keeps it to 2⁻¹⁶ relative. All three skip the 64 × 64 tiles where the
+mask is empty (their contribution is exactly zero) and test the mask only
+in mixed tiles. float32 inputs run on the CUDA cores over every tile.
+csrc/flash_attention.cu says why; `kernel_info` reports the bf16 kernels'
+shared memory and blocks per SM (their registers and spills are in the
+build log, `_build.build_log`)."""
 
 from __future__ import annotations
 
@@ -45,8 +45,11 @@ import torch
 
 NEG_INF = -1e30
 
-# kernel launches on the card since import or since reset_counts()
+# kernel launches on the card since import or since reset_counts(): the
+# bf16 forward's C entry queues two (FWD_LAUNCHES_BF16), its class map and
+# the forward
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+FWD_LAUNCHES_BF16 = 2
 
 
 def reset_counts() -> None:
@@ -147,18 +150,23 @@ def _raise(name, err, q, k):
 
 
 def flash_fwd(q, k, v, mask, sm_scale: float):
-    """The forward on the card → (o float32, lse float32)."""
+    """The forward on the card → (o float32, lse float32). For bf16 inputs
+    the C entry queues two kernels: the class of every 64 × 64 tile of the
+    mask (once for all heads, into a scratch map), then the forward."""
     b, h, lq, d = q.shape
+    lk = k.shape[2]
     bf16, dev, stream = _kernel_args(q)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     m8 = mask.contiguous().view(torch.uint8)
     o = torch.empty((b, h, lq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    classes = torch.empty((b * -(-lq // 64) * -(-lk // 64) if bf16 else 0,),
+                          dtype=torch.uint8, device=q.device)
     launched = ctypes.c_int(0)
     err = _entry("flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m8.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, h, lq, k.shape[2], d, bf16,
-        float(sm_scale), dev, stream, ctypes.byref(launched))
+        classes.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, lq, lk, d,
+        bf16, float(sm_scale), dev, stream, ctypes.byref(launched))
     LAUNCHES["flash_fwd"] += launched.value
     if err != 0:
         _raise("flash_fwd", err, q, k)
@@ -215,18 +223,19 @@ def flash_bwd(q, k, v, mask, o, do, lse, sm_scale: float):
     return dq, dk, dv
 
 
-def bwd_kernel_info(kernel: str, head_dim: int, length: int,
-                    device=None) -> dict:
-    """The bf16 backward kernel `kernel` ("flash_dq" or "flash_dkv") as the
-    card runs it at `head_dim` and sweep length `length` (Lk for dq, Lq for
-    dk/dv): dynamic shared memory bytes a block, resident blocks per SM."""
+def kernel_info(kernel: str, head_dim: int, length: int,
+                device=None) -> dict:
+    """The bf16 kernel `kernel` ("flash_fwd", "flash_dq" or "flash_dkv") as
+    the card runs it at `head_dim` and sweep length `length` (Lk for the
+    forward and dq, Lq for dk/dv): dynamic shared memory bytes a block,
+    resident blocks per SM."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     info = (ctypes.c_int * 2)()
-    err = _entry("flash_bwd_info")(("flash_dq", "flash_dkv").index(kernel),
-                                   head_dim, length, index, info)
+    err = _entry("flash_kernel_info")(tuple(LAUNCHES).index(kernel),
+                                      head_dim, length, index, info)
     if err != 0:
-        raise RuntimeError(f"flash_bwd_info failed with CUDA error {err}")
+        raise RuntimeError(f"flash_kernel_info failed with CUDA error {err}")
     return {"smem_bytes": info[0], "blocks_per_sm": info[1]}
 
 
@@ -284,10 +293,10 @@ def _entry(name: str):
     fn = getattr(load_library("flash_attention"), name)
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    if name == "flash_bwd_info":
+    if name == "flash_kernel_info":
         fn.argtypes = [i, i, i, i, ctypes.POINTER(i)]
         return fn
-    n_ptr = {"flash_fwd": 6, "flash_dq": 9, "flash_dkv": 9}[name]
+    n_ptr = {"flash_fwd": 7, "flash_dq": 9, "flash_dkv": 9}[name]
     fn.argtypes = ([p] * n_ptr + [i] * 6 + [ctypes.c_float, i, p,
                                             ctypes.POINTER(i)])
     return fn

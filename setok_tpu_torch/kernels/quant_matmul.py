@@ -8,8 +8,12 @@ exact, and the scales apply in the JAX kernel's order (kernels/quant.py,
 whose `quant_matmul_plain` / `quant4_matmul_plain` are the plain versions).
 
 A CPU tensor runs the plain version; a CUDA tensor launches
-`csrc/quant_matmul.cu` (a row-quantisation pass, then a weight-streaming
-GEMV for M <= 8 rows or a tiled mma.sync GEMM above) or raises.
+`csrc/quant_matmul.cu` or raises: a row-quantisation pass that reads x in
+its own type (float32, bfloat16 or float16), then a weight-streaming GEMV
+for M <= 8 rows, or above it a wgmma GEMM (int8) or a tiled mma.sync GEMM
+(int4), whose epilogue writes the output type itself. A call allocates
+the output and one scratch buffer (the int8 rows and their scales), and
+casts nothing.
 """
 
 from __future__ import annotations
@@ -52,20 +56,38 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
                              f"on {dev}")
 
 
+# the C entry's type codes
+_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _scratch_bytes(m: int, k: int) -> int:
+    """The call's scratch: the (m, k) int8 rows, then their m float32
+    scales at the next multiple of 16 bytes (the C entry's layout)."""
+    return (m * k + 15) // 16 * 16 + 4 * m
+
+
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
             bits: int, out_dtype) -> torch.Tensor:
     *lead, k = x.shape
     n = w.shape[0]
     dev = x.device
-    x2 = x.reshape(-1, k).float().contiguous()
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in _TYPES:
+        raise TypeError(f"{name} writes float32, bfloat16 or float16, got "
+                        f"{out_dtype}")
+    x2 = x.reshape(-1, k)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        # the row pass reads 16 bytes a load
+        x2 = x2.clone(memory_format=torch.contiguous_format)
     m = x2.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    x8 = torch.empty((m, k), dtype=torch.int8, device=dev)
-    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    scratch = torch.empty((_scratch_bytes(m, k),), dtype=torch.uint8,
+                          device=dev)
     launched = ctypes.c_int(0)
-    err = _entry()(x2.data_ptr(), w.data_ptr(), s.data_ptr(), s.shape[0],
-                   bits, out.data_ptr(), x8.data_ptr(), xs.data_ptr(), m, n,
-                   k, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    err = _entry()(x2.data_ptr(), _TYPES[x2.dtype], w.data_ptr(),
+                   s.data_ptr(), s.shape[0], bits, out.data_ptr(),
+                   _TYPES[out_dtype], scratch.data_ptr(), m, n, k, dev.index,
+                   torch.cuda.current_stream(dev).cuda_stream,
                    ctypes.byref(launched))
     LAUNCHES[name] += launched.value
     if launched.value:
@@ -73,7 +95,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err} "
                            f"(M={m}, N={n}, K={k})")
-    return out.to(out_dtype or x.dtype).reshape(*lead, n)
+    return out.reshape(*lead, n)
 
 
 def quant_matmul(x: torch.Tensor, w: QuantizedWeight,
@@ -118,8 +140,9 @@ def _entry():
     """The C entry of csrc/quant_matmul.cu, built, loaded and bound once."""
     from setok_tpu_torch.kernels._build import load_library
 
-    fn = load_library("quant_matmul").quant_matmul_f32
+    fn = load_library("quant_matmul").quant_matmul
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, p, ctypes.POINTER(i)]
+    fn.argtypes = [p, i, p, p, i, i, p, i, p, i, i, i, i, p,
+                   ctypes.POINTER(i)]
     return fn

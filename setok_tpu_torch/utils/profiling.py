@@ -13,11 +13,12 @@ import torch
 
 # first match wins; names are CUDA kernel names as the profiler reports them
 CATEGORIES = (
-    ("flash_forward", ("flash_fwd",)),
+    ("flash_forward", ("flash_fwd", "flash_classes")),
     ("flash_dq", ("flash_dq",)),
     ("flash_dkv", ("flash_dkv",)),
     ("cluster_dpc", ("density_kernel", "parent_kernel", "sqnorm_kernel")),
     ("int8_gemm", ("gemm_s8_kernel",)),
+    ("quant_rows", ("quant_rows",)),
     ("quant_gemv", ("gemv_kernel",)),
     ("quant_gemm", ("gemm_kernel",)),
     ("cache_attention", ("cache_attn_kernel",)),

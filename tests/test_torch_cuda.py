@@ -23,8 +23,13 @@ with chip_smoke.flash_case's bars: the forward's o 2e-3 max-rel with ≥ 99 %
 within 1e-5 of the largest (p rounds to the input type before P.V), lse
 1e-5, dq/dk/dv 1e-4 (float32, sums in another order; bf16's f32 operands
 split in two bf16 terms); a fully masked query row gives zeros. The
-backward alone also on masks of empty, full and mixed 64 x 64 tiles and at
-Lk = 1000.
+backward and the forward alone also on masks of empty, full and mixed
+64 x 64 tiles and at Lk = 1000 and 1001; there the forward's share bar is
+no more than 0.01 under the share of the plain version's float64-score
+twin where that falls under 99 % (chip_smoke.flash_fwd_check says why).
+quant_matmul also at K = 4304 and N = 4304 with bf16 x and bf16 or f32
+output, through the wgmma GEMM (printing the count of elements that
+differ from the plain version, expected 0).
 """
 
 import numpy as np
@@ -194,13 +199,30 @@ def test_int8_forward_routes_to_the_kernels(card):
     assert torch.isfinite(out.recon).all()
 
 
-@pytest.mark.parametrize("fmt", ["w8", "w4", "w4g64"])
-@pytest.mark.parametrize("m", [1, 4, 40])
-def test_quant_matmul_kernels_match_plain(card, fmt, m):
+# (format, M, K, N, x's type, out_dtype): the serving formats at small
+# widths in float32, and w8 at so400m's ragged K = 4304 (16 mod 32) and N =
+# 4304 with bf16 x, as the int8 SeTok's Dense takes it, M past and inside
+# the wgmma GEMM's 128-row tile edges (9, 129, 5832 = so400m's rows)
+QUANT_CASES = ([(fmt, m, 256, 384, "float32", None)
+                for fmt in ("w8", "w4", "w4g64") for m in (1, 4, 40)]
+               + [("w8", m, 4304, 4304, "bfloat16", out)
+                  for m in (9, 129, 5832) for out in ("bfloat16", "float32")])
+
+
+@pytest.mark.parametrize(
+    "fmt,m,k,n,x_dtype,out_dtype", QUANT_CASES,
+    ids=[f"{c[0]}-M{c[1]}-K{c[2]}-{c[4]}-{c[5] or c[4]}" for c in QUANT_CASES])
+def test_quant_matmul_kernels_match_plain(card, fmt, m, k, n, x_dtype,
+                                          out_dtype):
+    """The kernel reads x in its type and writes out_dtype itself: the
+    int products are exact and the epilogue's order is the plain
+    version's, so the count of elements that differ is expected to be 0
+    (printed); the bar stays max-rel 1e-5."""
     gen = torch.Generator(device=card).manual_seed(m)
-    k, n = 256, 384
     w = torch.randn(n, k, generator=gen, device=card) * k ** -0.5
-    x = torch.randn(m, k, generator=gen, device=card)
+    x = torch.randn(m, k, generator=gen, device=card).to(
+        getattr(torch, x_dtype))
+    out_dtype = getattr(torch, out_dtype) if out_dtype else None
     if fmt == "w8":
         wq, kernel, plain, name = (quantize_weight(w), qm.quant_matmul,
                                    quant_matmul_plain, "quant_matmul")
@@ -209,11 +231,15 @@ def test_quant_matmul_kernels_match_plain(card, fmt, m):
         kernel, plain, name = (qm.quant4_matmul, quant4_matmul_plain,
                                "quant4_matmul")
     calls, launches = qm.CALLS[name], qm.LAUNCHES[name]
-    got = kernel(x, wq)
+    got = kernel(x, wq, out_dtype)
     torch.cuda.synchronize()
     assert qm.CALLS[name] == calls + 1 and qm.LAUNCHES[name] == launches + 2
-    want = plain(x, wq)
-    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    want = plain(x, wq, out_dtype)
+    assert got.dtype == want.dtype == (out_dtype or x.dtype)
+    print(f"{name} {fmt} M={m} K={k} N={n} {x_dtype} -> {got.dtype}: "
+          f"{int((got != want).sum())} of {got.numel()} elements differ")
+    assert float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max()) <= 1e-5
 
 
 def test_cache_attention_kernel_matches_plain(card):
@@ -275,7 +301,10 @@ def test_flash_kernels_match_plain(card, dtype, lq, lk, d):
     mask[0, 5] = False                       # a fully masked query row
     before = dict(fa.LAUNCHES)
     chip_smoke.flash_case(2, 3, lq, lk, d, dtype, mask, seed=lq)
-    assert fa.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    fwd = fa.FWD_LAUNCHES_BF16 if dtype == torch.bfloat16 else 1
+    assert fa.LAUNCHES == {"flash_fwd": before["flash_fwd"] + fwd,
+                           "flash_dq": before["flash_dq"] + 1,
+                           "flash_dkv": before["flash_dkv"] + 1}
 
 
 def tiled_mask(b: int, lq: int, lk: int, gen, tile: int = 64):
@@ -316,6 +345,38 @@ def test_flash_backward_kernels_match_plain(card, kind, dtype, lq, lk, d):
     chip_smoke.flash_bwd_case(q, k, v, do, mask, po, plse)
     assert fa.LAUNCHES == {**before, "flash_dq": before["flash_dq"] + 1,
                            "flash_dkv": before["flash_dkv"] + 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("lq,lk,d", [(70, 130, 128), (200, 1000, 64),
+                                     (130, 1000, 128), (67, 1001, 64)])
+@pytest.mark.parametrize("kind", ["random", "tiles"])
+def test_flash_forward_kernel_matches_plain(card, kind, dtype, lq, lk, d):
+    """The forward at the backward's grid: o max-rel 2e-3, o exactly 0 on
+    a fully masked row, lse 1e-5, and ≥ 99 % of o within 1e-5 of the
+    largest or, where the plain version's float64-score twin (the same
+    formula with its score sums in another order) falls under 99 %, no
+    more than 0.01 under the twin's share: with dense masks a row averages
+    ~700 keys, and one flipped bf16 rounding of p moves o by about that
+    threshold (chip_smoke.flash_fwd_check). Tiled masks have empty, full
+    and mixed tiles; Lk = 1000 and 1001 read the mask 8 bytes and 1 byte
+    a load."""
+    gen = torch.Generator(device=card).manual_seed(lq)
+    if kind == "random":
+        mask = torch.rand(2, lq, lk, generator=gen, device=card) > 0.3
+    else:
+        mask = tiled_mask(2, lq, lk, gen)
+    mask[0, 5] = False                       # a fully masked query row
+    q, k, v, _ = chip_smoke.flash_inputs(2, 3, lq, lk, d, dtype, card, lq)
+    before = dict(fa.LAUNCHES)
+    case = chip_smoke.flash_fwd_check(q, k, v, mask, twin_bar=True)
+    print(f"flash_fwd {kind} {lq}x{lk} D={d} {dtype}: share "
+          f"{case['o_share_within_1e-5']:.6f} (twin "
+          f"{case['twin_share_within_1e-5']:.6f}, bar {case['share_bar']:.6f}"
+          f"), max-rel {case['o_max_rel']:.3e}, lse {case['lse_max_rel']:.3e}")
+    fwd = fa.FWD_LAUNCHES_BF16 if dtype == torch.bfloat16 else 1
+    assert fa.LAUNCHES == {**before, "flash_fwd": before["flash_fwd"] + fwd}
 
 
 def test_flash_trunk_trains_through_the_kernels(card):

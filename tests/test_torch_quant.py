@@ -13,11 +13,22 @@ max|want|:
     order).
   * quantize_weight_int4 with the clip search: the packed bytes and the
     scales are equal.
+  * bfloat16 input, as the int8 SeTok's Dense under bf16 glue calls it:
+    the plain version on bf16 x equals, bit for bit, the route that stages
+    x in float32 and casts the float32 output (what the card's wrapper did
+    before its kernel read x and wrote the output type itself); and it
+    matches the JAX kernel on the same bf16 x at so400m fc2's ragged K
+    (4304 = 16 mod 32) and at 384 px qkv's width, with out_dtype bfloat16
+    and float32, at 1e-5. A bf16 output can differ from JAX's by one bf16
+    step only where the float32 values differ, so the bar is the same.
+  * `chip_smoke.quant_bound` counts x and the output in the types the call
+    moves.
 """
 
 import importlib
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -25,6 +36,7 @@ import torch
 from setok_tpu_torch.kernels import cache_attention as ca
 from setok_tpu_torch.kernels import quant_matmul as qm
 from setok_tpu_torch.kernels.quant import (Quant4Weight, QuantizedWeight,
+                                           int_dot, quant_rows,
                                            quantize_weight,
                                            quantize_weight_int4,
                                            unpack_nibbles)
@@ -97,6 +109,81 @@ def test_quantize_weight_int4_equals_jax(group, clip):
     jlo, jhi = jqm.unpack_nibbles(jw.packed)
     np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo).T)
     np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi).T)
+
+
+def _bf16_x_w(seed, m, k, n):
+    x, w = _x_w(seed, m, k, n)
+    return torch.from_numpy(x).to(torch.bfloat16), w
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_quant_matmul_plain_reads_bf16_as_the_f32_staged_route(out_dtype):
+    x, w = _bf16_x_w(5, 37, 4304, 96)
+    pw = quantize_weight(t(w.T))
+    got = qm.quant_matmul(x, pw, out_dtype=out_dtype)
+    staged = qm.quant_matmul(x.float(), pw, out_dtype=torch.float32)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, staged.to(out_dtype))
+
+
+def _jax_row_scales(x: np.ndarray) -> torch.Tensor:
+    """The row scales as the compiled JAX kernel computes them: XLA turns
+    `max(absmax, 1e-8) / 127.0` into a product with the reciprocal, which
+    differs from the true division in the last bit for some rows."""
+    f = jax.jit(lambda a: jnp.maximum(jnp.max(jnp.abs(a), axis=-1,
+                                              keepdims=True), 1e-8) / 127.0)
+    return t(np.asarray(f(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m,k,n", [(37, 4304, 96), (300, 768, 2304)])
+def test_quant_matmul_plain_matches_jax_on_bf16_input(m, k, n, out_dtype):
+    """Rows whose scale the compiled JAX kernel rounds as the true division
+    does match at 1e-5. On the others (some rows at 768 -> 2304) XLA's
+    reciprocal product moves the scale by one float32 step, which
+    flips int8 steps of x; there, the port's arithmetic on JAX's scales
+    gives JAX's output at 1e-5: the only difference is that rounding. The
+    port and its CUDA kernel divide, as the JAX source reads."""
+    x, w = _bf16_x_w(m + n, m, k, n)
+    jw = jqm.quantize_weight(jnp.asarray(w))
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    dtype = getattr(torch, out_dtype)
+    want = np.asarray(jqm.quant_matmul(
+        jx, jw, out_dtype=getattr(jnp, out_dtype), interpret=True),
+        np.float32)
+    pw = quantize_weight(t(w.T))
+    got = qm.quant_matmul(x, pw, out_dtype=dtype)
+    assert got.shape == (m, n) and got.dtype == dtype
+    js = _jax_row_scales(x.float().numpy())
+    same = (js == quant_rows(x.float())[1])[:, 0]
+    assert int(same.sum()) >= 0.9 * m
+    assert max_rel(got.float()[same], want[same.numpy()]) <= TOL
+    steps = (js[~same].view(torch.int32)
+             - quant_rows(x.float())[1][~same].view(torch.int32)).abs()
+    assert bool((steps == 1).all())
+    x8 = torch.round(x.float() / js).clamp(-127, 127).to(torch.int8)
+    on_jax_scales = (int_dot(x8, pw.values) * js * pw.scales).to(dtype)
+    assert max_rel(on_jax_scales.float(), want) <= TOL
+
+
+def test_quant_bound_counts_the_types_the_call_moves():
+    """At 384 px qkv (M = 36,864, 768 -> 2304) under bf16 glue: bf16 x and
+    output, int8 weight, f32 scales; the int8 products at 1979 TOP/s."""
+    import chip_smoke
+
+    m, k, n = 36864, 768, 2304
+    t_bytes, t_ops = chip_smoke.quant_bound(m, k, n, 8, 1, x_size=2,
+                                            out_size=2)
+    assert t_bytes == pytest.approx((2 * m * k + n * k + 4 * n + 2 * m * n)
+                                    / 3.35e12, rel=1e-12)
+    assert t_ops == pytest.approx(2 * m * n * k / 1979e12, rel=1e-12)
+    # float32 x and output, as the serving trunk calls it
+    f32_bytes, _ = chip_smoke.quant_bound(m, k, n, 8, 1, x_size=4,
+                                          out_size=4)
+    assert f32_bytes * 3.35e12 - t_bytes * 3.35e12 == pytest.approx(
+        2 * m * k + 2 * m * n)
+    assert 1e3 * t_bytes == pytest.approx(0.0681, abs=1e-4)
 
 
 def test_wrappers_check_their_inputs():
