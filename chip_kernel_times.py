@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Time the int8 / int4 matmul kernels and the int8 MLP of the checkout it
+runs from, on one CUDA card, so that two checkouts compare in one call:
+
+    python3 chip_kernel_times.py TAG      # from the root of each checkout
+
+Prints one JSON line tagged TAG:
+  trunk   per format (w8, w4, w4g128: int4 with groups of 128) and rows M
+          (4: a decode step; 512: a prefill) the seven Vicuna-7B trunk
+          linears of one layer, summed: time by CUDA events, device time
+          (profiler, 10 calls) and wall time a call (a loop of calls ended
+          by a synchronise), and the count of elements that differ from the
+          plain version;
+  row6    fused_mlp_int8 at B=64 images of 576 tokens, 768 -> 3072 -> 768:
+          time from float32 x and, where the checkout takes it, from bf16 x
+          (else from bf16 x cast to float32 first), and the elements that
+          differ from the plain version;
+  dense   quant_matmul at the int8 SeTok's Dense shapes (bf16 x and out):
+          time by events (50 calls) and the GEMM's device time (20 calls).
+Weights are random from a seed and quantised without clip search. Run the
+checkouts in turns (parent, change, change, parent): a card's numbers drift
+within a call. Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import torch
+
+import chip_smoke as cs
+from setok_tpu_torch import config as cfgs
+from setok_tpu_torch.kernels import fused_mlp as fm
+from setok_tpu_torch.kernels import quant_matmul as qm
+from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
+                                           quant_matmul_plain,
+                                           quantize_weight,
+                                           quantize_weight_int4)
+from setok_tpu_torch.utils.profiling import device_time_breakdown
+
+
+def trunk(dev, gen) -> dict:
+    totals = {}
+    for k, n in cs.trunk_shapes(cfgs.vicuna_7b()).values():
+        w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
+        weights = {"w8": quantize_weight(w),
+                   "w4": quantize_weight_int4(w, None, 0),
+                   "w4g128": quantize_weight_int4(w, 128, 0)}
+        for m in (4, 512):
+            x = torch.randn(m, k, generator=gen, device=dev)
+            for fmt, wq in weights.items():
+                kernel = qm.quant_matmul if fmt == "w8" else qm.quant4_matmul
+                plain = (quant_matmul_plain if fmt == "w8"
+                         else quant4_matmul_plain)
+                differ = int((kernel(x, wq) != plain(x, wq)).sum())
+                device = device_time_breakdown(
+                    lambda: [kernel(x, wq) for _ in range(10)])["device_ms"]
+                t = totals.setdefault(f"{fmt} M={m}", {
+                    "ms": 0.0, "device_ms": 0.0, "wall_ms": 0.0,
+                    "differ": 0})
+                t["ms"] += cs.time_ms(lambda: kernel(x, wq), reps=50)
+                t["device_ms"] += device / 10
+                t["wall_ms"] += cs.host_us_per_call(lambda: kernel(x, wq),
+                                                    0.0)[1]
+                t["differ"] += differ
+    return totals
+
+
+def row6(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(5)
+    c, hid, rows = 768, 3072, 64 * 576
+    x = torch.randn(rows, c, generator=gen, device=dev)
+    w1 = quantize_weight(torch.randn(hid, c, generator=gen, device=dev)
+                         * c ** -0.5)
+    w2 = quantize_weight(torch.randn(c, hid, generator=gen, device=dev)
+                         * hid ** -0.5)
+    b1 = torch.randn(hid, generator=gen, device=dev) * 0.1
+    b2 = torch.randn(c, generator=gen, device=dev) * 0.1
+    args = (w1, b1, w2, b2)
+    res = {"f32_ms": cs.time_ms(lambda: fm.fused_mlp_int8(x, *args)),
+           "differ": int((fm.fused_mlp_int8(x, *args)
+                          != fm.fused_mlp_int8_reference(x, *args)).sum())}
+    xb = x.to(torch.bfloat16)
+    try:
+        res["bf16_ms"] = cs.time_ms(lambda: fm.fused_mlp_int8(xb, *args))
+    except TypeError:            # a checkout whose kernel takes f32 only
+        res["bf16_cast_ms"] = cs.time_ms(
+            lambda: fm.fused_mlp_int8(xb.float().contiguous(), *args))
+    return res
+
+
+def dense(dev, gen) -> dict:
+    res = {}
+    for label, k, n in cs.DENSE_SHAPES:
+        m = cs.DENSE_ROWS[label.split()[0]]
+        w = quantize_weight(torch.randn(n, k, generator=gen, device=dev)
+                            * k ** -0.5)
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        by = device_time_breakdown(
+            lambda: [qm.quant_matmul(x, w) for _ in range(20)])
+        res[label] = {
+            "ms": cs.time_ms(lambda: qm.quant_matmul(x, w), reps=50),
+            "gemm_ms": by["by_category_ms"].get("quant_gemm", 0.0) / 20}
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tag = sys.argv[1] if len(sys.argv) > 1 else "tree"
+    print(json.dumps({"tree": tag, "device": torch.cuda.get_device_name(0),
+                      "trunk": trunk(dev, gen), "row6": row6(dev),
+                      "dense": dense(dev, gen)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

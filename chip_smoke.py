@@ -31,7 +31,10 @@ the last line:
                 quant_matmul at the Dense shapes of the three
                 configurations below (bf16 x, bf16 and f32 out; the row
                 pass and the GEMM apart, the GEMM beside torch._int_mm);
-                times, bounds, plain times;
+                times, bounds, plain times; fused_mlp_int8 also from bf16
+                x (0 elements may differ from the plain version), its
+                time from bf16 x, its kernels' device times and its GEMMs'
+                registers and spills;
   forward_unfused  the int8 forward of base @384, base with a 4096-wide
                 tokenizer MLP (full depth, B=2) and so400m (full width,
                 ViT depth 4, decoder depth 2), card against CPU stage by
@@ -45,9 +48,13 @@ the last line:
                 M=4 and prefill M=512 rows, and the int8-cache decode
                 attention at B=4, S=512 with holes in the key mask, each
                 against its plain version (the count of elements that
-                differ), with its time, its device time split into the
-                row pass and the product, the host µs a call, its bound
-                and the nearest library call's time (torch._int_mm, SDPA);
+                differ: 0 for both matmuls), with its time, its device
+                time split into the row pass and the product (decode has
+                no row pass: the GEMV quantises x itself), the host µs a
+                call, its bound and the nearest library call's time
+                (torch._int_mm, SDPA); quant4_matmul's prefill (M=512)
+                per format beside quant_matmul's wgmma GEMM, and the
+                registers and spills of its GEMV and wgmma kernels;
   serve         base_setokim() at full width (32 trunk layers, hidden 4096,
                 ViT-B/16 SeTok), random weights from the seed, bits 8 then
                 bits 4 (group 128, clip search 8), int8 KV cache with the
@@ -55,7 +62,8 @@ the last line:
                 max_len=512) answers 8 requests (4 with an image) of 32
                 greedy tokens; tokens/s, TTFT, decode ms per step beside
                 the weight-streaming bound, a profiled decode step, and the
-                launches of each kernel per decode step and per admission;
+                launches of each kernel per decode step (one a trunk
+                linear) and per admission;
   serve_parity  the same with the trunk cut to 2 layers, through the
                 kernels and through the plain versions on the card: logits
                 at every step and greedy tokens;
@@ -793,7 +801,10 @@ def phase_unfused_kernels(b_check: int = 3, b_time: int = 64) -> dict:
     at the Dense shapes."""
     dev = torch.device("cuda")
     errs = dict.fromkeys(UNFUSED_KERNELS, 0.0)
+    # launches a call: row 6 the row pass, fc1, the hidden rows' pass and
+    # fc2; row 7 the rows, qkv, attention, rows and proj
     steps = {"fused_mlp_int8": 4, "fused_attention_int8": 5}
+    differing = {}
     for case in unfused_cases(b_check, dev):
         name = case[0]
         before = int8_counts()[1][name]
@@ -802,6 +813,17 @@ def phase_unfused_kernels(b_check: int = 3, b_time: int = 64) -> dict:
         check(launched == steps[name],
               f"{name}: {launched} launches for one call, not {steps[name]}")
         errs[name] = max(errs[name], res["max_abs"])
+        if name == "fused_mlp_int8":
+            # bit for bit, from float32 and from bf16 x read as it is
+            args = case[4]
+            for x_type in (torch.float32, torch.bfloat16):
+                xa = (args[0].to(x_type), *args[1:])
+                got = case[2](*xa)
+                torch.cuda.synchronize()
+                n_diff = int((got != case[3](*xa)).sum())
+                differing[str(x_type).replace("torch.", "")] = n_diff
+                check(n_diff == 0, f"{name} {x_type}: {n_diff} elements "
+                      "differ from the plain version")
         if case[1] == "inter":
             # a fully masked query row attends to nothing: out = b_proj
             args, mask = case[4], case[5]["mask"]
@@ -825,10 +847,28 @@ def phase_unfused_kernels(b_check: int = 3, b_time: int = 64) -> dict:
                          "bound_by": bound_by, "library_ms": None,
                          "timing": f"{label}, input "
                                    f"{list(args[0].shape)}"}
+        if name == "fused_mlp_int8":
+            xb = args[0].to(torch.bfloat16)
+            entries[name].update(
+                ms_bf16_x=time_ms(lambda: kernel(xb, *args[1:])),
+                # device ms a call by kernel, over 5 calls
+                device_split=[
+                    {"name": k["name"], "ms": k["ms"] / 5}
+                    for k in device_time_breakdown(
+                        lambda: [kernel(*args) for _ in range(5)])[
+                            "top_kernels"]],
+                elements_differing=differing,
+                ptxas={stage: ptxas_of("fused_mlp", "wgmma_gemm_kernel",
+                                       "Li0ELb0", epi)
+                       for stage, epi in (("fc1", "MlpFc1Epi"),
+                                          ("fc2", "MlpFc2Epi"))})
+            del xb
         emit({"phase": "unfused_kernels", "kernel": name,
               "timing_shape": label, "input": list(args[0].shape),
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by})
+              "bound_by": bound_by,
+              **{k: v for k, v in entries[name].items()
+                 if k in ("ms_bf16_x", "device_split", "ptxas")}})
         del args
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -1033,7 +1073,8 @@ def device_split(fn, reps: int = 10) -> dict:
     return {"device_ms": by["device_ms"] / reps,
             "rows_ms": cats.get("quant_rows", 0.0) / reps,
             "product_ms": (cats.get("quant_gemm", 0.0)
-                           + cats.get("quant_gemv", 0.0)) / reps}
+                           + cats.get("quant_gemv", 0.0)) / reps,
+            "kernels": sorted({k["name"] for k in by["top_kernels"]})}
 
 
 def host_us_per_call(fn, device_ms: float, n: int = 200) -> tuple:
@@ -1098,6 +1139,10 @@ def phase_serve_kernels() -> dict:
                 case = check_close(name, f"{lin} {fmt} M={m}", got, want,
                                    QUANT_TOL)
                 case["elements_differing"] = int((got != want).sum())
+                check(case["elements_differing"] == 0,
+                      f"{name} {lin} {fmt} M={m}: "
+                      f"{case['elements_differing']} elements differ from "
+                      "the plain version")
                 errs[name] = max(errs[name], case["max_abs"])
                 lib = library_int_mm(x, wq.values if fmt == "w8"
                                      else unpacked)
@@ -1128,6 +1173,7 @@ def phase_serve_kernels() -> dict:
                     tot[key] += case[key]
                 tot["t_bytes"] += t_bytes
                 tot["t_ops"] += t_ops
+                tot["kernels"] = split["kernels"]   # the profiler's names
     for (fmt, m), tot in totals.items():
         emit({"phase": "serve_kernels", "format": fmt, "M": m,
               "one_layer_seven_linears": tot,
@@ -1153,9 +1199,31 @@ def phase_serve_kernels() -> dict:
             "host_us": tot["host_us"], "wall_ms": tot["wall_ms"],
             "timing": f"the seven trunk linears of one layer, {fmt}, "
                       f"M={SERVE_BATCH} (decode)"}
+    # wgmma_gemm_kernel<B source, grouped, QuantEpi<out type, ...>>
+    epi = {"bfloat16": "ENS_8QuantEpiI13__nv_bfloat16", "float32":
+           "ENS_8QuantEpiIf"}
     entries["quant_matmul"]["wgmma_gemm_ptxas"] = {
-        out: ptxas_of("quant_matmul", "wgmma_gemm_kernel", arg)
-        for out, arg in (("bfloat16", "13__nv_bfloat16E"), ("float32", "fE"))}
+        out: ptxas_of("quant_matmul", "wgmma_gemm_kernel", "Li0ELb0" + arg)
+        for out, arg in epi.items()}
+    # row 9: its prefill (M = 512) per format beside row 8's wgmma GEMM and
+    # torch._int_mm, and ptxas's registers and spills of its kernels
+    prefill = {}
+    for fmt in formats:
+        tot = totals[(fmt, SERVE_BATCH * PROMPT_LEN)]
+        prefill[fmt] = {key: tot[key] for key in (
+            "ms", "device_ms", "rows_ms", "product_ms", "library_ms",
+            "plain_ms", "kernels")}
+        prefill[fmt]["bound_ms"] = 1e3 * max(tot["t_bytes"], tot["t_ops"])
+    entries["quant4_matmul"]["prefill_M512"] = prefill
+    entries["quant4_matmul"]["ptxas"] = {
+        "gemv w4g M<=4 f32": ptxas_of("quant_matmul", "gemv_kernel",
+                                      "Li2ELi4EfE"),
+        "gemv w4 M<=4 f32": ptxas_of("quant_matmul", "gemv_kernel",
+                                     "Li1ELi4EfE"),
+        **{f"wgmma {kind} {out}": ptxas_of(
+            "quant_matmul", "wgmma_gemm_kernel", tmpl + arg)
+           for kind, tmpl in (("w4", "Li1ELb0"), ("w4g", "Li1ELb1"))
+           for out, arg in epi.items()}}
     entries["int8_cache_decode_attention"] = cache_attention_case(cfg, gen)
     return entries
 
@@ -1297,6 +1365,8 @@ def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None):
             > before[0]["cache_attention"],
             "quant_calls": sum(after["quant_matmul"].values())
             - sum(before[0]["quant_matmul"].values()),
+            "quant_launches": sum(after["quant_matmul_launches"].values())
+            - sum(before[0]["quant_matmul_launches"].values()),
             "cache_launches": after["cache_attention"]
             - before[0]["cache_attention"]})
         if active == 0 and eng._queue.empty():
@@ -1357,7 +1427,7 @@ def phase_serve(cfg, bits: int) -> dict:
            / PEAK_BYTES,
            "prefill_calls": prefills,
            "launches_per_decode_step": {
-               name: sorted({st["quant_calls"] for st in pure}),
+               name: sorted({st["quant_launches"] for st in pure}),
                "int8_cache_decode_attention": sorted(
                    {st["cache_launches"] for st in pure})},
            "cluster_launches_per_image_admission":
@@ -1367,11 +1437,13 @@ def phase_serve(cfg, bits: int) -> dict:
            "profiled_decode_step": profile, "stats": eng.stats()}
     emit(res)
     check(ntok == len(handles) * NEW_TOKENS, "a request stopped early")
+    # a decode call (M = 4 rows) is one launch: the GEMV quantises x itself
     check(bool(pure) and all(st["quant_calls"] == per_call
+                             and st["quant_launches"] == per_call
                              and st["cache_launches"] == layers
                              for st in pure),
-          f"a decode step did not make {per_call} {name} and {layers} "
-          "cache-attention launches")
+          f"a decode step did not make {per_call} {name} calls of one launch "
+          f"each and {layers} cache-attention launches")
     check(calls == per_call * (len(decode) + n_prefill),
           f"{name}: {calls} calls, expected {per_call} per decode step and "
           "per prefill")
@@ -1679,12 +1751,15 @@ def tile_occupancy(mask, tile: int = 64) -> dict:
             "mixed": (n - empty - full) / n, "tiles": n}
 
 
-def ptxas_of(source: str, kernel: str, template_arg: str) -> dict:
+def ptxas_of(source: str, kernel: str, template_arg: str,
+             contains: str = "") -> dict:
     """ptxas's registers and spills of `kernel<template_arg>` (its mangled
-    name's prefix) from the build's `-Xptxas -v` log of csrc/<source>.cu."""
+    name's prefix, and `contains` elsewhere in it) from the build's
+    `-Xptxas -v` log of csrc/<source>.cu."""
     ptxas = _build.ptxas_usage(_build.build_log(source))
     mangled = [m for m in ptxas
-               if f"{len(kernel)}{kernel}I{template_arg}" in m]
+               if f"{len(kernel)}{kernel}I{template_arg}" in m
+               and contains in m]
     check(len(mangled) == 1, f"ptxas log: {kernel}<{template_arg}> found "
           f"{len(mangled)} times")
     return ptxas[mangled[0]]

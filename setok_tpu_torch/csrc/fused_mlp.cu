@@ -4,48 +4,184 @@
 // the JAX package's Mlp(quant8) takes where its whole-sublayer kernel does
 // not fit (the ViT, the inner Block and the pixel decoder at 384 px). The
 // TPU kernel is one Pallas program per 256 rows that keeps the (rows x
-// hidden) intermediate in VMEM. Here it is a chain of the kernels of
-// int8_sublayer.cuh, with the intermediates in device memory:
+// hidden) intermediate in VMEM. Here it is a chain of four launches, both
+// products on the persistent wgmma GEMM of wgmma_s8.cuh:
 //
-//   rows(quant x) -> gemm(fc1, gelu) -> rows(quant h) -> gemm(fc2, + b2)
-//                                                             4 launches
+//   quant_rows_kernel   x (float32 or bfloat16, widened exactly) -> x8, xs;
+//                       clears hmax
+//   wgmma GEMM, fc1     h = gelu_tanh((acc * xs) * s1 + b1), f32 to device
+//                       memory; each thread's |h| maximum over its fragment
+//                       row, reduced over the 4 lanes that share the row,
+//                       posted with one atomicMax on the float's bits into
+//                       hmax[row] (non-negative floats order as their bits,
+//                       and a maximum is order-free: exact)
+//   hidden_quant_kernel h -> h8 with hs = max(hmax, 1e-8) / 127: one read
+//                       of h
+//   wgmma GEMM, fc2     y = (acc * hs) * s2 + b2, f32
 //
-// mlp_sublayer_int8 of fused_sublayer.cu without its LayerNorm and its
-// residual. The numerics are the JAX kernel's: xs = max(absmax, 1e-8)/127
-// per row (a true division), h = (acc*xs)*s1 + b1, the tanh GELU, h
-// row-quantised over the whole hidden width, y = (acc*hs)*s2 + b2, f32.
+// The numerics are the JAX kernel's: xs = max(absmax, 1e-8)/127 per row (a
+// true division), h row-quantised over the whole hidden width, every
+// multiply and add of the epilogues rounded as written (__fmul_rn /
+// __fadd_rn), the GELU of int8_sublayer.cuh.
 //
 // What bounds it (H100 SXM data sheet, B=64 images of N=576, C=768,
 // H=3072): the int8 products, 4*M*C*H = 348 G operations at M = 36864
 // rows, 176 us at 1979 TOP/s, against 226 MB of f32 input and output
-// (68 us). This first version multiplies with mma.sync from a two-stage
-// cp.async ring and moves the f32 and int8 hidden rows through device
-// memory; PERF.md carries its times beside that bound.
+// (68 us). The f32 hidden rows (453 MB written and read once) and their
+// int8 copy (113 MB written and read once) add 0.35 ms of device memory
+// traffic that the TPU kernel keeps in VMEM; PERF.md carries the times.
 
-#include "int8_sublayer.cuh"
+#include "wgmma_s8.cuh"
 
-using namespace int8k;
+namespace {
 
-// x: (M, C) f32, out: (M, Co) f32; w1 (Hd, C), w2 (Co, Hd) int8 with
-// per-row scales s1, s2 and biases b1, b2. Scratch: x8 (M*C) int8, xs (M),
-// h (M*Hd) f32, h8 (M*Hd) int8, hs (M).
-extern "C" int fused_mlp_int8_f32(
-    const float* x, const int8_t* w1, const float* s1, const float* b1,
-    const int8_t* w2, const float* s2, const float* b2, float* out,
-    int8_t* x8, float* xs, float* h, int8_t* h8, float* hs, int M, int C,
-    int Hd, int Co, int device, void* stream, int* launched) {
+using namespace wg;
+
+// h = gelu_tanh((acc * xs) * s1 + b1), f32, and the rows' |h| maxima
+struct MlpFc1Epi {
+  float* h;
+  const float* xs;
+  const float* s1;
+  const float* b1;
+  unsigned* hmax;
+  template <int R>
+  __device__ __forceinline__ void operator()(const int (&v)[R], int r0,
+                                             int c0, int M, int N) const {
+    const float as[2] = {r0 < M ? xs[r0] : 0.f,
+                         r0 + 8 < M ? xs[r0 + 8] : 0.f};
+    float mx[2] = {0.f, 0.f};
+    const bool pairs = (N & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      const int col = c0 + 8 * j;
+      if (col >= N) continue;
+      const bool two = col + 1 < N;
+      const float w0 = s1[col], w1 = two ? s1[col + 1] : 0.f;
+      const float c0b = b1[col], c1b = two ? b1[col + 1] : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        if (row >= M) continue;
+        const float y0 = int8k::gelu_tanh(__fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh], as[hh]), w0), c0b));
+        const float y1 = int8k::gelu_tanh(__fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh + 1], as[hh]), w1),
+            c1b));
+        mx[hh] = fmaxf(mx[hh], fabsf(y0));
+        if (two) mx[hh] = fmaxf(mx[hh], fabsf(y1));
+        store_pair(h + (size_t)row * N + col, two, pairs, y0, y1);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float m = mx[hh];
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const int row = r0 + 8 * hh;
+      if ((threadIdx.x & 3) == 0 && row < M)
+        atomicMax(hmax + row, __float_as_uint(m));
+    }
+  }
+};
+
+// y = (acc * hs) * s2 + b2, f32, hs from the rows' |h| maxima
+struct MlpFc2Epi {
+  float* out;
+  const unsigned* hmax;
+  const float* s2;
+  const float* b2;
+  template <int R>
+  __device__ __forceinline__ void operator()(const int (&v)[R], int r0,
+                                             int c0, int M, int N) const {
+    float hs[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      hs[hh] = r0 + 8 * hh < M
+                   ? fmaxf(__uint_as_float(hmax[r0 + 8 * hh]), 1e-8f) / 127.0f
+                   : 0.f;
+    const bool pairs = (N & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      const int col = c0 + 8 * j;
+      if (col >= N) continue;
+      const bool two = col + 1 < N;
+      const float w0 = s2[col], w1 = two ? s2[col + 1] : 0.f;
+      const float c0b = b2[col], c1b = two ? b2[col + 1] : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        if (row >= M) continue;
+        const float y0 = __fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh], hs[hh]), w0), c0b);
+        const float y1 = __fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh + 1], hs[hh]), w1),
+            c1b);
+        store_pair(out + (size_t)row * N + col, two, pairs, y0, y1);
+      }
+    }
+  }
+};
+
+// h (M, H) f32 -> h8 with the row scale hs = max(hmax, 1e-8) / 127; H % 8
+// == 0, so 8 values of one row a thread, 16-byte loads
+constexpr int kQuantThreads = 256;
+
+__global__ void __launch_bounds__(kQuantThreads)
+hidden_quant_kernel(const float* __restrict__ h,
+                    const unsigned* __restrict__ hmax, int M, int H,
+                    int8_t* __restrict__ h8) {
+  const size_t n8 = (size_t)M * H / 8;
+  for (size_t i = (size_t)blockIdx.x * kQuantThreads + threadIdx.x; i < n8;
+       i += (size_t)gridDim.x * kQuantThreads) {
+    const int row = (int)(i * 8 / H);
+    const float s = fmaxf(__uint_as_float(hmax[row]), 1e-8f) / 127.0f;
+    float v[8];
+    load8(h + 8 * i, v);
+    *reinterpret_cast<uint2*>(h8 + 8 * i) = quant8(v, s);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
+
+// x: (M, C) of x_type (0 float32, 1 bfloat16), out: (M, Co) f32; w1 (Hd, C),
+// w2 (Co, Hd) int8 with per-row scales s1, s2 and biases b1, b2. Scratch,
+// each 16-byte aligned: x8 (M*C) int8, xs (M) f32, h (M*Hd) f32, h8 (M*Hd)
+// int8, hmax (M) u32. Each launch counts one in *launched; returns the CUDA
+// error of the first launch that failed, else 0.
+extern "C" int fused_mlp_int8(const void* x, int x_type, const int8_t* w1,
+                              const float* s1, const float* b1,
+                              const int8_t* w2, const float* s2,
+                              const float* b2, float* out, int8_t* x8,
+                              float* xs, float* h, int8_t* h8,
+                              unsigned* hmax, int M, int C, int Hd, int Co,
+                              int device, void* stream, int* launched) {
   *launched = 0;
-  if (M < 1 || C % 16 != 0 || Hd < 2 || Hd % 16 != 0 || Co < 2 || Co % 2)
+  if (M < 1 || C < 16 || C % 16 != 0 || Hd < 16 || Hd % 16 != 0 || Co < 1 ||
+      (x_type != 0 && x_type != 1) || !aligned16(x) || !aligned16(w1) ||
+      !aligned16(w2) || !aligned16(x8) || !aligned16(h) || !aligned16(h8))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int sms = 0;
+  err = sm_count(device, &sms);
+  if (err != cudaSuccess) return (int)err;
 
-  STEP(launch_rows(x, nullptr, nullptr, 0.f, M, C, x8, xs, nullptr, s));
-  STEP(launch_gemm<kGelu>(x8, xs, w1, s1, b1, nullptr, h, Hd, 1.0f, M, Hd, C,
-                          s));
-  STEP(launch_rows(h, nullptr, nullptr, 0.f, M, Hd, h8, hs, nullptr, s));
-  STEP(launch_gemm<kF32>(h8, hs, w2, s2, b2, nullptr, out, Co, 1.0f, M, Co,
-                         Hd, s));
+  STEP(launch_quant_rows(x, x_type, M, C, x8, xs, hmax, nullptr, 0, s));
+  STEP((launch_gemm<kBInt8, false>(x8, w1, MlpFc1Epi{h, xs, s1, b1, hmax},
+                                   nullptr, nullptr, 0, M, Hd, C, device,
+                                   s)));
+  const size_t n8 = (size_t)M * Hd / 8;
+  const size_t want = (n8 + kQuantThreads - 1) / kQuantThreads;
+  const int blocks = (int)(want < (size_t)sms * 16 ? want : (size_t)sms * 16);
+  hidden_quant_kernel<<<blocks, kQuantThreads, 0, s>>>(h, hmax, M, Hd, h8);
+  STEP(cudaGetLastError());
+  STEP((launch_gemm<kBInt8, false>(h8, w2, MlpFc2Epi{out, hmax, s2, b2},
+                                   nullptr, nullptr, 0, M, Co, Hd, device,
+                                   s)));
   return 0;
 }

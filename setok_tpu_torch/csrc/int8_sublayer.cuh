@@ -1,5 +1,6 @@
 // Building blocks of the int8 sublayer kernels (fused_sublayer.cu,
-// fused_bert_attention_int8.cu, fused_mlp.cu and fused_attention_int8.cu).
+// fused_bert_attention_int8.cu and fused_attention_int8.cu; wgmma_s8.cuh
+// takes its STEP, warp_max and gelu_tanh).
 // Each TPU kernel of those files becomes a
 // short chain of the three kernels below; every intermediate goes through
 // device memory, and the numerics follow the JAX kernels operation by

@@ -11,7 +11,9 @@ tensors on the card and runs `fused_mlp_int8_reference` for tensors on the
 CPU. Both follow the JAX kernel: x is row-quantised, fc1 dequantises as
 acc·x_scale·w_scale + b1, the GELU is the tanh form whatever the module's
 `gelu_exact` says, the hidden row is quantised over its whole width, and
-fc2 dequantises as acc·h_scale·w_scale + b2. Input and output are float32.
+fc2 dequantises as acc·h_scale·w_scale + b2. The input is float32 or
+bfloat16 (the kernel widens bf16 exactly, so it is the same function as
+`x.float()` first); the output is float32, as the JAX kernel writes it.
 """
 
 from __future__ import annotations
@@ -21,8 +23,7 @@ import functools
 
 import torch
 
-from setok_tpu_torch.kernels.fused_sublayer import (check_input,
-                                                    check_vectors,
+from setok_tpu_torch.kernels.fused_sublayer import (check_vectors,
                                                     check_weight, count,
                                                     mlp_int8_core)
 from setok_tpu_torch.kernels.quant import QuantizedWeight
@@ -43,15 +44,35 @@ def fused_mlp_int8_reference(x, w1: QuantizedWeight, b1,
     return mlp_int8_core(x.float(), w1, b1, w2, b2)
 
 
+# the C entry's type codes of x
+_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_input(x: torch.Tensor) -> None:
+    if x.dtype not in _TYPES:
+        raise TypeError(f"{NAME} takes float32 or bfloat16 input, got "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{NAME} takes a contiguous input")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{NAME} runs on cuda or cpu, got {x.device}")
+
+
+def _aligned(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
 def fused_mlp_int8(x, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2):
-    """x: (..., C) f32 → fc2(gelu_tanh(fc1 x)): (..., C_out) f32, int8;
-    w1 (H, C), w2 (C_out, H) quantised per output channel.
+    """x: (..., C) f32 or bf16 → fc2(gelu_tanh(fc1 x)): (..., C_out) f32,
+    int8; w1 (H, C), w2 (C_out, H) quantised per output channel.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     or raises."""
-    check_input(NAME, x)
+    check_input(x)
     if x.device.type == "cpu":
         return fused_mlp_int8_reference(x, w1, b1, w2, b2)
+    if x.data_ptr() % 16:
+        x = x.clone()          # the row pass reads 16 bytes a load
     c = x.shape[-1]
     hd, c_out = w1.values.shape[0], w2.values.shape[0]
     dev = x.device
@@ -59,21 +80,23 @@ def fused_mlp_int8(x, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2):
     check_weight("w2", w2, c_out, hd, dev)
     check_vectors(dev, b1=(b1, hd), b2=(b2, c_out))
     m = x.numel() // c
-    f32, i8 = torch.float32, torch.int8
-    out = torch.empty((*x.shape[:-1], c_out), dtype=f32, device=dev)
-    x8 = torch.empty((m, c), dtype=i8, device=dev)
-    xs = torch.empty((m,), dtype=f32, device=dev)
-    h = torch.empty((m, hd), dtype=f32, device=dev)
-    h8 = torch.empty((m, hd), dtype=i8, device=dev)
-    hs = torch.empty((m,), dtype=f32, device=dev)
+    out = torch.empty((*x.shape[:-1], c_out), dtype=torch.float32,
+                      device=dev)
+    # one scratch buffer: x8, xs, h (f32), h8, hmax, each 16-byte aligned
+    sizes = (m * c, 4 * m, 4 * m * hd, m * hd, 4 * m)
+    offsets = [0]
+    for size in sizes[:-1]:
+        offsets.append(offsets[-1] + _aligned(size))
+    scratch = torch.empty((offsets[-1] + sizes[-1],), dtype=torch.uint8,
+                          device=dev)
+    base = scratch.data_ptr()
     launched = ctypes.c_int(0)
     err = _entry()(
-        x.data_ptr(), w1.values.data_ptr(), w1.scales.data_ptr(),
-        b1.data_ptr(), w2.values.data_ptr(), w2.scales.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), x8.data_ptr(), xs.data_ptr(),
-        h.data_ptr(), h8.data_ptr(), hs.data_ptr(), m, c, hd, c_out,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        ctypes.byref(launched))
+        x.data_ptr(), _TYPES[x.dtype], w1.values.data_ptr(),
+        w1.scales.data_ptr(), b1.data_ptr(), w2.values.data_ptr(),
+        w2.scales.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        *(base + off for off in offsets), m, c, hd, c_out, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
     count(NAME, launched, err, LAUNCHES, CALLS)
     return out
 
@@ -84,7 +107,7 @@ def _entry():
     from setok_tpu_torch.kernels._build import load_library
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = load_library("fused_mlp").fused_mlp_int8_f32
+    fn = load_library("fused_mlp").fused_mlp_int8
     fn.restype = i
-    fn.argtypes = [p] * 13 + [i] * 5 + [p, ctypes.POINTER(i)]
+    fn.argtypes = [p, i] + [p] * 12 + [i] * 5 + [p, ctypes.POINTER(i)]
     return fn

@@ -8,12 +8,13 @@ exact, and the scales apply in the JAX kernel's order (kernels/quant.py,
 whose `quant_matmul_plain` / `quant4_matmul_plain` are the plain versions).
 
 A CPU tensor runs the plain version; a CUDA tensor launches
-`csrc/quant_matmul.cu` or raises: a row-quantisation pass that reads x in
-its own type (float32, bfloat16 or float16), then a weight-streaming GEMV
-for M <= 8 rows, or above it a wgmma GEMM (int8) or a tiled mma.sync GEMM
-(int4), whose epilogue writes the output type itself. A call allocates
-the output and one scratch buffer (the int8 rows and their scales), and
-casts nothing.
+`csrc/quant_matmul.cu` or raises. x is read in its own type (float32,
+bfloat16 or float16) and the output type is written by the kernel. M <= 8
+rows (decode): one launch, a weight-streaming GEMV that quantises the rows
+itself, and one allocation, the output. Above: a row-quantisation pass into
+one scratch buffer (the int8 rows, their scales and, for int4, their sums
+over each group), then the wgmma GEMM, int8 weights as they are or int4
+nibbles unpacked into its B tile. Nothing is cast.
 """
 
 from __future__ import annotations
@@ -60,10 +61,15 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
 _TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def _scratch_bytes(m: int, k: int) -> int:
-    """The call's scratch: the (m, k) int8 rows, then their m float32
-    scales at the next multiple of 16 bytes (the C entry's layout)."""
-    return (m * k + 15) // 16 * 16 + 4 * m
+def _scratch_bytes(m: int, k: int, bits: int, n_scales: int) -> int:
+    """The scratch of a call of m > 8 rows (the C entry's layout, each part
+    at a multiple of 16 bytes): the (m, k) int8 rows, their m float32
+    scales and, at bits 4, their (m, n_scales) int32 sums over each group
+    (or all of k). At m <= 8 the GEMV quantises the rows in shared
+    memory."""
+    def up(n):
+        return (n + 15) // 16 * 16
+    return up(m * k) + up(4 * m) + (4 * m * n_scales if bits == 4 else 0)
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
@@ -81,14 +87,16 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
         x2 = x2.clone(memory_format=torch.contiguous_format)
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    scratch = torch.empty((_scratch_bytes(m, k),), dtype=torch.uint8,
-                          device=dev)
+    scratch = None
+    if m > 8:
+        scratch = torch.empty((_scratch_bytes(m, k, bits, s.shape[0]),),
+                              dtype=torch.uint8, device=dev)
     launched = ctypes.c_int(0)
     err = _entry()(x2.data_ptr(), _TYPES[x2.dtype], w.data_ptr(),
                    s.data_ptr(), s.shape[0], bits, out.data_ptr(),
-                   _TYPES[out_dtype], scratch.data_ptr(), m, n, k, dev.index,
-                   torch.cuda.current_stream(dev).cuda_stream,
-                   ctypes.byref(launched))
+                   _TYPES[out_dtype],
+                   0 if scratch is None else scratch.data_ptr(), m, n, k,
+                   dev.index, _stream_of(dev.index), ctypes.byref(launched))
     LAUNCHES[name] += launched.value
     if launched.value:
         CALLS[name] += 1
@@ -133,6 +141,12 @@ def quant4_matmul(x: torch.Tensor, w: Quant4Weight,
     if x.device.type != "cuda":
         raise ValueError(f"quant4_matmul runs on cuda or cpu, got {x.device}")
     return _launch("quant4_matmul", x, w.packed, w.scales, 4, out_dtype)
+
+
+def _stream_of(index: int) -> int:
+    """The handle of the device's current stream: the raw query, which
+    builds no Stream object (a decode step makes 224 of these calls)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 @functools.cache

@@ -217,7 +217,7 @@ class Mlp(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.quant8 and fs.mlp_fits_vmem(x.shape[-1],
                                             self.fc1.out_features):
-            return fm.fused_mlp_int8(x.float().contiguous(), self.fc1.int8(),
+            return fm.fused_mlp_int8(x.contiguous(), self.fc1.int8(),
                                      self.fc1.bias, self.fc2.int8(),
                                      self.fc2.bias)
         x = dropout(F.gelu(self.fc1(x), approximate=self.approximate),

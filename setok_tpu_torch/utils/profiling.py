@@ -18,6 +18,9 @@ CATEGORIES = (
     ("flash_dkv", ("flash_dkv",)),
     ("cluster_dpc", ("density_kernel", "parent_kernel", "sqnorm_kernel")),
     ("int8_gemm", ("gemm_s8_kernel",)),
+    # fused_mlp_int8: its two wgmma GEMMs and its hidden rows' pass
+    ("int8_mlp_gemm", ("mlpfc",)),
+    ("int8_mlp_rows", ("hidden_quant",)),
     ("quant_rows", ("quant_rows",)),
     ("quant_gemv", ("gemv_kernel",)),
     ("quant_gemm", ("gemm_kernel",)),

@@ -29,8 +29,15 @@ no more than 0.01 under the share of the plain version's float64-score
 twin where that falls under 99 % (chip_smoke.flash_fwd_check says why).
 quant_matmul also at K = 4304 and N = 4304 with bf16 x and bf16 or f32
 output, through the wgmma GEMM (printing the count of elements that
-differ from the plain version, expected 0).
+differ from the plain version, expected 0). quant4_matmul at the serving
+trunk's widths (K, N = 4096, 11008 and 11008, 4096) through the one-launch
+GEMV (M <= 8) and the wgmma GEMM over unpacked nibbles (M > 8), per channel
+and group 128, and fused_mlp_int8 at 1,728 and 36,864 rows of 768 with
+float32 and bfloat16 x: 0 elements may differ from the plain versions
+(exact int products, the same float epilogue in the same order).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -50,7 +57,7 @@ from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
                                            quant_matmul_plain,
                                            quantize_weight,
                                            quantize_weight_int4)
-from setok_tpu_torch.models.setok import SeTok
+from setok_tpu_torch.models.setok import SeTok, expected_calls
 from setok_tpu_torch.models.setokim import Setokim
 from setok_tpu_torch.serve import ServeEngine
 from setok_tpu_torch.utils.init import init_random_, init_setokim_random_
@@ -233,13 +240,101 @@ def test_quant_matmul_kernels_match_plain(card, fmt, m, k, n, x_dtype,
     calls, launches = qm.CALLS[name], qm.LAUNCHES[name]
     got = kernel(x, wq, out_dtype)
     torch.cuda.synchronize()
-    assert qm.CALLS[name] == calls + 1 and qm.LAUNCHES[name] == launches + 2
+    # M <= 8: the GEMV quantises the rows itself; above: rows, then GEMM
+    assert qm.CALLS[name] == calls + 1
+    assert qm.LAUNCHES[name] == launches + (1 if m <= 8 else 2)
     want = plain(x, wq, out_dtype)
     assert got.dtype == want.dtype == (out_dtype or x.dtype)
     print(f"{name} {fmt} M={m} K={k} N={n} {x_dtype} -> {got.dtype}: "
           f"{int((got != want).sum())} of {got.numel()} elements differ")
     assert float((got.double() - want.double()).abs().max()
                  / want.double().abs().max()) <= 1e-5
+
+
+# quant4_matmul at the serving trunk's widths: (format, M, K, N, x's type,
+# output type); M on both sides of the GEMV / GEMM rule and of the GEMM's
+# 64-row tile
+QUANT4_CASES = [(fmt, m, k, n, dt, dt)
+                for fmt in ("w4", "w4g128")
+                for m in (1, 4, 8, 9, 130, 512)
+                for k, n in ((4096, 11008), (11008, 4096))
+                for dt in ("float32", "bfloat16")]
+
+
+@functools.cache
+def _trunk_int4(fmt: str, k: int, n: int):
+    gen = torch.Generator(device="cuda").manual_seed(k + n)
+    w = torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5
+    return quantize_weight_int4(w, 128 if fmt == "w4g128" else None, 8)
+
+
+@pytest.mark.parametrize(
+    "fmt,m,k,n,x_dtype,out_dtype", QUANT4_CASES,
+    ids=[f"{c[0]}-M{c[1]}-K{c[2]}-{c[4]}" for c in QUANT4_CASES])
+def test_quant4_matmul_at_trunk_widths_matches_plain(card, fmt, m, k, n,
+                                                     x_dtype, out_dtype):
+    """One launch at M <= 8, two above (rows, then the wgmma GEMM over
+    unpacked nibbles); not one element differs from the plain version."""
+    wq = _trunk_int4(fmt, k, n)
+    gen = torch.Generator(device=card).manual_seed(m)
+    x = torch.randn(m, k, generator=gen, device=card).to(
+        getattr(torch, x_dtype))
+    out_dtype = getattr(torch, out_dtype)
+    calls, launches = qm.CALLS["quant4_matmul"], qm.LAUNCHES["quant4_matmul"]
+    got = qm.quant4_matmul(x, wq, out_dtype)
+    torch.cuda.synchronize()
+    assert qm.CALLS["quant4_matmul"] == calls + 1
+    assert qm.LAUNCHES["quant4_matmul"] == launches + (1 if m <= 8 else 2)
+    want = quant4_matmul_plain(x, wq, out_dtype)
+    assert got.dtype == want.dtype == out_dtype
+    assert torch.isfinite(got).all()
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("rows", [3 * 576, 64 * 576])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_fused_mlp_at_path_rows_matches_plain(card, rows, x_dtype):
+    """Row 6 at 768 -> 3072 -> 768: 4 launches a call (rows, fc1, hidden
+    quantisation, fc2), float32 out; a bf16 x is read as it is and gives
+    the plain version of x.float(); not one element differs."""
+    rs = np.random.RandomState(rows)
+    c, hid = 768, 3072
+    x = torch.from_numpy(rs.randn(rows, c).astype(np.float32)).to(card)
+    x = x.to(getattr(torch, x_dtype))
+    w1 = quantize_weight(torch.from_numpy(
+        (rs.randn(hid, c) / np.sqrt(c)).astype(np.float32)).to(card))
+    w2 = quantize_weight(torch.from_numpy(
+        (rs.randn(c, hid) / np.sqrt(hid)).astype(np.float32)).to(card))
+    b1 = torch.from_numpy((rs.randn(hid) * 0.1).astype(np.float32)).to(card)
+    b2 = torch.from_numpy((rs.randn(c) * 0.1).astype(np.float32)).to(card)
+    calls, launches = fm.CALLS[fm.NAME], fm.LAUNCHES[fm.NAME]
+    got = fm.fused_mlp_int8(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert fm.CALLS[fm.NAME] == calls + 1
+    assert fm.LAUNCHES[fm.NAME] == launches + 4
+    want = fm.fused_mlp_int8_reference(x.float(), w1, b1, w2, b2)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert int((got != want).sum()) == 0
+
+
+def test_int8_forward_at_384_routes_to_the_kernels(card):
+    """The int8 SeTok forward at 384 px (one image) takes fused_mlp_int8
+    and quant_matmul as often as expected_calls says, 4 launches a row-6
+    call."""
+    tok, det = cfgs.base_tokenizer(), cfgs.base_detokenizer()
+    tok = cfgs.replace(tok, vit=cfgs.replace(tok.vit, image_size=384))
+    det = cfgs.replace(det, image_size=384)
+    model = init_random_(SeTok(tok, det, device=card, quant8=True), 0)
+    images = torch.rand(1, 384, 384, 3, device=card) * 2 - 1
+    chip_smoke.reset_counts()
+    with torch.inference_mode():
+        out = model(images)
+    torch.cuda.synchronize()
+    calls, launches = chip_smoke.int8_counts()
+    want = expected_calls(tok, det)
+    assert calls == want and want["fused_mlp_int8"] > 0
+    assert launches["fused_mlp_int8"] == 4 * want["fused_mlp_int8"]
+    assert torch.isfinite(out.recon).all()
 
 
 def test_cache_attention_kernel_matches_plain(card):
@@ -286,8 +381,11 @@ def test_serving_routes_to_the_kernels(card, bits):
     name = "quant_matmul" if bits == 8 else "quant4_matmul"
     layers = cfg.llama.num_layers
     assert all(len(r.tokens) == 4 for r in reqs)
-    # two prefills and three decode steps, seven linears per layer
+    # two prefills and three decode steps, seven linears per layer; a
+    # prefill call launches the row pass and the GEMM, a decode call (2
+    # rows) the GEMV alone
     assert qm.CALLS[name] == 7 * layers * (2 + 3)
+    assert qm.LAUNCHES[name] == 7 * layers * (2 * 2 + 3)
     assert ca.LAUNCHES == layers * 3
     assert cluster_dpc.LAUNCHES == 3
 

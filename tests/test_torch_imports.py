@@ -1,5 +1,5 @@
-"""Import hygiene: the port and chip_smoke.py import no JAX, no flax and
-nothing of the JAX package."""
+"""Import hygiene: the port, chip_smoke.py and chip_kernel_times.py import
+no JAX, no flax and nothing of the JAX package."""
 
 import json
 import pkgutil
@@ -28,6 +28,6 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "setok_tpu_torch.kernels.cluster_dpc" in modules
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, "setok_tpu_torch", *modules,
-         "chip_smoke"],
+         "chip_smoke", "chip_kernel_times"],
         cwd=ROOT, capture_output=True, text=True, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
