@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the int8 / int4 matmul kernels and the int8 MLP of the checkout it
-runs from, on one CUDA card, so that two checkouts compare in one call:
+"""Time the int8 / int4 matmul kernels, the int8 MLP and the int8
+whole-sublayer kernels of the checkout it runs from, and its int8 SeTok
+forward, on one CUDA card, so that two checkouts compare in one call:
 
-    python3 chip_kernel_times.py TAG      # from the root of each checkout
+    python3 chip_kernel_times.py TAG [PARTS]   # from the root of each checkout
 
-Prints one JSON line tagged TAG:
+PARTS, comma-separated, picks what runs (default all): trunk, row6, dense,
+sublayers, forward, serve. Prints one JSON line tagged TAG:
   trunk   per format (w8, w4, w4g128: int4 with groups of 128) and rows M
           (4: a decode step; 512: a prefill) the seven Vicuna-7B trunk
           linears of one layer, summed: time by CUDA events, device time
@@ -16,7 +18,19 @@ Prints one JSON line tagged TAG:
           (else from bf16 x cast to float32 first), and the elements that
           differ from the plain version;
   dense   quant_matmul at the int8 SeTok's Dense shapes (bf16 x and out):
-          time by events (50 calls) and the GEMM's device time (20 calls).
+          time by events (50 calls) and the GEMM's device time (20 calls);
+  sublayers  rows 2 (attn_sublayer_int8 at the ViT, decoder and inner
+          Block shapes), 3 (mlp_sublayer_int8) and 5 (mlp_postnorm_int8)
+          at B=64 images of 256 tokens of 768: time by events, device time
+          and its split by kernel (5 calls), the elements that differ from
+          the plain version and the share within 1e-5 of the largest;
+  forward  the int8 SeTok forward with bf16 glue at B=64 (base @256, and
+          base with the 4096-wide tokenizer MLP), and bf16 beside it: img/s
+          by chip_smoke's slope method and one profiled int8 forward's
+          device time by kernel category;
+  serve   chip_smoke's serving phase at bits 8 and 4 (base_setokim, 8
+          requests): tokens/s, mean TTFT and the median and least decode
+          step.
 Weights are random from a seed and quantised without clip search. Run the
 checkouts in turns (parent, change, change, parent): a card's numbers drift
 within a call. Exits non-zero without a card.
@@ -24,6 +38,8 @@ within a call. Exits non-zero without a card.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import sys
 
@@ -37,6 +53,8 @@ from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
                                            quant_matmul_plain,
                                            quantize_weight,
                                            quantize_weight_int4)
+from setok_tpu_torch.models.setok import SeTok
+from setok_tpu_torch.utils.init import init_setokim_random_
 from setok_tpu_torch.utils.profiling import device_time_breakdown
 
 
@@ -105,6 +123,79 @@ def dense(dev, gen) -> dict:
     return res
 
 
+SUBLAYER_ROWS = {"attn_sublayer_int8": "row2", "mlp_sublayer_int8": "row3",
+                 "mlp_postnorm_int8": "row5"}
+
+
+def sublayers(dev) -> dict:
+    res = {}
+    for name, label, kernel, plain, args, kw in cs.int8_cases(64, dev):
+        row = SUBLAYER_ROWS.get(name)
+        if row is None or label == "inter":
+            continue
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        diff = (got.double() - want.double()).abs()
+        by = device_time_breakdown(
+            lambda: [kernel(*args, **kw) for _ in range(5)])
+        res[f"{row} {label}"] = {
+            "ms": cs.time_ms(lambda: kernel(*args, **kw)),
+            "device_ms": by["device_ms"] / 5,
+            "split": [{"name": k["name"][:60], "ms": k["ms"] / 5}
+                      for k in by["top_kernels"]],
+            "differ": int((got != want).sum()),
+            "share": float((diff <= 1e-5 * want.abs().max()).double()
+                           .mean())}
+        del got, want, diff
+    return res
+
+
+def forward() -> dict:
+    tok, det = cfgs.base_tokenizer(), cfgs.base_detokenizer()
+    configs = {"base256": (tok, det),
+               "ff4096": (cfgs.replace(tok, dim_feedforward=4096), det)}
+    res = {}
+    for name, (tok_cfg, det_cfg) in configs.items():
+        size = tok_cfg.vit.image_size
+        images = torch.rand(64, size, size, 3, device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(cs.SEED)) * 2 - 1
+        for dtype_name, quant8 in (("bfloat16", False), ("int8", True)):
+            model = init_setokim_random_(
+                SeTok(tok_cfg, det_cfg, dtype=torch.bfloat16, quant8=quant8),
+                cs.SEED)
+            run = cs.images_per_sec(model, images, 2, 8)
+            entry = {"images_per_sec": run["images_per_sec"]}
+            if quant8:
+                by = device_time_breakdown(lambda: model(images), top=12)
+                entry.update(device_ms=by["device_ms"],
+                             busy_share=by["busy_share"],
+                             by_category_ms=by["by_category_ms"],
+                             top=[{"name": k["name"][:60], "ms": k["ms"],
+                                   "calls": k.get("calls")}
+                                  for k in by["top_kernels"]])
+            res[f"{name} {dtype_name}"] = entry
+            del model
+            torch.cuda.empty_cache()
+    return res
+
+
+def serve() -> dict:
+    res = {}
+    for bits in (8, 4):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            cs.phase_serve(cfgs.base_setokim(), bits)
+        for line in log.getvalue().splitlines():
+            if line.startswith('{"phase": "serve"'):
+                run = json.loads(line)
+                res[f"bits{bits}"] = {k: run[k] for k in (
+                    "tokens_per_s", "ttft_mean_ms",
+                    "decode_ms_per_step_median", "decode_ms_per_step_min")}
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_times: no CUDA device", file=sys.stderr)
@@ -113,9 +204,27 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     tag = sys.argv[1] if len(sys.argv) > 1 else "tree"
-    print(json.dumps({"tree": tag, "device": torch.cuda.get_device_name(0),
-                      "trunk": trunk(dev, gen), "row6": row6(dev),
-                      "dense": dense(dev, gen)}), flush=True)
+    parts = (sys.argv[2].split(",") if len(sys.argv) > 2
+             else ["trunk", "row6", "dense", "sublayers", "forward",
+                   "serve"])
+    out = {"tree": tag, "device": torch.cuda.get_device_name(0)}
+    for part in parts:
+        if part == "trunk":
+            out["trunk"] = trunk(dev, gen)
+        elif part == "row6":
+            out["row6"] = row6(dev)
+        elif part == "dense":
+            out["dense"] = dense(dev, gen)
+        elif part == "sublayers":
+            out["sublayers"] = sublayers(dev)
+        elif part == "forward":
+            out["forward"] = forward()
+        elif part == "serve":
+            out["serve"] = serve()
+        else:
+            print(f"chip_kernel_times: no part {part!r}", file=sys.stderr)
+            return 2
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -5,7 +5,8 @@
 // not fit (the ViT, the inner Block and the pixel decoder at 384 px). The
 // TPU kernel is one Pallas program per 256 rows that keeps the (rows x
 // hidden) intermediate in VMEM. Here it is a chain of four launches, both
-// products on the persistent wgmma GEMM of wgmma_s8.cuh:
+// products on the persistent wgmma GEMM of wgmma_s8.cuh, whose epilogues
+// and hidden pass rows 3 and 5 (fused_sublayer.cu) share:
 //
 //   quant_rows_kernel   x (float32 or bfloat16, widened exactly) -> x8, xs;
 //                       clears hmax
@@ -33,119 +34,7 @@
 
 #include "wgmma_s8.cuh"
 
-namespace {
-
 using namespace wg;
-
-// h = gelu_tanh((acc * xs) * s1 + b1), f32, and the rows' |h| maxima
-struct MlpFc1Epi {
-  float* h;
-  const float* xs;
-  const float* s1;
-  const float* b1;
-  unsigned* hmax;
-  template <int R>
-  __device__ __forceinline__ void operator()(const int (&v)[R], int r0,
-                                             int c0, int M, int N) const {
-    const float as[2] = {r0 < M ? xs[r0] : 0.f,
-                         r0 + 8 < M ? xs[r0 + 8] : 0.f};
-    float mx[2] = {0.f, 0.f};
-    const bool pairs = (N & 1) == 0;
-#pragma unroll
-    for (int j = 0; j < R / 4; ++j) {
-      const int col = c0 + 8 * j;
-      if (col >= N) continue;
-      const bool two = col + 1 < N;
-      const float w0 = s1[col], w1 = two ? s1[col + 1] : 0.f;
-      const float c0b = b1[col], c1b = two ? b1[col + 1] : 0.f;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = r0 + 8 * hh;
-        if (row >= M) continue;
-        const float y0 = int8k::gelu_tanh(__fadd_rn(
-            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh], as[hh]), w0), c0b));
-        const float y1 = int8k::gelu_tanh(__fadd_rn(
-            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh + 1], as[hh]), w1),
-            c1b));
-        mx[hh] = fmaxf(mx[hh], fabsf(y0));
-        if (two) mx[hh] = fmaxf(mx[hh], fabsf(y1));
-        store_pair(h + (size_t)row * N + col, two, pairs, y0, y1);
-      }
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float m = mx[hh];
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      const int row = r0 + 8 * hh;
-      if ((threadIdx.x & 3) == 0 && row < M)
-        atomicMax(hmax + row, __float_as_uint(m));
-    }
-  }
-};
-
-// y = (acc * hs) * s2 + b2, f32, hs from the rows' |h| maxima
-struct MlpFc2Epi {
-  float* out;
-  const unsigned* hmax;
-  const float* s2;
-  const float* b2;
-  template <int R>
-  __device__ __forceinline__ void operator()(const int (&v)[R], int r0,
-                                             int c0, int M, int N) const {
-    float hs[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      hs[hh] = r0 + 8 * hh < M
-                   ? fmaxf(__uint_as_float(hmax[r0 + 8 * hh]), 1e-8f) / 127.0f
-                   : 0.f;
-    const bool pairs = (N & 1) == 0;
-#pragma unroll
-    for (int j = 0; j < R / 4; ++j) {
-      const int col = c0 + 8 * j;
-      if (col >= N) continue;
-      const bool two = col + 1 < N;
-      const float w0 = s2[col], w1 = two ? s2[col + 1] : 0.f;
-      const float c0b = b2[col], c1b = two ? b2[col + 1] : 0.f;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = r0 + 8 * hh;
-        if (row >= M) continue;
-        const float y0 = __fadd_rn(
-            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh], hs[hh]), w0), c0b);
-        const float y1 = __fadd_rn(
-            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh + 1], hs[hh]), w1),
-            c1b);
-        store_pair(out + (size_t)row * N + col, two, pairs, y0, y1);
-      }
-    }
-  }
-};
-
-// h (M, H) f32 -> h8 with the row scale hs = max(hmax, 1e-8) / 127; H % 8
-// == 0, so 8 values of one row a thread, 16-byte loads
-constexpr int kQuantThreads = 256;
-
-__global__ void __launch_bounds__(kQuantThreads)
-hidden_quant_kernel(const float* __restrict__ h,
-                    const unsigned* __restrict__ hmax, int M, int H,
-                    int8_t* __restrict__ h8) {
-  const size_t n8 = (size_t)M * H / 8;
-  for (size_t i = (size_t)blockIdx.x * kQuantThreads + threadIdx.x; i < n8;
-       i += (size_t)gridDim.x * kQuantThreads) {
-    const int row = (int)(i * 8 / H);
-    const float s = fmaxf(__uint_as_float(hmax[row]), 1e-8f) / 127.0f;
-    float v[8];
-    load8(h + 8 * i, v);
-    *reinterpret_cast<uint2*>(h8 + 8 * i) = quant8(v, s);
-  }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-}  // namespace
 
 // x: (M, C) of x_type (0 float32, 1 bfloat16), out: (M, Co) f32; w1 (Hd, C),
 // w2 (Co, Hd) int8 with per-row scales s1, s2 and biases b1, b2. Scratch,
@@ -171,17 +60,14 @@ extern "C" int fused_mlp_int8(const void* x, int x_type, const int8_t* w1,
   err = sm_count(device, &sms);
   if (err != cudaSuccess) return (int)err;
 
-  STEP(launch_quant_rows(x, x_type, M, C, x8, xs, hmax, nullptr, 0, s));
+  STEP(launch_quant_rows(x, x_type, M, C, RowLn{nullptr, nullptr, 0.f}, x8,
+                         xs, hmax, nullptr, 0, s));
   STEP((launch_gemm<kBInt8, false>(x8, w1, MlpFc1Epi{h, xs, s1, b1, hmax},
                                    nullptr, nullptr, 0, M, Hd, C, device,
                                    s)));
-  const size_t n8 = (size_t)M * Hd / 8;
-  const size_t want = (n8 + kQuantThreads - 1) / kQuantThreads;
-  const int blocks = (int)(want < (size_t)sms * 16 ? want : (size_t)sms * 16);
-  hidden_quant_kernel<<<blocks, kQuantThreads, 0, s>>>(h, hmax, M, Hd, h8);
-  STEP(cudaGetLastError());
-  STEP((launch_gemm<kBInt8, false>(h8, w2, MlpFc2Epi{out, hmax, s2, b2},
-                                   nullptr, nullptr, 0, M, Co, Hd, device,
-                                   s)));
+  STEP(launch_hidden_quant(h, hmax, M, Hd, h8, sms, s));
+  const MlpFc2Epi<false> fc2{out, hmax, s2, b2, nullptr};
+  STEP((launch_gemm<kBInt8, false>(h8, w2, fc2, nullptr, nullptr, 0, M, Co,
+                                   Hd, device, s)));
   return 0;
 }

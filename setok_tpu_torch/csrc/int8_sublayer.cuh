@@ -1,10 +1,10 @@
-// Building blocks of the int8 sublayer kernels (fused_sublayer.cu,
-// fused_bert_attention_int8.cu and fused_attention_int8.cu; wgmma_s8.cuh
-// takes its STEP, warp_max and gelu_tanh).
-// Each TPU kernel of those files becomes a
-// short chain of the three kernels below; every intermediate goes through
-// device memory, and the numerics follow the JAX kernels operation by
-// operation:
+// Building blocks of the int8 BERT attention and the unfused route's int8
+// attention (fused_bert_attention_int8.cu and fused_attention_int8.cu, rows
+// 4 and 7 of PERF.md's kernel table; fused_sublayer.cu takes rows_kernel for
+// the post-norm MLP's trailing LayerNorm, wgmma_s8.cuh its STEP, warp_max,
+// warp_sum and gelu_tanh). Each of those TPU kernels becomes a short chain
+// of the three kernels below; every intermediate goes through device
+// memory, and the numerics follow the JAX kernels operation by operation:
 //
 //   rows_kernel     one warp per row: optional LayerNorm
 //                   ((x - mu) * rsqrt(var + eps) * g + b, f32; mu and var
@@ -17,7 +17,7 @@
 //                   (mma.sync m16n8k32 s8, exact), a 128x128 tile per block
 //                   with a two-stage cp.async ring over K, and the epilogue
 //                   acc * x_scale * w_scale + bias in that order, then one of
-//                   bf16(v * post_scale), gelu_tanh(v), resid + v or v.
+//                   bf16(v * post_scale), resid + v or v.
 //   attn_kernel     one block per (image, head, 64 queries); every score of
 //                   the tile's rows stays in shared memory, so the softmax is
 //                   the exact two-pass one of the JAX kernels (row max and
@@ -136,7 +136,7 @@ inline cudaError_t launch_rows(const float* x, const float* g, const float* b,
 // (W in the torch (out, in) layout, so each column of the product reads a
 // contiguous row of W). K % 16 == 0, N even.
 
-enum Epilogue { kBf16 = 0, kGelu = 1, kResid = 2, kF32 = 3 };
+enum Epilogue { kBf16 = 0, kResid = 2, kF32 = 3 };
 
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int BKP = 48;   // padded smem row: fragment loads hit 32 banks
@@ -262,8 +262,6 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const float* __restrict__ a_scale,
           if (EPI == kBf16)
             static_cast<__nv_bfloat16*>(out)[at] =
                 __float2bfloat16_rn(__fmul_rn(v, post_scale));
-          else if (EPI == kGelu)
-            static_cast<float*>(out)[at] = gelu_tanh(v);
           else if (EPI == kResid)
             static_cast<float*>(out)[at] = __fadd_rn(resid[at], v);
           else

@@ -462,7 +462,8 @@ int run(const void* x, int x_type, const int8_t* w, const float* ws,
                                                    (4 * (size_t)M + 15) / 16 *
                                                        16);
   const int gsize = mode == kW4G ? K / n_scales : K;
-  STEP(launch_quant_rows(x, x_type, M, K, x8, xs, nullptr, rsum, gsize, s));
+  STEP(launch_quant_rows(x, x_type, M, K, RowLn{nullptr, nullptr, 0.f}, x8,
+                         xs, nullptr, rsum, gsize, s));
   if (mode == kW8)
     STEP((launch_gemm<kBInt8, false>(x8, w, QuantEpi<OutT>{out, xs, ws},
                                      nullptr, nullptr, 0, M, N, K, device,
@@ -476,10 +477,6 @@ int run(const void* x, int x_type, const int8_t* w, const float* ws,
         x8, w, QuantEpi<OutT, false>{out, xs, nullptr}, rsum, ws, n_scales / 2, M,
         N, K, device, s)));
   return 0;
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace

@@ -1,13 +1,18 @@
 // The int8 GEMM of Hopper's warpgroup MMA, shared by quant_matmul.cu (w8a8
-// and w4a8, rows 8 and 9 of PERF.md's kernel table) and fused_mlp.cu (row 6),
-// and the row quantisation pass that feeds it.
+// and w4a8, rows 8 and 9 of PERF.md's kernel table), fused_mlp.cu (row 6)
+// and fused_sublayer.cu (rows 2, 3 and 5), the row quantisation pass that
+// feeds it, and the epilogues and the hidden rows' pass of the int8 MLPs
+// and the attention sublayer.
 //
-//   quant_rows_kernel  x (float32, bfloat16 or float16) -> x8, xs;
-//                      s = max(absmax, 1e-8) / 127, q = clip(rint(x / s),
-//                      +-127), a warp per row, 8 values a 16-byte load
+//   quant_rows_kernel  x (float32, bfloat16 or float16) -> x8, xs, with an
+//                      optional LayerNorm in front; s = max(absmax, 1e-8) /
+//                      127, q = clip(rint(x / s), +-127), a warp per row, 8
+//                      values a 16-byte load, a row of <= 1024 read once
 //   wgmma_gemm_kernel<BSRC, Epi>
 //                      out = Epi(A . B^T), A (M, K) int8 row-major, B in the
 //                      torch (out, in) layout, exact s32 sums
+//   hidden_quant_kernel  a row whose |max| an epilogue posted -> int8, one
+//                      read
 //
 // The GEMM is persistent and warp-specialised: one block per SM walking the
 // output tiles, consumer warpgroups and one producer warpgroup. A producer warpgroup's one thread keeps TMA
@@ -144,19 +149,34 @@ __device__ __forceinline__ void store_pair(OutT* p, bool two, bool pairs,
 
 // ---------------------------------------------------------------------------
 // Row quantisation, a warp per row. K % 8 == 0 and x 16-byte aligned, so
-// every row starts on a 16-byte boundary. Each lane has kRowLoads 16-byte
-// loads in flight: so400m's 5,832 rows of 4304 are less than one wave of
-// warps, each a long chain of loads. clear != nullptr: clear[row] = 0 too
-// (a buffer that a later launch of the chain reduces into). rsum !=
+// every row starts on a 16-byte boundary. A row of at most kRowHeld values
+// (8 per lane per load, kRowLoads loads) stays in the lane's registers and
+// is read once; a longer one is read twice (its maximum, then its values),
+// each lane with kRowLoads 16-byte loads in flight: so400m's 5,832 rows of
+// 4304 are less than one wave of warps, each a long chain of loads.
+// ln.g != nullptr (rows of at most kRowHeld): the row's LayerNorm first,
+// (x - mu) * r * g + b in float32 with mu, the variance and r = rsqrt(var +
+// eps) from float64 sums rounded to float32 once (the plain `layernorm`'s
+// values, whatever the order of the sums). clear != nullptr: clear[row] =
+// 0 too (a buffer that a later launch of the chain reduces into). rsum !=
 // nullptr: the row's sums of q over each run of gsize columns, rsum[row *
 // K / gsize + run] (gsize % 8 == 0, K % gsize == 0).
 
 constexpr int kRowThreads = 256;
 constexpr int kRowLoads = 4;
+constexpr int kRowHeld = kRowLoads * 32 * 8;
+
+// the LayerNorm in front of the quantisation: g, b (K) float32, 16-byte
+// aligned, or g == nullptr for none
+struct RowLn {
+  const float* g;
+  const float* b;
+  float eps;
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-quant_rows_kernel(const T* __restrict__ x, int M, int K,
+quant_rows_kernel(const T* __restrict__ x, int M, int K, RowLn ln,
                   int8_t* __restrict__ q8, float* __restrict__ scale,
                   unsigned* __restrict__ clear, int* __restrict__ rsum,
                   int gsize) {
@@ -165,17 +185,62 @@ quant_rows_kernel(const T* __restrict__ x, int M, int K,
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
   const T* xr = x + (size_t)row * K;
+  const bool held = K <= kRowHeld;
+  float v[kRowLoads][8];
   float m = 0.f;
-  for (int c0 = lane * 8; c0 < K; c0 += kRowLoads * kStep) {
-    float v[kRowLoads][8];
+  if (held) {
 #pragma unroll
     for (int u = 0; u < kRowLoads; ++u)
-      if (c0 + u * kStep < K) load8(xr + c0 + u * kStep, v[u]);
+      if (lane * 8 + u * kStep < K) load8(xr + lane * 8 + u * kStep, v[u]);
+    if (ln.g != nullptr) {
+      double sum = 0.0;
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u)
+        if (lane * 8 + u * kStep < K)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) sum += (double)v[u][i];
+      const float mu = (float)(int8k::warp_sum(sum) / (double)K);
+      double sq = 0.0;
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u)
+        if (lane * 8 + u * kStep < K)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const double d = (double)__fsub_rn(v[u][i], mu);
+            sq += d * d;
+          }
+      const float var = (float)(int8k::warp_sum(sq) / (double)K);
+      const float r = (float)rsqrt((double)__fadd_rn(var, ln.eps));
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int c = lane * 8 + u * kStep;
+        if (c < K) {
+          float g[8], b[8];
+          load8(ln.g + c, g);
+          load8(ln.b + c, b);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            v[u][i] = __fadd_rn(
+                __fmul_rn(__fmul_rn(__fsub_rn(v[u][i], mu), r), g[i]), b[i]);
+        }
+      }
+    }
 #pragma unroll
     for (int u = 0; u < kRowLoads; ++u)
-      if (c0 + u * kStep < K)
+      if (lane * 8 + u * kStep < K)
 #pragma unroll
         for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(v[u][i]));
+  } else {
+    for (int c0 = lane * 8; c0 < K; c0 += kRowLoads * kStep) {
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u)
+        if (c0 + u * kStep < K) load8(xr + c0 + u * kStep, v[u]);
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u)
+        if (c0 + u * kStep < K)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(v[u][i]));
+    }
   }
   m = warp_max(m);
   const float s = fmaxf(m, 1e-8f) / 127.0f;
@@ -187,26 +252,33 @@ quant_rows_kernel(const T* __restrict__ x, int M, int K,
     __syncwarp();
   }
   int total = 0;   // n_rs == 1: the lane's sum of q
-  for (int c0 = lane * 8; c0 < K; c0 += kRowLoads * kStep) {
-    float v[kRowLoads][8];
+  // the 8 values at column c: quantised, stored, and summed where asked
+  auto put = [&](const float (&w)[8], int c) {
+    const uint2 q = quant8(w, s);
+    *reinterpret_cast<uint2*>(qr + c) = q;
+    if (n_rs > 0) {
+      // the 8 bytes' sum, exact: dp4a against ones
+      const int sum = __dp4a((int)q.x, 0x01010101, __dp4a((int)q.y,
+                                                           0x01010101, 0));
+      if (n_rs == 1)
+        total += sum;
+      else
+        atomicAdd(rs + c / gsize, sum);
+    }
+  };
+  if (held) {
 #pragma unroll
     for (int u = 0; u < kRowLoads; ++u)
-      if (c0 + u * kStep < K) load8(xr + c0 + u * kStep, v[u]);
+      if (lane * 8 + u * kStep < K) put(v[u], lane * 8 + u * kStep);
+  } else {
+    for (int c0 = lane * 8; c0 < K; c0 += kRowLoads * kStep) {
 #pragma unroll
-    for (int u = 0; u < kRowLoads; ++u)
-      if (c0 + u * kStep < K) {
-        const uint2 q = quant8(v[u], s);
-        *reinterpret_cast<uint2*>(qr + c0 + u * kStep) = q;
-        if (n_rs > 0) {
-          // the 8 bytes' sum, exact: dp4a against ones
-          const int sum = __dp4a((int)q.x, 0x01010101, __dp4a((int)q.y,
-                                                               0x01010101, 0));
-          if (n_rs == 1)
-            total += sum;
-          else
-            atomicAdd(rs + (c0 + u * kStep) / gsize, sum);
-        }
-      }
+      for (int u = 0; u < kRowLoads; ++u)
+        if (c0 + u * kStep < K) load8(xr + c0 + u * kStep, v[u]);
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u)
+        if (c0 + u * kStep < K) put(v[u], c0 + u * kStep);
+    }
   }
   if (n_rs == 1) {
     for (int o = 16; o > 0; o >>= 1)
@@ -219,21 +291,24 @@ quant_rows_kernel(const T* __restrict__ x, int M, int K,
   }
 }
 
-// x_type 0 float32, 1 bfloat16, 2 float16
+// x_type 0 float32, 1 bfloat16, 2 float16. ln.g != nullptr needs K <=
+// kRowHeld.
 inline cudaError_t launch_quant_rows(const void* x, int x_type, int M, int K,
-                                     int8_t* x8, float* xs, unsigned* clear,
-                                     int* rsum, int gsize, cudaStream_t s) {
+                                     RowLn ln, int8_t* x8, float* xs,
+                                     unsigned* clear, int* rsum, int gsize,
+                                     cudaStream_t s) {
+  if (ln.g != nullptr && K > kRowHeld) return cudaErrorInvalidValue;
   const int blocks = (M + kRowThreads / 32 - 1) / (kRowThreads / 32);
   if (x_type == 0)
     quant_rows_kernel<float><<<blocks, kRowThreads, 0, s>>>(
-        static_cast<const float*>(x), M, K, x8, xs, clear, rsum, gsize);
+        static_cast<const float*>(x), M, K, ln, x8, xs, clear, rsum, gsize);
   else if (x_type == 1)
     quant_rows_kernel<__nv_bfloat16><<<blocks, kRowThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), M, K, x8, xs, clear, rsum,
+        static_cast<const __nv_bfloat16*>(x), M, K, ln, x8, xs, clear, rsum,
         gsize);
   else
     quant_rows_kernel<__half><<<blocks, kRowThreads, 0, s>>>(
-        static_cast<const __half*>(x), M, K, x8, xs, clear, rsum, gsize);
+        static_cast<const __half*>(x), M, K, ln, x8, xs, clear, rsum, gsize);
   return cudaGetLastError();
 }
 
@@ -745,6 +820,179 @@ struct QuantEpi {
   }
 };
 
+// The int8 sublayers' epilogues (rows 2, 3, 5 and 6: fused_sublayer.cu,
+// fused_mlp.cu), every multiply and add rounded as written (__fmul_rn /
+// __fadd_rn), as the JAX kernels and the plain versions order them.
+
+// h = gelu_tanh((acc * xs) * s1 + b1), f32, and the rows' |h| maxima: each
+// thread's maximum over its fragment row, reduced over the 4 lanes that
+// share the row, posted with one atomicMax on the float's bits into
+// hmax[row] (non-negative floats order as their bits, and a maximum is
+// order-free: exact)
+struct MlpFc1Epi {
+  float* h;
+  const float* xs;
+  const float* s1;
+  const float* b1;
+  unsigned* hmax;
+  template <int R>
+  __device__ __forceinline__ void operator()(const int (&v)[R], int r0,
+                                             int c0, int M, int N) const {
+    const float as[2] = {r0 < M ? xs[r0] : 0.f,
+                         r0 + 8 < M ? xs[r0 + 8] : 0.f};
+    float mx[2] = {0.f, 0.f};
+    const bool pairs = (N & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      const int col = c0 + 8 * j;
+      if (col >= N) continue;
+      const bool two = col + 1 < N;
+      const float w0 = s1[col], w1 = two ? s1[col + 1] : 0.f;
+      const float c0b = b1[col], c1b = two ? b1[col + 1] : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        if (row >= M) continue;
+        const float y0 = int8k::gelu_tanh(__fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh], as[hh]), w0), c0b));
+        const float y1 = int8k::gelu_tanh(__fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh + 1], as[hh]), w1),
+            c1b));
+        mx[hh] = fmaxf(mx[hh], fabsf(y0));
+        if (two) mx[hh] = fmaxf(mx[hh], fabsf(y1));
+        store_pair(h + (size_t)row * N + col, two, pairs, y0, y1);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float m = mx[hh];
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const int row = r0 + 8 * hh;
+      if ((threadIdx.x & 3) == 0 && row < M)
+        atomicMax(hmax + row, __float_as_uint(m));
+    }
+  }
+};
+
+// the scale of a row quantised over a whole width whose |max| another
+// launch posted by its bits
+__device__ __forceinline__ float row_scale(const unsigned* amax, int row) {
+  return fmaxf(__uint_as_float(amax[row]), 1e-8f) / 127.0f;
+}
+
+// y = (acc * hs) * s2 + b2, f32, hs from the rows' |h| maxima; RESID: out =
+// resid + y, the residual added last (resid and out (M, N))
+template <bool RESID>
+struct MlpFc2Epi {
+  float* out;
+  const unsigned* hmax;
+  const float* s2;
+  const float* b2;
+  const float* resid;
+  template <int R>
+  __device__ __forceinline__ void operator()(const int (&v)[R], int r0,
+                                             int c0, int M, int N) const {
+    float hs[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      hs[hh] = r0 + 8 * hh < M ? row_scale(hmax, r0 + 8 * hh) : 0.f;
+    const bool pairs = (N & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      const int col = c0 + 8 * j;
+      if (col >= N) continue;
+      const bool two = col + 1 < N;
+      const float w0 = s2[col], w1 = two ? s2[col + 1] : 0.f;
+      const float c0b = b2[col], c1b = two ? b2[col + 1] : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        if (row >= M) continue;
+        const size_t at = (size_t)row * N + col;
+        float y0 = __fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh], hs[hh]), w0), c0b);
+        float y1 = __fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh + 1], hs[hh]), w1),
+            c1b);
+        if constexpr (RESID) {
+          y0 = __fadd_rn(resid[at], y0);
+          if (two) y1 = __fadd_rn(resid[at + 1], y1);
+        }
+        store_pair(out + at, two, pairs, y0, y1);
+      }
+    }
+  }
+};
+
+// q/k/v = bf16((acc * xs) * s + b): the attention sublayer's qkv product
+// (the q columns' s and b arrive multiplied by the softmax scale)
+struct QkvEpi {
+  __nv_bfloat16* qkv;
+  const float* xs;
+  const float* s;
+  const float* b;
+  template <int R>
+  __device__ __forceinline__ void operator()(const int (&v)[R], int r0,
+                                             int c0, int M, int N) const {
+    const float as[2] = {r0 < M ? xs[r0] : 0.f,
+                         r0 + 8 < M ? xs[r0 + 8] : 0.f};
+    const bool pairs = (N & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      const int col = c0 + 8 * j;
+      if (col >= N) continue;
+      const bool two = col + 1 < N;
+      const float w0 = s[col], w1 = two ? s[col + 1] : 0.f;
+      const float c0b = b[col], c1b = two ? b[col + 1] : 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        if (row >= M) continue;
+        const float y0 = __fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh], as[hh]), w0), c0b);
+        const float y1 = __fadd_rn(
+            __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh + 1], as[hh]), w1),
+            c1b);
+        store_pair(qkv + (size_t)row * N + col, two, pairs, y0, y1);
+      }
+    }
+  }
+};
+
+// h (M, H) f32 -> h8 with the row scale hs = max(hmax, 1e-8) / 127, one
+// read of h; H % 8 == 0, so 8 values of one row a thread, 16-byte loads
+constexpr int kQuantThreads = 256;
+
+__global__ void __launch_bounds__(kQuantThreads)
+hidden_quant_kernel(const float* __restrict__ h,
+                    const unsigned* __restrict__ hmax, int M, int H,
+                    int8_t* __restrict__ h8) {
+  const size_t n8 = (size_t)M * H / 8;
+  for (size_t i = (size_t)blockIdx.x * kQuantThreads + threadIdx.x; i < n8;
+       i += (size_t)gridDim.x * kQuantThreads) {
+    const int row = (int)(i * 8 / H);
+    float v[8];
+    load8(h + 8 * i, v);
+    *reinterpret_cast<uint2*>(h8 + 8 * i) = quant8(v, row_scale(hmax, row));
+  }
+}
+
+// at most 16 blocks an SM, each walking the rows' 8-value runs
+inline cudaError_t launch_hidden_quant(const float* h, const unsigned* hmax,
+                                       int M, int H, int8_t* h8, int sms,
+                                       cudaStream_t s) {
+  const size_t n8 = (size_t)M * H / 8;
+  const size_t want = (n8 + kQuantThreads - 1) / kQuantThreads;
+  const int blocks = (int)(want < (size_t)sms * 16 ? want : (size_t)sms * 16);
+  hidden_quant_kernel<<<blocks, kQuantThreads, 0, s>>>(h, hmax, M, H, h8);
+  return cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // template instantiation helpers of the host side
 
 // cuTensorMapEncodeTiled from libcuda, looked up once
@@ -781,6 +1029,30 @@ inline bool byte_tile_map(CUtensorMap* map, const void* base, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// raises `kernel`'s dynamic shared-memory limit to `bytes` on `device`,
+// once. Keyed by the kernel's address: the statics of an inline function
+// or a template are one object across every library of a process (GNU
+// unique symbols) wherever its types agree, while each library built from
+// these headers registers kernels of its own.
+inline cudaError_t raise_smem_limit(const void* kernel, int device,
+                                    int bytes) {
+  constexpr int kSlots = 64;
+  static const void* kernels[kSlots] = {};
+  static int devices[kSlots] = {};
+  static int used = 0;
+  for (int i = 0; i < used; ++i)
+    if (kernels[i] == kernel && devices[i] == device) return cudaSuccess;
+  cudaSetDevice(device);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && used < kSlots) {
+    kernels[used] = kernel;
+    devices[used] = device;
+    ++used;
+  }
+  return err;
+}
+
 inline cudaError_t sm_count(int device, int* sms) {
   static int cached[32] = {0};
   if (device >= 0 && device < 32 && cached[device] > 0) {
@@ -807,15 +1079,11 @@ cudaError_t launch_gemm(const int8_t* a8, const int8_t* b, Epi epi,
       !byte_tile_map(&map_b, b, N, BSRC == kBInt8 ? K : K / 2, T::BN))
     return cudaErrorInvalidValue;
   auto kernel = wgmma_gemm_kernel<BSRC, GROUPED, Epi>;
-  static unsigned ready = 0;  // devices whose shared-memory limit is raised
-  if (device < 32 && !(ready >> device & 1u)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
-    if (err != cudaSuccess) return err;
-    ready |= 1u << device;
-  }
+  cudaError_t err = raise_smem_limit(
+      reinterpret_cast<const void*>(kernel), device, (int)T::SMEM);
+  if (err != cudaSuccess) return err;
   int sms = 0;
-  const cudaError_t err = sm_count(device, &sms);
+  err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
   const int work = (M + T::BM - 1) / T::BM * ((N + T::BN - 1) / T::BN);
   const int blocks = work < sms ? work : sms;   // persistent: one per SM

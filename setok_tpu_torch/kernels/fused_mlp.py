@@ -23,9 +23,10 @@ import functools
 
 import torch
 
-from setok_tpu_torch.kernels.fused_sublayer import (check_vectors,
+from setok_tpu_torch.kernels.fused_sublayer import (aligned16,
+                                                    check_vectors,
                                                     check_weight, count,
-                                                    mlp_int8_core)
+                                                    mlp_int8_core, scratch)
 from setok_tpu_torch.kernels.quant import QuantizedWeight
 
 NAME = "fused_mlp_int8"
@@ -58,10 +59,6 @@ def check_input(x: torch.Tensor) -> None:
         raise ValueError(f"{NAME} runs on cuda or cpu, got {x.device}")
 
 
-def _aligned(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
 def fused_mlp_int8(x, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2):
     """x: (..., C) f32 or bf16 → fc2(gelu_tanh(fc1 x)): (..., C_out) f32,
     int8; w1 (H, C), w2 (C_out, H) quantised per output channel.
@@ -71,8 +68,7 @@ def fused_mlp_int8(x, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2):
     check_input(x)
     if x.device.type == "cpu":
         return fused_mlp_int8_reference(x, w1, b1, w2, b2)
-    if x.data_ptr() % 16:
-        x = x.clone()          # the row pass reads 16 bytes a load
+    x = aligned16(x)           # the row pass reads 16 bytes a load
     c = x.shape[-1]
     hd, c_out = w1.values.shape[0], w2.values.shape[0]
     dev = x.device
@@ -82,20 +78,14 @@ def fused_mlp_int8(x, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2):
     m = x.numel() // c
     out = torch.empty((*x.shape[:-1], c_out), dtype=torch.float32,
                       device=dev)
-    # one scratch buffer: x8, xs, h (f32), h8, hmax, each 16-byte aligned
-    sizes = (m * c, 4 * m, 4 * m * hd, m * hd, 4 * m)
-    offsets = [0]
-    for size in sizes[:-1]:
-        offsets.append(offsets[-1] + _aligned(size))
-    scratch = torch.empty((offsets[-1] + sizes[-1],), dtype=torch.uint8,
-                          device=dev)
-    base = scratch.data_ptr()
+    # x8, xs, h (f32), h8, hmax
+    buf, *parts = scratch(dev, m * c, 4 * m, 4 * m * hd, m * hd, 4 * m)
     launched = ctypes.c_int(0)
     err = _entry()(
         x.data_ptr(), _TYPES[x.dtype], w1.values.data_ptr(),
         w1.scales.data_ptr(), b1.data_ptr(), w2.values.data_ptr(),
         w2.scales.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        *(base + off for off in offsets), m, c, hd, c_out, dev.index,
+        *parts, m, c, hd, c_out, dev.index,
         torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
     count(NAME, launched, err, LAUNCHES, CALLS)
     return out

@@ -7,8 +7,12 @@ The counterpart of `setok_tpu/kernels/fused_sublayer.py`:
     mlp_postnorm_int8    LN(x + fc2(gelu_tanh(fc1 x)))    the Q-Former FFN
 
 Each wrapper launches `csrc/fused_sublayer.cu` for tensors on the card and
-runs its plain PyTorch version (`*_reference`) for tensors on the CPU. Both
-follow the JAX kernels operation by operation:
+runs its plain PyTorch version (`*_reference`) for tensors on the CPU. On the
+card each is a chain of launches (LN and row quantisation in one pass, the
+int8 products on the wgmma GEMM, the attention on the tensor cores); a shape
+the chain does not take (C or the head width not a multiple of 16, C over
+1024 with the LN in front, more than 768 keys) raises. Both follow the JAX
+kernels operation by operation:
 
   * kernel input and output are float32; LayerNorm statistics are f64 sums
     rounded to f32 (`layernorm`), where the JAX kernels sum in f32;
@@ -19,9 +23,12 @@ follow the JAX kernels operation by operation:
   * the GELU is the tanh form (`jax.nn.gelu`'s default), also where the
     float modules use exact erf;
   * attention: sm_scale is folded into the q columns of the qkv scales and
-    bias, q/k/v are cast to bf16, scores are bf16 products summed in f32, the
-    mask is a -1e30·(1-m) bias, the softmax max and sum are f32, P is cast to
-    bf16 for PV and 1/l applies after PV; a fully masked row gives 0.
+    bias, q/k/v are cast to bf16, each score is the exact sum of its bf16
+    products rounded once to f32 (the JAX kernel sums them in f32: the
+    kernel and this version agree on every score whatever their order),
+    the mask is a -1e30·(1-m) bias, the softmax max and sum are f32, P is
+    cast to bf16 for PV and 1/l applies after PV; a fully masked row gives
+    0.
 
 `attn_fits_vmem` and `mlp_fits_vmem` are copies of the JAX package's gates:
 they decide where the JAX modules take these kernels, and so where the
@@ -95,13 +102,20 @@ def gelu_tanh(x):
     return x * cdf
 
 
-def attention_reference(q, k, v, mask: Optional[torch.Tensor]):
+def attention_reference(q, k, v, mask: Optional[torch.Tensor],
+                        exact_scores: bool = False):
     """q: (B, H, N, D), k/v: (B, H, M, D), all bf16 or all f32; mask: bool,
     broadcastable to (B, H, N, M), True = attend, or None. → (B, H, N, D)
     f32, fully masked rows 0. Scores, softmax and PV are f32; beside bf16
     inputs P is cast to bf16 for PV (the sublayer and BERT kernels), beside
-    f32 ones it stays f32 (fused_attention_int8)."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    f32 ones it stays f32 (fused_attention_int8). exact_scores: each score
+    is its exact value rounded once to f32 (a float64 product: the sums of
+    bf16 x bf16 products are exact there), whatever order a kernel sums
+    in."""
+    if exact_scores:
+        s = torch.matmul(q.double(), k.double().transpose(-1, -2)).float()
+    else:
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if mask is not None:
         s = s + NEG_INF * (1.0 - mask.float())
     m = s.amax(-1, keepdim=True)
@@ -142,7 +156,8 @@ def attn_sublayer_int8_reference(x, ln_g, ln_b, w_qkv: QuantizedWeight,
     y8, ys = quant_rows(layernorm(x, ln_g, ln_b, ln_eps))
     qkv = int8_dense(y8, ys, w_qkv.values, s_qkv, b_qkv).to(torch.bfloat16)
     q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    o = attention_reference(q, k, v, None if mask is None else mask[:, None])
+    o = attention_reference(q, k, v, None if mask is None else mask[:, None],
+                            exact_scores=True)
     o8, os_ = quant_rows(o.transpose(1, 2).reshape(b, n, c))
     return x + int8_dense(o8, os_, w_proj.values, w_proj.scales, b_proj)
 
@@ -217,13 +232,31 @@ def check_input(name: str, x: torch.Tensor,
         raise ValueError(f"{name} runs on cuda or cpu, got {x.device}")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels read rows 16 bytes a load)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def scratch(device, *sizes: int) -> list:
+    """One byte buffer holding `sizes` bytes at 16-byte aligned offsets: the
+    buffer and each part's address."""
+    offsets = [0]
+    for size in sizes[:-1]:
+        offsets.append(offsets[-1] + (size + 15) // 16 * 16)
+    buf = torch.empty((offsets[-1] + sizes[-1],), dtype=torch.uint8,
+                      device=device)
+    return [buf, *(buf.data_ptr() + off for off in offsets)]
+
+
 def count(name: str, launched: ctypes.c_int, err: int, launches: dict,
           calls: dict) -> None:
     launches[name] += launched.value
     if launched.value:
         calls[name] += 1
     if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err} "
+                           f"after {launched.value} launches")
 
 
 def attn_sublayer_int8(x, ln_g, ln_b, w_qkv: QuantizedWeight, b_qkv,
@@ -256,19 +289,19 @@ def attn_sublayer_int8(x, ln_g, ln_b, w_qkv: QuantizedWeight, b_qkv,
         if mask.device != dev:
             raise ValueError(f"mask must lie on {dev}")
         m8 = mask.contiguous().view(torch.uint8)
+    x, ln_g, ln_b = aligned16(x), aligned16(ln_g), aligned16(ln_b)
     out = torch.empty_like(x)
-    x8 = torch.empty((b * n, c), dtype=torch.int8, device=dev)
-    xs = torch.empty((b * n,), dtype=torch.float32, device=dev)
-    qkv = torch.empty((b * n, 3 * c), dtype=torch.bfloat16, device=dev)
-    o = torch.empty((b * n, c), dtype=torch.float32, device=dev)
+    m = b * n
+    # x8 (then o's int8 rows), xs, qkv (bf16), o (f32), omax
+    buf, *parts = scratch(dev, m * c, 4 * m, 6 * m * c, 4 * m * c, 4 * m)
     launched = ctypes.c_int(0)
     err = _entry("attn_sublayer_int8_f32")(
         x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), ln_eps,
         w_qkv.values.data_ptr(), s_qkv.data_ptr(), bq.data_ptr(),
         w_proj.values.data_ptr(), w_proj.scales.data_ptr(), b_proj.data_ptr(),
-        ptr_or_null(m8), out.data_ptr(), x8.data_ptr(), xs.data_ptr(),
-        qkv.data_ptr(), o.data_ptr(), b, n, c, num_heads, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+        ptr_or_null(m8), out.data_ptr(), *parts, b, n, c, num_heads,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        ctypes.byref(launched))
     count("attn_sublayer_int8", launched, err, LAUNCHES, CALLS)
     return out
 
@@ -286,22 +319,25 @@ def _mlp(name: str, x, ln_g, ln_b, ln_eps, w1: QuantizedWeight, b1,
         if t is not None:
             vectors[key] = (t, c)
     check_vectors(dev, **vectors)
+    x = aligned16(x)
+    if ln_g is not None:
+        ln_g, ln_b = aligned16(ln_g), aligned16(ln_b)
     m = x.numel() // c
     out = torch.empty_like(x)
-    x8 = torch.empty((m, c), dtype=torch.int8, device=dev)
-    xs = torch.empty((m,), dtype=torch.float32, device=dev)
-    h = torch.empty((m, hd), dtype=torch.float32, device=dev)
-    h8 = torch.empty((m, hd), dtype=torch.int8, device=dev)
-    hs = torch.empty((m,), dtype=torch.float32, device=dev)
-    z = None if ln2_g is None else torch.empty_like(x)
+    # x8, xs, h (f32), h8, hmax, and z (f32) for the post-norm
+    sizes = [m * c, 4 * m, 4 * m * hd, m * hd, 4 * m]
+    if ln2_g is not None:
+        sizes.append(4 * m * c)
+    buf, *parts = scratch(dev, *sizes)
+    if ln2_g is None:
+        parts.append(None)
     launched = ctypes.c_int(0)
     err = _entry("mlp_int8_f32")(
         x.data_ptr(), ptr_or_null(ln_g), ptr_or_null(ln_b), ln_eps,
         w1.values.data_ptr(), w1.scales.data_ptr(), b1.data_ptr(),
         w2.values.data_ptr(), w2.scales.data_ptr(), b2.data_ptr(),
         ptr_or_null(ln2_g), ptr_or_null(ln2_b), ln2_eps, out.data_ptr(),
-        x8.data_ptr(), xs.data_ptr(), h.data_ptr(), h8.data_ptr(),
-        hs.data_ptr(), ptr_or_null(z), m, c, hd, dev.index,
+        *parts, m, c, hd, dev.index,
         torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
     count(name, launched, err, LAUNCHES, CALLS)
     return out
@@ -337,7 +373,7 @@ def mlp_postnorm_int8(x, w1: QuantizedWeight, b1, w2: QuantizedWeight, b2,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "attn_sublayer_int8_f32": [_P] * 3 + [_F] + [_P] * 12 + [_I] * 5
+    "attn_sublayer_int8_f32": [_P] * 3 + [_F] + [_P] * 13 + [_I] * 5
     + [_P, ctypes.POINTER(_I)],
     "mlp_int8_f32": [_P] * 3 + [_F] + [_P] * 8 + [_F] + [_P] * 7 + [_I] * 4
     + [_P, ctypes.POINTER(_I)],

@@ -11,11 +11,14 @@ scores rtol 1e-4 on the peaks and within 1e-3 on ≥ 90 % of tokens, because a
 parent can flip between same-blob density near-ties. The int8 kernels at
 every shape of the base forward, and the unfused route's fused_mlp_int8
 and fused_attention_int8 at theirs, with chip_smoke.py's bars: the MLPs
-1e-5 max-rel; the attentions 2e-3 max-rel with ≥ 99 % of the elements
-within 1e-5 of the largest (scores sum in another order than the plain
-version's, which can flip a bf16 or int8 rounding step); an int8 Block
-at the 4096-wide MLP's shape, card against CPU, 5e-2 (chip_smoke.py's
-FWD_INT8_TOL). The serving kernels:
+(rows 3, 5 and 6) 1e-5 max-rel and 0 elements differing from the plain
+versions; the attentions 2e-3 max-rel with ≥ 99 % of the elements within
+1e-5 of the largest (PV, and beside rows 4 and 7 the scores, sum in
+another order than the plain version's, which can flip a bf16 or int8
+rounding step); rows 2 and 3 also at 240 rows (B=3 images of 80, not a
+multiple of the GEMM's 128-row tile), and raising on a shape their chain
+does not take; an int8 Block at the 4096-wide MLP's shape, card against
+CPU, 5e-2 (chip_smoke.py's FWD_INT8_TOL). The serving kernels:
 quant_matmul and quant4_matmul 1e-5 max-rel (exact int products, the same
 float epilogue); the int8-cache decode attention 2e-3 max-rel with ≥ 99 %
 of the elements within 1e-5 of the largest. The flash-attention kernels,
@@ -116,7 +119,10 @@ def test_tokenizer_routes_to_the_kernel(card):
     assert cluster_dpc.LAUNCHES == before + 3
 
 
-# the cases of chip_smoke.int8_cases, and the CUDA launches of one call
+# the cases of chip_smoke.int8_cases, and the CUDA launches of one call:
+# rows 2 and 5 the row pass, two wgmma GEMMs and the attention or hidden
+# pass, then the o pass or the post-norm; row 3 the row pass, two GEMMs and
+# the hidden pass; row 4 its eight, nine with a key mask
 INT8_CASES = [("attn_sublayer_int8", "vit", 5),
               ("attn_sublayer_int8", "decoder", 5),
               ("attn_sublayer_int8", "inner", 5),
@@ -136,9 +142,74 @@ def test_int8_kernel_matches_reference(card, index):
     assert case[:2] == (name, label)
     launches = {**fs.LAUNCHES, **fba.LAUNCHES}
     calls = {**fs.CALLS, **fba.CALLS}
-    chip_smoke.check_int8_case(*case)          # raises SystemExit on a miss
+    res = chip_smoke.check_int8_case(*case)    # raises SystemExit on a miss
     assert {**fs.LAUNCHES, **fba.LAUNCHES}[name] == launches[name] + steps
     assert {**fs.CALLS, **fba.CALLS}[name] == calls[name] + 1
+    if name in chip_smoke.BIT_EXACT:
+        assert res["elements_differing"] == 0
+    print(name, label, {k: res[k] for k in ("share_within_1e-5",
+                                            "f32_scores_share") if k in res})
+
+
+@pytest.mark.parametrize("name", ["attn_sublayer_int8", "mlp_sublayer_int8"])
+def test_int8_sublayer_at_ragged_rows(card, name):
+    """Rows 2 and 3 at B=3 images of N=80 (M = 240 rows, not a multiple of
+    the wgmma GEMM's 128-row tile: TMA zero-fills the last tile's rows),
+    row 2 with the inter Block's mask, against their plain versions."""
+    case = next(c for c in chip_smoke.int8_cases(3, card)
+                if c[:2] == (name, "inter"))
+    assert tuple(case[4][0].shape[:2]) == (3, 80)
+    res = chip_smoke.check_int8_case(*case)    # raises SystemExit on a miss
+    if name == "mlp_sublayer_int8":
+        assert res["elements_differing"] == 0
+
+
+def test_attn_sublayer_with_a_one_stage_ring(card):
+    """Row 2 at N=361 (the 19 x 19 patches of a 304-px image, which the
+    JAX gate still routes here) with 2 heads of 384 and a same-cluster
+    mask: 384 keys of scores leave room for one K/V tile in shared memory,
+    so the attention's ring is one stage deep."""
+    rs = np.random.RandomState(361)
+    b, n, c = 2, 361, 768
+    assert fs.attn_fits_vmem(n, c)
+    x = torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(card)
+    labels = torch.from_numpy(rs.randint(0, 4, (b, n))).to(card)
+    mask = labels[:, :, None] == labels[:, None, :]
+    vec, weight = chip_smoke._vec, chip_smoke._weight
+    args = (x, vec(rs, c, card, 0.1, 1.0), vec(rs, c, card),
+            weight(rs, 3 * c, c, card), vec(rs, 3 * c, card),
+            weight(rs, c, c, card), vec(rs, c, card), 2)
+    chip_smoke.check_int8_case("attn_sublayer_int8", "n361",
+                               fs.attn_sublayer_int8,
+                               fs.attn_sublayer_int8_reference, args,
+                               {"mask": mask, "ln_eps": 1e-5})
+
+
+def test_int8_sublayers_raise_on_shapes_they_do_not_take(card):
+    """A head width that is not a multiple of 16, and a width that is not
+    one of 16, raise: the C entry refuses them and launches nothing."""
+    rs = np.random.RandomState(4)
+
+    def vec(n, offset=0.0):
+        return torch.from_numpy((offset + 0.1 * rs.randn(n)).astype(
+            np.float32)).to(card)
+
+    def weight(out, inp):
+        return quantize_weight(torch.from_numpy(
+            (rs.randn(out, inp) / np.sqrt(inp)).astype(np.float32)).to(card))
+
+    c = 96                                  # 8 heads of 12
+    x = torch.from_numpy(rs.randn(2, 16, c).astype(np.float32)).to(card)
+    launches = fs.LAUNCHES["attn_sublayer_int8"]
+    with pytest.raises(RuntimeError, match="after 0 launches"):
+        fs.attn_sublayer_int8(x, vec(c, 1.0), vec(c), weight(3 * c, c),
+                              vec(3 * c), weight(c, c), vec(c), 8)
+    assert fs.LAUNCHES["attn_sublayer_int8"] == launches
+    c = 40
+    x = torch.from_numpy(rs.randn(2, 16, c).astype(np.float32)).to(card)
+    with pytest.raises(RuntimeError, match="after 0 launches"):
+        fs.mlp_sublayer_int8(x, vec(c, 1.0), vec(c), weight(64, c), vec(64),
+                             weight(c, 64), vec(c))
 
 
 # the cases of chip_smoke.unfused_cases, and the CUDA launches of one call
