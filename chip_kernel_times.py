@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time the int8 / int4 matmul kernels, the int8 MLP and the int8
-whole-sublayer kernels of the checkout it runs from, and its int8 SeTok
-forward, on one CUDA card, so that two checkouts compare in one call:
+"""Time the int8 / int4 matmul kernels, the int8 MLP, the int8
+whole-sublayer kernels and the int8 attentions of the checkout it runs
+from, and its int8 SeTok forward, on one CUDA card, so that two checkouts
+compare in one call:
 
     python3 chip_kernel_times.py TAG [PARTS]   # from the root of each checkout
 
 PARTS, comma-separated, picks what runs (default all): trunk, row6, dense,
-sublayers, forward, serve. Prints one JSON line tagged TAG:
+sublayers, attention, forward, serve. Prints one JSON line tagged TAG:
   trunk   per format (w8, w4, w4g128: int4 with groups of 128) and rows M
           (4: a decode step; 512: a prefill) the seven Vicuna-7B trunk
           linears of one layer, summed: time by CUDA events, device time
@@ -24,6 +25,11 @@ sublayers, forward, serve. Prints one JSON line tagged TAG:
           at B=64 images of 256 tokens of 768: time by events, device time
           and its split by kernel (5 calls), the elements that differ from
           the plain version and the share within 1e-5 of the largest;
+  attention  rows 4 (fused_bert_attention_int8: the Q-Former's
+          self-attention, and its cross-attention over 80 keys with their
+          key mask) and 7 (fused_attention_int8, 2 heads of 384: the inner
+          Block's cluster mask at N=256, the inter Block's validity mask
+          with fully masked rows at N=80) at B=64, as sublayers reports;
   forward  the int8 SeTok forward with bf16 glue at B=64 (base @256, and
           base with the 4096-wide tokenizer MLP), and bf16 beside it: img/s
           by chip_smoke's slope method and one profiled int8 forward's
@@ -39,6 +45,7 @@ within a call. Exits non-zero without a card.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import sys
@@ -127,26 +134,44 @@ SUBLAYER_ROWS = {"attn_sublayer_int8": "row2", "mlp_sublayer_int8": "row3",
                  "mlp_postnorm_int8": "row5"}
 
 
+def timed(kernel, plain, args, kw) -> dict:
+    """One case: time by events, device time and its split by kernel (5
+    calls), the elements that differ from the plain version, the share
+    within 1e-5 of the largest, and a hash of the output's bytes (two
+    checkouts whose kernels agree to the bit print the same)."""
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    diff = (got.double() - want.double()).abs()
+    by = device_time_breakdown(lambda: [kernel(*args, **kw) for _ in range(5)])
+    return {"ms": cs.time_ms(lambda: kernel(*args, **kw)),
+            "device_ms": by["device_ms"] / 5,
+            "split": [{"name": k["name"][:60], "ms": k["ms"] / 5}
+                      for k in by["top_kernels"]],
+            "differ": int((got != want).sum()),
+            "share": float((diff <= 1e-5 * want.abs().max()).double().mean()),
+            "sha256": hashlib.sha256(
+                got.cpu().numpy().tobytes()).hexdigest()[:16]}
+
+
 def sublayers(dev) -> dict:
     res = {}
     for name, label, kernel, plain, args, kw in cs.int8_cases(64, dev):
         row = SUBLAYER_ROWS.get(name)
         if row is None or label == "inter":
             continue
-        got = kernel(*args, **kw)
-        want = plain(*args, **kw)
-        diff = (got.double() - want.double()).abs()
-        by = device_time_breakdown(
-            lambda: [kernel(*args, **kw) for _ in range(5)])
-        res[f"{row} {label}"] = {
-            "ms": cs.time_ms(lambda: kernel(*args, **kw)),
-            "device_ms": by["device_ms"] / 5,
-            "split": [{"name": k["name"][:60], "ms": k["ms"] / 5}
-                      for k in by["top_kernels"]],
-            "differ": int((got != want).sum()),
-            "share": float((diff <= 1e-5 * want.abs().max()).double()
-                           .mean())}
-        del got, want, diff
+        res[f"{row} {label}"] = timed(kernel, plain, args, kw)
+    return res
+
+
+def attention(dev) -> dict:
+    res = {}
+    cases = [c for c in cs.int8_cases(64, dev)
+             if c[0] == "fused_bert_attention_int8"]
+    cases += [c for c in cs.unfused_cases(64, dev)
+              if c[0] == "fused_attention_int8" and c[1] != "unmasked"]
+    for name, label, kernel, plain, args, kw in cases:
+        row = "row4" if name == "fused_bert_attention_int8" else "row7"
+        res[f"{row} {label}"] = timed(kernel, plain, args, kw)
     return res
 
 
@@ -205,8 +230,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     tag = sys.argv[1] if len(sys.argv) > 1 else "tree"
     parts = (sys.argv[2].split(",") if len(sys.argv) > 2
-             else ["trunk", "row6", "dense", "sublayers", "forward",
-                   "serve"])
+             else ["trunk", "row6", "dense", "sublayers", "attention",
+                   "forward", "serve"])
     out = {"tree": tag, "device": torch.cuda.get_device_name(0)}
     for part in parts:
         if part == "trunk":
@@ -217,6 +242,8 @@ def main() -> int:
             out["dense"] = dense(dev, gen)
         elif part == "sublayers":
             out["sublayers"] = sublayers(dev)
+        elif part == "attention":
+            out["attention"] = attention(dev)
         elif part == "forward":
             out["forward"] = forward()
         elif part == "serve":

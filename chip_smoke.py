@@ -13,7 +13,10 @@ the last line:
                 each, in parallel) into build/torch_kernels/;
   kernels       each hand-written kernel against its plain PyTorch version
                 on the card, at every shape the main paths give it, and its
-                time at the throughput batch;
+                time at the throughput batch; the int8 attentions' shares
+                beside their float32-score twins', row 4 with every key of
+                an image masked (LN(bo + x)), and the registers and spills
+                of the attention kernel (csrc/attn_mma.cuh);
   forward       the float SeTok forward at the base config (ViT-B/16 @256,
                 random weights from a seed) on the card, its launch counts,
                 and a stage-by-stage comparison with the same model on the
@@ -27,7 +30,9 @@ the last line:
                 versions at every path shape: fused_mlp_int8 (576 tokens
                 of 768, hidden 3072) and fused_attention_int8 (2 heads of
                 384, the inner Block's cluster mask at N=256 and the inter
-                Block's validity mask with fully masked rows at N=80), and
+                Block's validity mask with fully masked rows at N=80, those
+                rows exactly b_proj; its share also against a plain version
+                with a float32 P.V, the JAX kernel's), and
                 quant_matmul at the Dense shapes of the three
                 configurations below (bf16 x, bf16 and f32 out; the row
                 pass and the GEMM apart, the GEMM beside torch._int_mm);
@@ -152,12 +157,15 @@ NEAR_TIE_REL = 1e-5
 # int8 kernels against their plain versions on the card. Without attention
 # (the MLPs) both compute the same float32 operations on the same exact
 # integer products: 1e-5, and not one element may differ (rows 3, 5 and 6).
-# With attention, PV (and, beside rows 4 and 7, the scores) sums in another
-# order, and a last-bit change can flip a bf16 cast of P or an int8 step of
-# the attention output: max-rel 2e-3, with >= 99 % of the elements within
-# 1e-5 of the largest. Row 2 takes its scores exactly, as its plain version
-# does; beside its share the check reports the share of the plain version
-# with float32 scores (the yardstick of a legal reordering of those sums).
+# With attention, PV sums in another order, and a last-bit change can flip a
+# bf16 cast of P or an int8 step of the attention output: max-rel 2e-3, with
+# >= 99 % of the elements within 1e-5 of the largest. Rows 2, 4 and 7 take
+# their scores as the float64 product rounded once, as their plain versions
+# do; beside each share the check reports the share of the plain version
+# with float32 scores (the yardstick of a legal reordering of those sums),
+# and beside row 7's (whose kernel and plain version also take P.V as a
+# float64 product) the kernel's share against a plain version with a
+# float32 P.V, the JAX kernel's.
 INT8_MLP_TOL = 1e-5
 INT8_ATTN_TOL = 2e-3
 INT8_ATTN_SHARE = 0.99
@@ -167,9 +175,15 @@ INT8_ATTN_SHARE = 0.99
 FWD_INT8_TOL = 5e-2
 INT8_KERNELS = ("attn_sublayer_int8", "mlp_sublayer_int8",
                 "fused_bert_attention_int8", "mlp_postnorm_int8")
+# the kernels whose attention is attn_mma.cuh's, and their libraries
+ATTN_MMA = {"attn_sublayer_int8": "fused_sublayer",
+            "fused_bert_attention_int8": "fused_bert_attention_int8",
+            "fused_attention_int8": "fused_attention_int8"}
 # CUDA launches of one call: rows 2 and 5 the row pass, two GEMMs, the
 # attention or the hidden pass, and the attention's o pass or the post-norm;
-# row 3 four; row 4 eight, nine with a key mask
+# row 3 four; row 4 the row pass, three GEMMs (q, k, v), the attention, the
+# o pass, the out GEMM and the LayerNorm, nine with a key mask (kv's own row
+# pass)
 INT8_STEPS = {"attn_sublayer_int8": 5, "mlp_sublayer_int8": 4,
               "mlp_postnorm_int8": 5, "fused_bert_attention_int8": 8}
 BIT_EXACT = ("mlp_sublayer_int8", "mlp_postnorm_int8", "fused_mlp_int8")
@@ -441,16 +455,18 @@ def int8_bound(name: str, args) -> tuple:
                                        else "bytes")
 
 
-def f32_score_twin(plain, args, kw):
-    """Row 2's plain version with its scores as a float32 product (the sums
-    of the JAX kernel's float32 dot, in cuBLAS's order) in place of exact
-    ones."""
-    exact = fs.attention_reference
+def plain_twin(plain, args, kw, **attention_kw):
+    """A plain version whose attention_reference takes attention_kw in place
+    of the plain version's own keywords: exact_scores=False, its scores as
+    a float32 product (the sums of the JAX kernel's float32 dot, in
+    cuBLAS's order); exact_pv=False, its P.V as a float32 product."""
+    mod = sys.modules[plain.__module__]
+    reference = fs.attention_reference
 
-    def f32_scores(q, k, v, mask, exact_scores=False):
-        return exact(q, k, v, mask)
+    def twin(q, k, v, mask, **own):
+        return reference(q, k, v, mask, **{**own, **attention_kw})
 
-    with mock.patch.object(fs, "attention_reference", f32_scores):
+    with mock.patch.object(mod, "attention_reference", twin):
         return plain(*args, **kw)
 
 
@@ -467,9 +483,12 @@ def check_int8_case(name, label, kernel, plain, args, kw,
             "share_within_1e-5": float((diff <= 1e-5 * scale).double().mean()),
             "elements_differing": int((got != want).sum()),
             "finite": bool(torch.isfinite(got).all())}
-    if name == "attn_sublayer_int8":
+    if name in ATTN_MMA:
         case["f32_scores_share"] = share_within_1e5(
-            f32_score_twin(plain, args, kw), want)
+            plain_twin(plain, args, kw, exact_scores=False), want)
+    if name == "fused_attention_int8":
+        case["share_vs_f32_pv"] = share_within_1e5(
+            got, plain_twin(plain, args, kw, exact_pv=False))
     emit(case)
     check(case["finite"], f"{name} {label}: output not finite")
     if name in BIT_EXACT:
@@ -484,6 +503,28 @@ def check_int8_case(name, label, kernel, plain, args, kw,
               f"{name} {label}: max-rel {case['max_rel']}, share "
               f"{case['share_within_1e-5']}")
     return case
+
+
+def bert_masked_query_check(name, label, kernel, plain, args, kw) -> dict:
+    """Row 4 cross with every key of image 0 masked: each of its queries
+    attends to nothing, o = 0, and its output is LN(bo + x), the plain
+    version's value."""
+    kv_mask = kw["kv_mask"].clone()
+    kv_mask[0] = False
+    got = kernel(*args, kv_mask=kv_mask)[0]
+    torch.cuda.synchronize()
+    x, bo, ln_g, ln_b = args[0], args[9], args[10], args[11]
+    want = fs.layernorm(x[0] + bo, ln_g, ln_b, 1e-12)
+    res = {"shape": "cross, image 0 all keys masked",
+           "max_rel": max_rel(got, want),
+           "elements_differing": int((got != want).sum()),
+           "plain_differing": int((plain(*args, kv_mask=kv_mask)[0]
+                                   != want).sum())}
+    emit({"phase": "kernels", "kernel": name, **res})
+    check(res["max_rel"] <= INT8_MLP_TOL,
+          f"{name}: a query with every key masked is not LN(bo + x): "
+          f"max-rel {res['max_rel']}")
+    return res
 
 
 def phase_int8_kernels(b_check: int = 4, b_time: int = 64) -> dict:
@@ -508,6 +549,8 @@ def phase_int8_kernels(b_check: int = 4, b_time: int = 64) -> dict:
             "shape", "max_rel", "share_within_1e-5", "elements_differing",
             "f32_scores_share") if k in res})
         errs[name] = max(errs[name], res["max_abs"])
+        if label == "cross":
+            checks[name].append(bert_masked_query_check(*case))
     entries = {}
     for name, label, kernel, plain, args, kw in int8_cases(
             b_time, dev, shapes="timing"):
@@ -522,6 +565,9 @@ def phase_int8_kernels(b_check: int = 4, b_time: int = 64) -> dict:
                          "bound_by": bound_by, "library_ms": None,
                          "launches_per_call": per_call[name],
                          "checks": checks[name]}
+        if name in ATTN_MMA:
+            entries[name]["ptxas_attention"] = ptxas_of(
+                ATTN_MMA[name], "attn_mma_kernel", "Lb0E")
         emit({"phase": "kernels", "kernel": name, "timing_shape": label,
               "input": list(args[0].shape), "ms": ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by})
@@ -846,7 +892,7 @@ def phase_unfused_kernels(b_check: int = 3, b_time: int = 64) -> dict:
     dev = torch.device("cuda")
     errs = dict.fromkeys(UNFUSED_KERNELS, 0.0)
     # launches a call: row 6 the row pass, fc1, the hidden rows' pass and
-    # fc2; row 7 the rows, qkv, attention, rows and proj
+    # fc2; row 7 the row pass, qkv, attention, the o pass and proj
     steps = {"fused_mlp_int8": 4, "fused_attention_int8": 5}
     differing = {}
     for case in unfused_cases(b_check, dev):
@@ -891,6 +937,9 @@ def phase_unfused_kernels(b_check: int = 3, b_time: int = 64) -> dict:
                          "bound_by": bound_by, "library_ms": None,
                          "timing": f"{label}, input "
                                    f"{list(args[0].shape)}"}
+        if name in ATTN_MMA:
+            entries[name]["ptxas_attention"] = ptxas_of(
+                ATTN_MMA[name], "attn_mma_kernel", "Lb1E")
         if name == "fused_mlp_int8":
             xb = args[0].to(torch.bfloat16)
             entries[name].update(
@@ -912,7 +961,8 @@ def phase_unfused_kernels(b_check: int = 3, b_time: int = 64) -> dict:
               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by,
               **{k: v for k, v in entries[name].items()
-                 if k in ("ms_bf16_x", "device_split", "ptxas")}})
+                 if k in ("ms_bf16_x", "device_split", "ptxas",
+                          "ptxas_attention")}})
         del args
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)

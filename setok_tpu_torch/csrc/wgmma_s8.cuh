@@ -1,8 +1,9 @@
 // The int8 GEMM of Hopper's warpgroup MMA, shared by quant_matmul.cu (w8a8
-// and w4a8, rows 8 and 9 of PERF.md's kernel table), fused_mlp.cu (row 6)
-// and fused_sublayer.cu (rows 2, 3 and 5), the row quantisation pass that
-// feeds it, and the epilogues and the hidden rows' pass of the int8 MLPs
-// and the attention sublayer.
+// and w4a8, rows 8 and 9 of PERF.md's kernel table), fused_mlp.cu (row 6),
+// fused_sublayer.cu (rows 2, 3 and 5), fused_bert_attention_int8.cu (row 4)
+// and fused_attention_int8.cu (row 7), the row quantisation pass that feeds
+// it, and the epilogues and the hidden rows' pass of the int8 MLPs and the
+// attention sublayers.
 //
 //   quant_rows_kernel  x (float32, bfloat16 or float16) -> x8, xs, with an
 //                      optional LayerNorm in front; s = max(absmax, 1e-8) /
@@ -63,7 +64,7 @@
 #include <cuda_fp16.h>
 #include <dlfcn.h>
 
-#include "int8_sublayer.cuh"
+#include "int8_sublayer.cuh"   // STEP, the warp sums, gelu_tanh
 
 namespace wg {
 
@@ -925,19 +926,25 @@ struct MlpFc2Epi {
   }
 };
 
-// q/k/v = bf16((acc * xs) * s + b): the attention sublayer's qkv product
-// (the q columns' s and b arrive multiplied by the softmax scale)
-struct QkvEpi {
-  __nv_bfloat16* qkv;
+// out = ((acc * xs) * s + b) [* post], rounded once to OutT, output rows of
+// ld elements: row 2's bf16 qkv (the q columns' s and b arrive multiplied
+// by the softmax scale), row 4's q, k and v into their bf16 rows (POST: the
+// softmax scale after the bias, as the JAX kernel takes it), row 7's f32
+// qkv
+template <typename OutT, bool POST>
+struct BiasEpi {
+  OutT* out;
+  int ld;
   const float* xs;
   const float* s;
   const float* b;
+  float post;
   template <int R>
   __device__ __forceinline__ void operator()(const int (&v)[R], int r0,
                                              int c0, int M, int N) const {
     const float as[2] = {r0 < M ? xs[r0] : 0.f,
                          r0 + 8 < M ? xs[r0 + 8] : 0.f};
-    const bool pairs = (N & 1) == 0;
+    const bool pairs = (N & 1) == 0 && (ld & 1) == 0;
 #pragma unroll
     for (int j = 0; j < R / 4; ++j) {
       const int col = c0 + 8 * j;
@@ -949,12 +956,13 @@ struct QkvEpi {
       for (int hh = 0; hh < 2; ++hh) {
         const int row = r0 + 8 * hh;
         if (row >= M) continue;
-        const float y0 = __fadd_rn(
+        float y0 = __fadd_rn(
             __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh], as[hh]), w0), c0b);
-        const float y1 = __fadd_rn(
+        float y1 = __fadd_rn(
             __fmul_rn(__fmul_rn((float)v[4 * j + 2 * hh + 1], as[hh]), w1),
             c1b);
-        store_pair(qkv + (size_t)row * N + col, two, pairs, y0, y1);
+        if constexpr (POST) y0 = __fmul_rn(y0, post), y1 = __fmul_rn(y1, post);
+        store_pair(out + (size_t)row * ld + col, two, pairs, y0, y1);
       }
     }
   }

@@ -19,7 +19,12 @@ JAX kernel:
   * the scores, the softmax and PV are float32: the mask is a -1e30·(1-m)
     bias, the row max and sum are exact, 1/max(l, 1e-30) applies after PV,
     and a fully masked row gives 0 (not the uniform average of the float
-    `Attention`);
+    `Attention`). The scores and P.V are float64 products rounded once
+    (`exact_scores=True, exact_pv=True`): the kernel takes both on the FP64
+    tensor cores, where every f32 product is exact, and sums in float64.
+    Against a float32 P.V in cuBLAS's order the kernel's share within 1e-5
+    reads 0.99657, against the float64 one 0.99909 (B=64, the inner Block's
+    mask; chip_kernel_times.py, NVIDIA H100 80GB HBM3, 700.00 W);
   * the attention output is row-quantised over the whole C, then the int8
     projection, + bias. Input and output are float32.
 """
@@ -32,7 +37,8 @@ from typing import Optional
 
 import torch
 
-from setok_tpu_torch.kernels.fused_sublayer import (attention_reference,
+from setok_tpu_torch.kernels.fused_sublayer import (aligned16,
+                                                    attention_reference,
                                                     check_input,
                                                     check_vectors,
                                                     check_weight, count,
@@ -66,7 +72,8 @@ def fused_attention_int8_reference(x, w_qkv: QuantizedWeight, b_qkv,
     x8, xs = quant_rows(x)
     qkv = int8_dense(x8, xs, w_qkv.values, s_qkv, b_qkv)
     q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    o = attention_reference(q, k, v, None if mask is None else mask[:, None])
+    o = attention_reference(q, k, v, None if mask is None else mask[:, None],
+                            exact_scores=True, exact_pv=True)
     o8, os_ = quant_rows(o.transpose(1, 2).reshape(b, n, c))
     return int8_dense(o8, os_, w_proj.values, w_proj.scales, b_proj)
 
@@ -99,19 +106,21 @@ def fused_attention_int8(x, w_qkv: QuantizedWeight, b_qkv,
         if mask.device != dev:
             raise ValueError(f"mask must lie on {dev}")
         m8 = mask.contiguous().view(torch.uint8)
+    x = aligned16(x)
     f32 = torch.float32
     out = torch.empty_like(x)
     x8 = torch.empty((b * n, c), dtype=torch.int8, device=dev)
     xs = torch.empty((b * n,), dtype=f32, device=dev)
     qkv = torch.empty((b * n, 3 * c), dtype=f32, device=dev)
     o = torch.empty((b * n, c), dtype=f32, device=dev)
+    omax = torch.empty((b * n,), dtype=torch.int32, device=dev)
     launched = ctypes.c_int(0)
     err = _entry()(
         x.data_ptr(), w_qkv.values.data_ptr(), s_qkv.data_ptr(),
         bq.data_ptr(), w_proj.values.data_ptr(), w_proj.scales.data_ptr(),
         b_proj.data_ptr(), ptr_or_null(m8), out.data_ptr(), x8.data_ptr(),
-        xs.data_ptr(), qkv.data_ptr(), o.data_ptr(), b, n, c, num_heads,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        xs.data_ptr(), qkv.data_ptr(), o.data_ptr(), omax.data_ptr(), b, n,
+        c, num_heads, dev.index, torch.cuda.current_stream(dev).cuda_stream,
         ctypes.byref(launched))
     count(NAME, launched, err, LAUNCHES, CALLS)
     return out
@@ -126,5 +135,5 @@ def _entry():
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = load_library("fused_attention_int8").fused_attention_int8_f32
     fn.restype = i
-    fn.argtypes = [p] * 13 + [i] * 5 + [p, ctypes.POINTER(i)]
+    fn.argtypes = [p] * 14 + [i] * 5 + [p, ctypes.POINTER(i)]
     return fn

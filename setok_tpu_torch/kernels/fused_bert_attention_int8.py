@@ -10,7 +10,9 @@ tensors on the card and runs `fused_bert_attention_int8_reference` for
 tensors on the CPU. Both follow the JAX kernel: x and kv are row-quantised
 separately; q is `(q_dequant + bq)·(1/√d)` cast to bf16, k and v are cast
 to bf16; the softmax is `fused_sublayer.attention_reference`'s, with the
-fully-masked guard always on.
+fully-masked guard always on. The scores are exact (`exact_scores=True`):
+the kernel takes them on the FP64 tensor cores, where every sum of bf16
+products is exact, as `attn_sublayer_int8` does.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from setok_tpu_torch.kernels.fused_sublayer import (attention_reference,
+from setok_tpu_torch.kernels.fused_sublayer import (aligned16,
+                                                    attention_reference,
                                                     check_input, check_vectors,
                                                     check_weight, count,
                                                     layernorm, ptr_or_null)
@@ -61,7 +64,7 @@ def fused_bert_attention_int8_reference(
 
     mask = None if kv_mask is None else kv_mask[:, None, None, :]
     o = attention_reference(heads(q * scale, n), heads(k, m), heads(v, m),
-                            mask)
+                            mask, exact_scores=True)
     o8, os_ = quant_rows(o.transpose(1, 2).reshape(b, n, c))
     y = int8_dense(o8, os_, wo.values, wo.scales, bo) + x
     return layernorm(y, ln_scale, ln_bias, eps)
@@ -102,20 +105,23 @@ def fused_bert_attention_int8(x, kv, wq: QuantizedWeight, bq,
         if kv_mask.device != dev:
             raise ValueError(f"kv_mask must lie on {dev}")
         m8 = kv_mask.contiguous().view(torch.uint8)
+    self_attn = kv.data_ptr() == x.data_ptr() and m == n
+    x = aligned16(x)
+    kv = x if self_attn else aligned16(kv)
     f32, i8 = torch.float32, torch.int8
     out = torch.empty_like(x)
     x8 = torch.empty((b * n, c), dtype=i8, device=dev)
     xs = torch.empty((b * n,), dtype=f32, device=dev)
-    self_attn = kv.data_ptr() == x.data_ptr() and m == n
     kv8 = None if self_attn else torch.empty((b * m, c), dtype=i8, device=dev)
     kvs = None if self_attn else torch.empty((b * m,), dtype=f32, device=dev)
     q16 = torch.empty((b * n, c), dtype=torch.bfloat16, device=dev)
     kv16 = torch.empty((b * m, 2 * c), dtype=torch.bfloat16, device=dev)
     o = torch.empty((b * n, c), dtype=f32, device=dev)
+    omax = torch.empty((b * n,), dtype=torch.int32, device=dev)
     y = torch.empty((b * n, c), dtype=f32, device=dev)
     launched = ctypes.c_int(0)
     err = _entry()(
-        x.data_ptr(), x.data_ptr() if self_attn else kv.data_ptr(),
+        x.data_ptr(), kv.data_ptr(),
         wq.values.data_ptr(), wq.scales.data_ptr(), bq.data_ptr(),
         wk.values.data_ptr(), wk.scales.data_ptr(), bk.data_ptr(),
         wv.values.data_ptr(), wv.scales.data_ptr(), bv.data_ptr(),
@@ -123,8 +129,8 @@ def fused_bert_attention_int8(x, kv, wq: QuantizedWeight, bq,
         ln_scale.data_ptr(), ln_bias.data_ptr(), eps, ptr_or_null(m8),
         out.data_ptr(), x8.data_ptr(), xs.data_ptr(), ptr_or_null(kv8),
         ptr_or_null(kvs), q16.data_ptr(), kv16.data_ptr(), o.data_ptr(),
-        y.data_ptr(), b, n, m, c, num_heads, 1.0 / (c // num_heads) ** 0.5,
-        dev.index,
+        omax.data_ptr(), y.data_ptr(), b, n, m, c, num_heads,
+        1.0 / (c // num_heads) ** 0.5, dev.index,
         torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
     count(NAME, launched, err, LAUNCHES, CALLS)
     return out
@@ -139,7 +145,7 @@ def _entry():
     _P = ctypes.c_void_p
     fn = load_library("fused_bert_attention_int8").fused_bert_attention_int8_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = ([_P] * 16 + [ctypes.c_float] + [_P] * 10
+    fn.argtypes = ([_P] * 16 + [ctypes.c_float] + [_P] * 11
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, _P,
                                            ctypes.POINTER(ctypes.c_int)])
     return fn

@@ -103,15 +103,17 @@ def gelu_tanh(x):
 
 
 def attention_reference(q, k, v, mask: Optional[torch.Tensor],
-                        exact_scores: bool = False):
+                        exact_scores: bool = False, exact_pv: bool = False):
     """q: (B, H, N, D), k/v: (B, H, M, D), all bf16 or all f32; mask: bool,
     broadcastable to (B, H, N, M), True = attend, or None. → (B, H, N, D)
     f32, fully masked rows 0. Scores, softmax and PV are f32; beside bf16
     inputs P is cast to bf16 for PV (the sublayer and BERT kernels), beside
     f32 ones it stays f32 (fused_attention_int8). exact_scores: each score
-    is its exact value rounded once to f32 (a float64 product: the sums of
-    bf16 x bf16 products are exact there), whatever order a kernel sums
-    in."""
+    is the float64 product rounded once to f32 (exact beside bf16 inputs:
+    the sums of bf16 x bf16 products are exact there; beside f32 ones every
+    product is exact and the sums are float64 sums), whatever order a
+    kernel sums in. exact_pv: P.V likewise, a float64 product rounded once
+    to f32."""
     if exact_scores:
         s = torch.matmul(q.double(), k.double().transpose(-1, -2)).float()
     else:
@@ -124,6 +126,8 @@ def attention_reference(q, k, v, mask: Optional[torch.Tensor],
     l_r = torch.where(m > 0.5 * NEG_INF, l_r, 0.0)
     if q.dtype == torch.bfloat16:
         p = p.to(torch.bfloat16).float()
+    if exact_pv:
+        return torch.matmul(p.double(), v.double()).float() * l_r
     return torch.matmul(p, v.float()) * l_r
 
 

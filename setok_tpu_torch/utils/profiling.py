@@ -17,18 +17,16 @@ CATEGORIES = (
     ("flash_dq", ("flash_dq",)),
     ("flash_dkv", ("flash_dkv",)),
     ("cluster_dpc", ("density_kernel", "parent_kernel", "sqnorm_kernel")),
-    ("int8_gemm", ("gemm_s8_kernel",)),
     # the int8 sublayers' and fused_mlp_int8's wgmma GEMMs (their epilogues
     # name them), and their one-read pass over the hidden or attention rows
     ("int8_mlp_gemm", ("mlpfc",)),
-    ("int8_qkv_gemm", ("qkvepi",)),
+    ("int8_qkv_gemm", ("biasepi",)),
     ("int8_mlp_rows", ("hidden_quant",)),
     ("quant_rows", ("quant_rows",)),
     ("quant_gemv", ("gemv_kernel",)),
     ("quant_gemm", ("gemm_kernel",)),
     ("cache_attention", ("cache_attn_kernel",)),
     ("int8_attention_mma", ("attn_mma_kernel",)),
-    ("int8_attention", ("attn_kernel",)),
     ("int8_rows", ("rows_kernel",)),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("softmax", ("softmax",)),

@@ -13,11 +13,15 @@ every shape of the base forward, and the unfused route's fused_mlp_int8
 and fused_attention_int8 at theirs, with chip_smoke.py's bars: the MLPs
 (rows 3, 5 and 6) 1e-5 max-rel and 0 elements differing from the plain
 versions; the attentions 2e-3 max-rel with ≥ 99 % of the elements within
-1e-5 of the largest (PV, and beside rows 4 and 7 the scores, sum in
-another order than the plain version's, which can flip a bf16 or int8
-rounding step); rows 2 and 3 also at 240 rows (B=3 images of 80, not a
-multiple of the GEMM's 128-row tile), and raising on a shape their chain
-does not take; an int8 Block at the 4096-wide MLP's shape, card against
+1e-5 of the largest (PV sums in another order than the plain version's,
+which can flip a bf16 or int8 rounding step; the scores of rows 2, 4 and 7
+are the float64 product rounded once on both sides); rows 2, 3, 4 and 7
+also at 240 rows (B=3 images of 80, not a multiple of the GEMM's 128-row
+tile), row 4 with every key of an image masked (LN(bo + x), 0 elements
+differing) and row 7 with fully masked query rows (b_proj exactly), and
+each raising on a shape its chain does not take (rows 4 and 7: more than
+768 keys, a head width not a multiple of 16); an int8 Block at the
+4096-wide MLP's shape, card against
 CPU, 5e-2 (chip_smoke.py's FWD_INT8_TOL). The serving kernels:
 quant_matmul and quant4_matmul 1e-5 max-rel (exact int products, the same
 float epilogue); the int8-cache decode attention 2e-3 max-rel with ≥ 99 %
@@ -210,6 +214,80 @@ def test_int8_sublayers_raise_on_shapes_they_do_not_take(card):
     with pytest.raises(RuntimeError, match="after 0 launches"):
         fs.mlp_sublayer_int8(x, vec(c, 1.0), vec(c), weight(64, c), vec(64),
                              weight(c, 64), vec(c))
+
+
+# rows 4 and 7 at B=3: row 4's cross-attention over 240 key rows, row 7 at
+# 240 rows (the inter Block, 2 heads of 384, N=80, fully masked rows) and
+# at 768 (the inner Block's cluster mask)
+RAGGED_ATTENTION = [("int8", "fused_bert_attention_int8", "cross"),
+                    ("unfused", "fused_attention_int8", "inter"),
+                    ("unfused", "fused_attention_int8", "inner")]
+
+
+@pytest.mark.parametrize("kind,name,label", RAGGED_ATTENTION,
+                         ids=[f"{n}-{s}" for _, n, s in RAGGED_ATTENTION])
+def test_int8_attention_at_ragged_rows(card, kind, name, label):
+    cases = (chip_smoke.int8_cases(3, card) if kind == "int8"
+             else chip_smoke.unfused_cases(3, card))
+    case = next(c for c in cases if c[:2] == (name, label))
+    res = chip_smoke.check_int8_case(*case)    # raises SystemExit on a miss
+    print(name, label, {k: res[k] for k in (
+        "share_within_1e-5", "f32_scores_share", "share_vs_f32_pv")
+        if k in res})
+    if label == "inter":
+        args, mask = case[4], case[5]["mask"]
+        assert tuple(args[0].shape[:2]) == (3, 80)
+        rows = ~mask.any(-1)
+        got = case[2](*args, **case[5])
+        assert bool(rows.any()) and torch.equal(
+            got[rows], args[4].expand(int(rows.sum()), -1))
+
+
+def test_bert_cross_with_every_key_of_an_image_masked(card):
+    """Row 4 cross-attention (M=80 keys) with the key mask of image 0 all
+    False: its queries attend to nothing, and their output is LN(bo + x)."""
+    case = next(c for c in chip_smoke.int8_cases(3, card)
+                if c[:2] == ("fused_bert_attention_int8", "cross"))
+    assert case[4][1].shape[1] == 80
+    res = chip_smoke.bert_masked_query_check(*case)
+    assert res["elements_differing"] == 0
+
+
+def test_int8_attentions_raise_on_shapes_they_do_not_take(card):
+    """More than 768 keys, and a head width that is not a multiple of 16,
+    raise: the C entries refuse them and launch nothing."""
+    rs = np.random.RandomState(5)
+    vec, weight = chip_smoke._vec, chip_smoke._weight
+
+    def x(b, n, c):
+        return torch.from_numpy(rs.randn(b, n, c).astype(np.float32)).to(
+            card)
+
+    def bert(q, kv, c, heads):
+        ws = [t for _ in range(4)
+              for t in (weight(rs, c, c, card), vec(rs, c, card))]
+        return fba.fused_bert_attention_int8(
+            q, kv, *ws, vec(rs, c, card, 0.1, 1.0), vec(rs, c, card), heads)
+
+    def unfused(q, c, heads):
+        return fai.fused_attention_int8(
+            q, weight(rs, 3 * c, c, card), vec(rs, 3 * c, card),
+            weight(rs, c, c, card), vec(rs, c, card), heads)
+
+    launches = (fba.LAUNCHES["fused_bert_attention_int8"],
+                fai.LAUNCHES["fused_attention_int8"])
+    q = x(2, 16, 64)
+    with pytest.raises(RuntimeError, match="after 0 launches"):
+        bert(q, x(2, 769, 64), 64, 4)          # 769 keys
+    q96 = x(2, 16, 96)
+    with pytest.raises(RuntimeError, match="after 0 launches"):
+        bert(q96, q96, 96, 8)                  # 8 heads of 12
+    with pytest.raises(RuntimeError, match="after 0 launches"):
+        unfused(x(2, 769, 64), 64, 4)          # 769 keys
+    with pytest.raises(RuntimeError, match="after 0 launches"):
+        unfused(q96, 96, 8)
+    assert (fba.LAUNCHES["fused_bert_attention_int8"],
+            fai.LAUNCHES["fused_attention_int8"]) == launches
 
 
 # the cases of chip_smoke.unfused_cases, and the CUDA launches of one call
