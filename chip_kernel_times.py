@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Time the int8 / int4 matmul kernels, the int8 MLP, the int8
-whole-sublayer kernels and the int8 attentions of the checkout it runs
+whole-sublayer kernels, the int8 attentions, the int8-cache decode
+attention and the DPC-KNN density/parent kernel of the checkout it runs
 from, and its int8 SeTok forward, on one CUDA card, so that two checkouts
 compare in one call:
 
     python3 chip_kernel_times.py TAG [PARTS]   # from the root of each checkout
 
 PARTS, comma-separated, picks what runs (default all): trunk, row6, dense,
-sublayers, attention, forward, serve. Prints one JSON line tagged TAG:
+sublayers, attention, cache, cluster, forward, serve. Prints one JSON line
+tagged TAG:
   trunk   per format (w8, w4, w4g128: int4 with groups of 128) and rows M
           (4: a decode step; 512: a prefill) the seven Vicuna-7B trunk
           linears of one layer, summed: time by CUDA events, device time
@@ -30,6 +32,14 @@ sublayers, attention, forward, serve. Prints one JSON line tagged TAG:
           key mask) and 7 (fused_attention_int8, 2 heads of 384: the inner
           Block's cluster mask at N=256, the inter Block's validity mask
           with fully masked rows at N=80) at B=64, as sublayers reports;
+  cache   row 11 (int8_cache_decode_attention) at the serving shape, B=4,
+          S=512, 32 heads of 128: f32 q with holes in the key mask, and
+          bf16 q with the serving layout (the tail of the cache masked), as
+          sublayers reports;
+  cluster row 1 (dpc_density_parent, k=64) at B=64 images of 256 and 576
+          tokens of 768, and 8 of 729 of 1152: time by events, device time
+          and its split by kernel (5 calls), the largest relative error of
+          density and row max against the plain version;
   forward  the int8 SeTok forward with bf16 glue at B=64 (base @256, and
           base with the 4096-wide tokenizer MLP), and bf16 beside it: img/s
           by chip_smoke's slope method and one profiled int8 forward's
@@ -50,10 +60,13 @@ import io
 import json
 import sys
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 from setok_tpu_torch import config as cfgs
+from setok_tpu_torch.kernels import cache_attention as ca
+from setok_tpu_torch.kernels import cluster_dpc
 from setok_tpu_torch.kernels import fused_mlp as fm
 from setok_tpu_torch.kernels import quant_matmul as qm
 from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
@@ -149,8 +162,8 @@ def timed(kernel, plain, args, kw) -> dict:
                       for k in by["top_kernels"]],
             "differ": int((got != want).sum()),
             "share": float((diff <= 1e-5 * want.abs().max()).double().mean()),
-            "sha256": hashlib.sha256(
-                got.cpu().numpy().tobytes()).hexdigest()[:16]}
+            "sha256": hashlib.sha256(got.cpu().contiguous().view(
+                torch.uint8).numpy().tobytes()).hexdigest()[:16]}
 
 
 def sublayers(dev) -> dict:
@@ -172,6 +185,55 @@ def attention(dev) -> dict:
     for name, label, kernel, plain, args, kw in cases:
         row = "row4" if name == "fused_bert_attention_int8" else "row7"
         res[f"{row} {label}"] = timed(kernel, plain, args, kw)
+    return res
+
+
+def cache(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, s, kvh, d = 4, 512, 32, 128
+
+    def int8():
+        f = torch.randn(b, s, kvh, d, generator=gen, device=dev)
+        sc = f.abs().amax(-1) / torch.full_like(f[..., 0], 127.0)
+        return (torch.round(f / sc[..., None]).clamp(-127, 127)
+                .to(torch.int8), sc)
+
+    (k8, ks), (v8, vs) = int8(), int8()
+    q = torch.randn(b, kvh, d, generator=gen, device=dev)
+    holes = torch.rand(b, s, generator=gen, device=dev) > 0.3
+    holes[-1] = False
+    # the serving layout: 160, 128, 97 and 33 valid keys, a tenth holes
+    lengths = torch.tensor([160, 128, 97, 33], device=dev)
+    serving = ((torch.arange(s, device=dev)[None] < lengths[:, None])
+               & (torch.rand(b, s, generator=gen, device=dev) >= 0.1))
+    return {label: timed(ca.int8_cache_decode_attention,
+                         ca.int8_cache_decode_attention_plain,
+                         (qq, k8, ks, v8, vs, valid),
+                         {"sm_scale": d ** -0.5})
+            for label, qq, valid in (("holes f32", q, holes),
+                                     ("serving bf16", q.to(torch.bfloat16),
+                                      serving))}
+
+
+def cluster(dev) -> dict:
+    res = {}
+    for b, n, c in ((64, 256, 768), (64, 576, 768), (8, 729, 1152)):
+        x = torch.from_numpy(np.stack([cs.clustered(cs.SEED + i, n, c)
+                                       for i in range(b)])).to(dev)
+        got = cluster_dpc.dpc_density_parent(x, 64)
+        want = cluster_dpc.dpc_density_parent_reference(x, 64)
+        rel = [float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
+               for g, w in zip(got, want)]
+        by = device_time_breakdown(
+            lambda: [cluster_dpc.dpc_density_parent(x, 64) for _ in range(5)])
+        res[f"B={b} N={n} C={c}"] = {
+            "ms": cs.time_ms(lambda: cluster_dpc.dpc_density_parent(x, 64)),
+            "device_ms": by["device_ms"] / 5,
+            "split": [{"name": k["name"][:60], "ms": k["ms"] / 5}
+                      for k in by["top_kernels"]],
+            "density_max_rel": rel[0], "rowmax_max_rel": rel[2]}
+        del x
+        torch.cuda.empty_cache()
     return res
 
 
@@ -231,7 +293,7 @@ def main() -> int:
     tag = sys.argv[1] if len(sys.argv) > 1 else "tree"
     parts = (sys.argv[2].split(",") if len(sys.argv) > 2
              else ["trunk", "row6", "dense", "sublayers", "attention",
-                   "forward", "serve"])
+                   "cache", "cluster", "forward", "serve"])
     out = {"tree": tag, "device": torch.cuda.get_device_name(0)}
     for part in parts:
         if part == "trunk":
@@ -244,6 +306,10 @@ def main() -> int:
             out["sublayers"] = sublayers(dev)
         elif part == "attention":
             out["attention"] = attention(dev)
+        elif part == "cache":
+            out["cache"] = cache(dev)
+        elif part == "cluster":
+            out["cluster"] = cluster(dev)
         elif part == "forward":
             out["forward"] = forward()
         elif part == "serve":

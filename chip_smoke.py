@@ -12,8 +12,10 @@ the last line:
   build         nvcc builds every setok_tpu_torch/csrc/*.cu (one nvcc
                 each, in parallel) into build/torch_kernels/;
   kernels       each hand-written kernel against its plain PyTorch version
-                on the card, at every shape the main paths give it, and its
-                time at the throughput batch; the int8 attentions' shares
+                on the card, at every shape the main paths give it (the
+                clustering at N=256, 576 and 729), and its time (the
+                clustering's device time split into its two kernels) at the
+                throughput batch; the int8 attentions' shares
                 beside their float32-score twins', row 4 with every key of
                 an image masked (LN(bo + x)), and the registers and spills
                 of the attention kernel (csrc/attn_mma.cuh);
@@ -51,9 +53,12 @@ the last line:
   serve_kernels quant_matmul (w8) and quant4_matmul (w4, per channel and
                 group 128) at the seven Vicuna-7B trunk linears, decode
                 M=4 and prefill M=512 rows, and the int8-cache decode
-                attention at B=4, S=512 with holes in the key mask, each
-                against its plain version (the count of elements that
-                differ: 0 for both matmuls), with its time, its device
+                attention at B=4, S=512 with holes in the key mask and in
+                the serving layout (bf16 q, the tail of the cache masked:
+                the tiles it skipped against the wholly masked ones), and
+                at G=8, S=8192, each against its plain version (the count
+                of elements that differ: 0 for all three), with its time,
+                its device
                 time split into the row pass and the product (decode has
                 no row pass: the GEMV quantises x itself), the host µs a
                 call, its bound and the nearest library call's time
@@ -269,11 +274,15 @@ def phase_build() -> None:
 
 
 def phase_kernels() -> dict:
-    """dpc_density_parent against its plain version at the main path's
-    shape (N=256, C=768, k=64) and one uneven case (N=50, k=8)."""
+    """dpc_density_parent against its plain version at the main paths'
+    shapes (base @256: N=256, C=768; @384: N=576; so400m: N=729, C=1152;
+    k=64) and one uneven case (N=50, k=8); its time and device split at the
+    throughput batch."""
     threshold = 0.55
     errs = []
     for b, n, c, k, k_max, min_cn in ((4, 256, 768, 64, 80, 64),
+                                      (2, 576, 768, 64, 80, 64),
+                                      (2, 729, 1152, 64, 80, 64),
                                       (2, 50, 768, 8, 16, 4)):
         x = torch.from_numpy(np.stack([clustered(SEED + i, n, c)
                                        for i in range(b)])).cuda()
@@ -316,6 +325,8 @@ def phase_kernels() -> dict:
                                    for i in range(b)])).cuda()
     ms = time_ms(lambda: cluster_dpc.dpc_density_parent(x, k))
     plain_ms = time_ms(lambda: cluster_dpc.dpc_density_parent_reference(x, k))
+    by = device_time_breakdown(
+        lambda: [cluster_dpc.dpc_density_parent(x, k) for _ in range(5)])
     flops = 1.0 * b * n * (n + 1) * c    # the symmetric Gram product, i <= j
     nbytes = 4.0 * (b * n * c + 3 * b * n)          # x in, three outputs
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -325,9 +336,13 @@ def phase_kernels() -> dict:
              "launches": None, "max_abs_err": max(errs), "ms": ms,
              "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-             "library_ms": None}
+             "library_ms": None, "device_ms": by["device_ms"] / 5,
+             "device_split_ms": {kk["name"][:60]: kk["ms"] / 5
+                                 for kk in by["top_kernels"]}}
     emit({"phase": "kernels", "timing_shape": [b, n, c], "k": k,
-          "ms": ms, "plain_ms": plain_ms, "bound_ms": entry["bound_ms"]})
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": entry["bound_ms"],
+          "device_ms": entry["device_ms"],
+          "device_split_ms": entry["device_split_ms"]})
     return entry
 
 
@@ -731,8 +746,9 @@ def phase_forward_int8(cpu_model: SeTok, gpu_model: SeTok) -> dict:
     want = expected_calls(gpu_model.tokenizer.cfg, gpu_model.detokenizer.cfg)
     check(counts["calls"] == want,
           f"int8 calls per forward {counts['calls']}, expected {want}")
-    check(counts["launches"]["dpc_density_parent"] == 3,
-          "the int8 forward did not launch the three cluster kernels")
+    check(counts["launches"]["dpc_density_parent"]
+          == cluster_dpc.LAUNCHES_PER_CALL,
+          "the int8 forward did not launch the cluster kernels once")
     return counts
 
 
@@ -1322,10 +1338,23 @@ def phase_serve_kernels() -> dict:
     return entries
 
 
+def serving_mask(b: int, s: int, gen, device) -> torch.Tensor:
+    """The serving layout of the key mask: each row's prompt (pad holes in
+    it) and the tokens decoded so far, the tail of the cache masked: 160,
+    128, 97 and 33 valid positions of 512, a tenth of them holes."""
+    lengths = torch.tensor([PROMPT_LEN + NEW_TOKENS, PROMPT_LEN, 97, 33],
+                           device=device)[torch.arange(b, device=device) % 4]
+    valid = torch.arange(s, device=device)[None] < lengths[:, None]
+    return valid & (torch.rand(b, s, generator=gen, device=device) >= 0.1)
+
+
 def cache_attention_case(cfg, gen) -> dict:
-    """The cache kernel at B=4, S=max_len, every head of the trunk, a key
-    mask with holes (and a fully masked row), against its plain version;
-    its time, bound and SDPA's on the dequantised K/V."""
+    """The cache kernel at B=4, S=max_len, every head of the trunk, against
+    its plain version: a key mask with holes (and a fully masked row), and
+    the serving layout (bf16 q, the cache's tail masked): its time by
+    events, device time, host µs a call, the tiles it skipped against
+    `masked_tiles`, the elements that differ (0 at both: the same float64
+    sums rounded once); its bound and SDPA's time on the dequantised K/V."""
     dev = torch.device("cuda")
     b, s = SERVE_BATCH, MAX_LEN
     kvh, h, d = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
@@ -1339,41 +1368,90 @@ def cache_attention_case(cfg, gen) -> dict:
 
     k8, ks = int8((b, s, kvh, d))
     v8, vs = int8((b, s, kvh, d))
-    valid = torch.rand(b, s, generator=gen, device=dev) > 0.3
-    valid[-1] = False
+    holes = torch.rand(b, s, generator=gen, device=dev) > 0.3
+    holes[-1] = False
     sm = d ** -0.5
-    args = (q, k8, ks, v8, vs, valid)
-    got = ca.int8_cache_decode_attention(*args, sm)
+    cases = {}
+    for label, qq, valid in (("holes", q, holes),
+                             ("serving", q.to(torch.bfloat16),
+                              serving_mask(b, s, gen, dev))):
+        args = (qq, k8, ks, v8, vs, valid)
+        skipped = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = ca.int8_cache_decode_attention(*args, sm, skipped=skipped)
+        torch.cuda.synchronize()
+        want = ca.int8_cache_decode_attention_plain(*args, sm)
+        case = check_close("int8_cache_decode_attention",
+                           f"{label} B={b} S={s} KVH={kvh} G={h // kvh} "
+                           f"D={d} {qq.dtype}", got, want, CACHE_ATTN_TOL,
+                           INT8_ATTN_SHARE)
+        case["elements_differing"] = int((got != want).sum())
+        case["tiles_skipped"] = int(skipped)
+        case["tiles_masked"] = ca.masked_tiles(valid, kvh)
+        case["tiles"] = b * kvh * -(-s // ca.TILE)
+        case["cluster"] = ca.CLUSTER
+        check(got.dtype == qq.dtype, f"cache attention {label}: output "
+              f"{got.dtype} for q {qq.dtype}")
+        check(case["elements_differing"] == 0,
+              f"cache attention {label}: {case['elements_differing']} "
+              "elements differ from the plain version")
+        check(case["tiles_skipped"] == case["tiles_masked"],
+              f"cache attention {label}: {case['tiles_skipped']} tiles "
+              f"skipped, {case['tiles_masked']} wholly masked")
+        kd = (k8.float() * ks[..., None]).permute(0, 2, 1, 3)
+        vd = (v8.float() * vs[..., None]).permute(0, 2, 1, 3)
+        mask = valid[:, None, None, :]
+        live = 1.0 - case["tiles_skipped"] / case["tiles"]
+        nbytes = (2.0 * qq.element_size() * b * h * d       # q in, out
+                  + live * (2.0 * b * s * kvh * d + 8.0 * b * s * kvh)
+                  + b * s)
+        t_bytes = nbytes / PEAK_BYTES
+        t_ops = live * 4.0 * b * h * s * d / PEAK_F32_FLOPS
+        device_ms = device_split(
+            lambda: ca.int8_cache_decode_attention(*args, sm))["device_ms"]
+        case.update(
+            ms=time_ms(lambda: ca.int8_cache_decode_attention(*args, sm)),
+            device_ms=device_ms,
+            plain_ms=time_ms(lambda: ca.int8_cache_decode_attention_plain(
+                *args, sm), reps=5, warmup=1),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qq.float()[:, :, None], kd, vd, attn_mask=mask)),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case["host_us_per_call"], case["wall_ms"] = host_us_per_call(
+            lambda: ca.int8_cache_decode_attention(*args, sm), device_ms)
+        emit(case)
+        cases[label] = case
+    # G = 8 past the ~5,085 keys where a whole-row score buffer no longer
+    # fits shared memory (a GQA trunk's long cache: 32 heads over 4)
+    gk8, gks = int8((1, 8192, 4, d))
+    gv8, gvs = int8((1, 8192, 4, d))
+    gargs = (torch.randn(1, 32, d, generator=gen, device=dev).to(
+        torch.bfloat16), gk8, gks, gv8, gvs,
+        torch.rand(1, 8192, generator=gen, device=dev) > 0.3)
+    got = ca.int8_cache_decode_attention(*gargs, sm)
     torch.cuda.synchronize()
-    case = check_close("int8_cache_decode_attention",
-                       f"B={b} S={s} KVH={kvh} G={h // kvh} D={d}", got,
-                       ca.int8_cache_decode_attention_plain(*args, sm),
-                       CACHE_ATTN_TOL, INT8_ATTN_SHARE)
-    kd = (k8.float() * ks[..., None]).permute(0, 2, 1, 3)
-    vd = (v8.float() * vs[..., None]).permute(0, 2, 1, 3)
-    mask = valid[:, None, None, :]
-    nbytes = 8.0 * b * h * d + 2.0 * b * s * kvh * d + 8.0 * b * s * kvh \
-        + b * s
-    t_bytes, t_ops = nbytes / PEAK_BYTES, 4.0 * b * h * s * d / PEAK_F32_FLOPS
-    case.update(
-        ms=time_ms(lambda: ca.int8_cache_decode_attention(*args, sm)),
-        device_ms=device_split(
-            lambda: ca.int8_cache_decode_attention(*args, sm))["device_ms"],
-        plain_ms=time_ms(lambda: ca.int8_cache_decode_attention_plain(
-            *args, sm), reps=5, warmup=1),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kd, vd, attn_mask=mask)),
-        bound_ms=1e3 * max(t_bytes, t_ops))
-    emit(case)
+    want = ca.int8_cache_decode_attention_plain(*gargs, sm)
+    gcase = check_close("int8_cache_decode_attention",
+                        "B=1 S=8192 KVH=4 G=8 D=128 bf16", got, want,
+                        CACHE_ATTN_TOL, INT8_ATTN_SHARE)
+    gcase["elements_differing"] = int((got != want).sum())
+    gcase["cluster"] = ca.CLUSTER
+    emit(gcase)
+    main = cases["holes"]
     return {"name": "int8_cache_decode_attention", "route": "cuda",
             "source": "setok_tpu_torch/csrc/cache_attention.cu",
             "replaces": "setok_tpu/kernels/cache_attention.py:75",
-            "launches": None, "max_abs_err": case["max_abs"],
-            "ms": case["ms"], "plain_ms": case["plain_ms"],
-            "bound_ms": case["bound_ms"],
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": case["library_ms"],
-            "device_ms": case["device_ms"],
+            "launches": None, "max_abs_err": max(c["max_abs"]
+                                                 for c in cases.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "device_ms": main["device_ms"],
+            "host_us_per_call": main["host_us_per_call"],
+            "serving_layout": {key: cases["serving"][key] for key in (
+                "ms", "device_ms", "host_us_per_call", "bound_ms",
+                "tiles_skipped", "tiles", "elements_differing",
+                "library_ms")},
             "timing": f"one layer's decode step, B={b}, S={s}"}
 
 
@@ -1544,8 +1622,9 @@ def phase_serve(cfg, bits: int) -> dict:
     check(counts["cache_attention"] == layers * len(decode),
           "cache-attention launches are not one per layer and decode step")
     check(prefills["image"] >= 1
-          and counts["cluster"] == 3 * prefills["image"],
-          "the clustering kernel did not launch 3 times per image admission")
+          and counts["cluster"]
+          == cluster_dpc.LAUNCHES_PER_CALL * prefills["image"],
+          "the clustering kernel did not launch once per image admission")
     check(not counts["quant_matmul"]["quant_matmul" if bits == 4
                                      else "quant4_matmul"],
           "the other weight format's kernel launched")
@@ -2063,7 +2142,8 @@ def phase_train(cfg) -> dict:
     layers = cfg.llama.num_layers
     want = {"flash_fwd": 2 * layers * fa.FWD_LAUNCHES_BF16,
             "flash_dq": layers,
-            "flash_dkv": layers, "dpc_density_parent": 6}
+            "flash_dkv": layers,
+            "dpc_density_parent": 2 * cluster_dpc.LAUNCHES_PER_CALL}
     check(all(np.isfinite(v) for row in losses for v in row.values()),
           "a training loss is not finite")
     check(tr.updates == TRAIN_UPDATES, f"{tr.updates} updates")

@@ -125,18 +125,6 @@ __device__ __forceinline__ float f32_at(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// c (16 x 8, f64) += a (16 x 4) . b (4 x 8) on the FP64 tensor cores: lane
-// (g, t4) gives A[g][t4], A[g + 8][t4] and B[t4][g], holds C[g][2t4],
-// C[g][2t4 + 1], C[g + 8][2t4], C[g + 8][2t4 + 1]
-__device__ __forceinline__ void dmma(double (&c)[4], double a0, double a1,
-                                     double b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
-      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-      : "d"(a0), "d"(a1), "d"(b));
-}
-
 // f32 Q / K slice, 128-byte rows: rows 2p and 2p + 1 (read together by a
 // quarter warp) in opposite halves of the bank groups
 __device__ __forceinline__ uint32_t swz_slice(int r, int c) {

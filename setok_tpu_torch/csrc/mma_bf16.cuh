@@ -1,8 +1,9 @@
-// bf16 tensor-core building blocks of mma.sync kernels: cp.async copies,
-// ldmatrix, mma.sync m16n8k16 (bf16 in, f32 accumulation) and the XOR
-// swizzle of a shared tile's 16-byte chunks. Shared by flash_attention.cu
-// (row 10) and the int8 attention sublayer's tensor-core attention
-// (fused_sublayer.cu, row 2).
+// Tensor-core building blocks of mma.sync kernels: cp.async copies,
+// ldmatrix, mma.sync m16n8k16 (bf16 in, f32 accumulation), mma.sync m16n8k4
+// f64 (`dmma`) and the XOR swizzle of a shared tile's 16-byte chunks. Shared
+// by flash_attention.cu (row 10), the tensor-core attention of the int8
+// sublayers (attn_mma.cuh: rows 2, 4, 7), the DPC-KNN Gram product
+// (cluster_dpc.cu, row 1) and the int8-cache attention's copies (row 11).
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t4 = lane % 4): A (16 x 16,
 // row-major) a0 (row g, cols 2t4, 2t4 + 1), a1 (row g + 8), a2 (row g, cols
@@ -45,6 +46,18 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c (16 x 8, f64) += a (16 x 4) . b (4 x 8) on the FP64 tensor cores: lane
+// (g, t4) gives A[g][t4], A[g + 8][t4] and B[t4][g], holds C[g][2t4],
+// C[g][2t4 + 1], C[g + 8][2t4], C[g + 8][2t4 + 1]
+__device__ __forceinline__ void dmma(double (&c)[4], double a0, double a1,
+                                     double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {

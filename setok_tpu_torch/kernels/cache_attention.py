@@ -9,7 +9,9 @@ head. The scale algebra keeps the dequantisation out of the (S, D) slabs:
 
 with the mask applied as `where(valid, s, -1e30)`, so that a fully masked
 row is the uniform average over all S keys. `int8_cache_decode_attention`
-launches `csrc/cache_attention.cu` for tensors on the card and runs
+launches `csrc/cache_attention.cu` for tensors on the card (one launch: q
+read and the output written in q's type, a thread-block cluster per batch
+row and kv head, key tiles of 32 that are wholly masked skipped) and runs
 `int8_cache_decode_attention_plain` for tensors on the CPU.
 
 The steps are the JAX kernel's, on float32 values, but each sum (the q·K
@@ -37,8 +39,15 @@ NEG_INF = -1e30
 # the JAX gate's slab budget (K/V int8 slabs + f32 conversions ≈ S·D·10 B)
 MAX_CACHE_TOKENS = 8192
 
-# CUDA kernel launches on the card since import or since reset_counts()
+# keys a tile of the kernel: a wholly masked tile is skipped
+TILE = 32
+# q (and output) types the kernel reads, and their codes in its C entry
+Q_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# CUDA kernel launches on the card since import or since reset_counts(), and
+# the CTAs of a cluster of the last launch
 LAUNCHES = 0
+CLUSTER = 0
 
 
 def reset_counts() -> None:
@@ -73,11 +82,24 @@ def int8_cache_decode_attention_plain(q, k_cache, k_scale, v_cache, v_scale,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def masked_tiles(key_valid: torch.Tensor, kv_heads: int) -> int:
+    """The key tiles the kernel skips: per batch row that has a valid key,
+    its tiles of TILE keys with none valid, once per kv head."""
+    b, s = key_valid.shape
+    pad = (-s) % TILE
+    tiles = torch.nn.functional.pad(key_valid, (0, pad)).reshape(b, -1, TILE)
+    dead = (~tiles.any(-1)).sum(-1)
+    return int((dead * key_valid.any(-1)).sum()) * kv_heads
+
+
 def int8_cache_decode_attention(q, k_cache, k_scale, v_cache, v_scale,
-                                key_valid, sm_scale: Optional[float] = None):
-    """q: (B, H, D) post-RoPE queries of one decode step; k_cache/v_cache:
-    (B, S, KVH, D) int8; k_scale/v_scale: (B, S, KVH) float32; key_valid:
-    (B, S) bool. Returns (B, H, D) in q.dtype."""
+                                key_valid, sm_scale: Optional[float] = None,
+                                skipped: Optional[torch.Tensor] = None):
+    """q: (B, H, D) post-RoPE queries of one decode step (on the card:
+    float32, bfloat16 or float16); k_cache/v_cache: (B, S, KVH, D) int8;
+    k_scale/v_scale: (B, S, KVH) float32; key_valid: (B, S) bool. Returns
+    (B, H, D) in q.dtype. `skipped`, an int32 tensor of one element on q's device,
+    gains the key tiles skipped as wholly masked (`masked_tiles`)."""
     b, h, d = q.shape
     if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
         raise ValueError(f"k_cache (B, S, KVH, D) expected, got "
@@ -99,29 +121,43 @@ def int8_cache_decode_attention(q, k_cache, k_scale, v_cache, v_scale,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
+        if skipped is not None:
+            skipped += masked_tiles(key_valid, kvh)
         return int8_cache_decode_attention_plain(
             q, k_cache, k_scale, v_cache, v_scale, key_valid, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"int8_cache_decode_attention runs on cuda or cpu, "
                          f"got {q.device}")
+    if q.dtype not in Q_TYPES:
+        raise TypeError(f"int8_cache_decode_attention takes q in "
+                        f"{tuple(Q_TYPES)} on the card, got {q.dtype}")
+    if skipped is not None and (skipped.dtype != torch.int32
+                                or skipped.device != q.device):
+        raise ValueError("skipped: one int32 element on q's device expected")
     dev = q.device
-    tensors = [t.contiguous() for t in (q.float(), k_cache, k_scale,
-                                        v_cache, v_scale)]
-    tensors.append(key_valid.contiguous().view(torch.uint8))
-    out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    launched = ctypes.c_int(0)
-    err = _entry()(*(t.data_ptr() for t in tensors), out.data_ptr(),
-                   float(sm_scale), b, s,
-                   kvh, h // kvh, d, dev.index,
+    q = q.contiguous()
+    if key_valid.stride(1) != 1:
+        key_valid = key_valid.contiguous()
+    out = torch.empty_like(q)
+    launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
+    err = _entry()(q.data_ptr(), Q_TYPES[q.dtype],
+                   k_cache.contiguous().data_ptr(),
+                   k_scale.contiguous().data_ptr(),
+                   v_cache.contiguous().data_ptr(),
+                   v_scale.contiguous().data_ptr(), key_valid.data_ptr(),
+                   key_valid.stride(0), out.data_ptr(),
+                   None if skipped is None else skipped.data_ptr(),
+                   float(sm_scale), b, s, kvh, h // kvh, d, dev.index,
                    torch.cuda.current_stream(dev).cuda_stream,
-                   ctypes.byref(launched))
-    global LAUNCHES
+                   ctypes.byref(launched), ctypes.byref(cluster))
+    global LAUNCHES, CLUSTER
     LAUNCHES += launched.value
+    CLUSTER = cluster.value
     if err != 0:
         raise RuntimeError(f"int8_cache_decode_attention launch failed with "
                            f"CUDA error {err} (B={b}, S={s}, KVH={kvh}, "
                            f"G={h // kvh}, D={d})")
-    return out.to(q.dtype)
+    return out
 
 
 @functools.cache
@@ -129,9 +165,10 @@ def _entry():
     """The C entry of csrc/cache_attention.cu, built, loaded and bound once."""
     from setok_tpu_torch.kernels._build import load_library
 
-    fn = load_library("cache_attention").int8_cache_decode_attention_f32
+    fn = load_library("cache_attention").int8_cache_decode_attention
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 7 + [ctypes.c_float] + [i] * 6 + [p,
-                                                          ctypes.POINTER(i)]
+    fn.argtypes = ([p, i] + [p] * 5 + [ctypes.c_longlong, p, p,
+                                       ctypes.c_float] + [i] * 6
+                   + [p, ctypes.POINTER(i), ctypes.POINTER(i)])
     return fn

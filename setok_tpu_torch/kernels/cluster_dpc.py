@@ -3,9 +3,11 @@
 The counterpart of `setok_tpu/kernels/cluster_pallas.py`. `dpc_density_parent`
 launches `csrc/cluster_dpc.cu` for a tensor on the card and runs the plain
 PyTorch version, `dpc_density_parent_reference`, for a tensor on the CPU;
-both compute
+both compute, from the Gram product G = x·xᵀ taken in float64 and rounded
+to float32 once (an f32 × f32 product is exact in float64, so the two agree
+but for rare float64 ties) and sq_i = G[i, i],
 
-    d2        = max(|x_i|² + |x_j|² - 2·x_i·x_j, 0) / C,   d2[i, i] = 0
+    d2        = max(sq_i + sq_j - 2·G[i, j], 0) / C,   d2[i, i] = 0
     density_i = exp(-(sum of the k smallest d2[i, :]) / k) + (i + 0.5)/N·1e-6
     rowmax_i  = max_j sqrt(d2[i, j])
     parent_i  = min_j (density_j > density_i ? sqrt(d2[i, j]) : rowmax_j)
@@ -26,9 +28,28 @@ from setok_tpu_torch.ops.clustering import (ClusterResult, assign_to_centers,
 
 MAX_N = 1024
 
-# Kernel launches on the card since import (or since a caller reset it): one
-# call of `dpc_density_parent` launches three, sqnorm, density and parent.
+# Kernel launches on the card since import (or since a caller reset it):
+# one call of `dpc_density_parent` launches LAUNCHES_PER_CALL, the Gram
+# product and the density/parent pass.
 LAUNCHES = 0
+LAUNCHES_PER_CALL = 2
+
+
+def gram_f64(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, N) f32: x·xᵀ as float64 sums rounded once."""
+    xd = x.double()
+    return (xd @ xd.transpose(-1, -2)).float()
+
+
+def d2_from_gram(gram: torch.Tensor, c: int) -> torch.Tensor:
+    """Squared distances / C in float32, in the JAX kernel's order, from the
+    Gram product (its diagonal the squared norms); the diagonal 0."""
+    n = gram.shape[-1]
+    sq = gram.diagonal(dim1=-2, dim2=-1)
+    d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * gram
+    d2 = d2.clamp_min(0.0) * (1.0 / c)
+    return d2.masked_fill(torch.eye(n, dtype=torch.bool, device=gram.device),
+                          0.0)
 
 
 def dpc_density_parent_reference(x: torch.Tensor, k: int):
@@ -36,10 +57,7 @@ def dpc_density_parent_reference(x: torch.Tensor, k: int):
     x = x.float()
     _, n, c = x.shape
     k = min(k, n)
-    sq = (x * x).sum(-1)
-    d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * (x @ x.transpose(-1, -2))
-    d2 = d2.clamp_min(0.0) * (1.0 / c)
-    d2 = d2.masked_fill(torch.eye(n, dtype=torch.bool, device=x.device), 0.0)
+    d2 = d2_from_gram(gram_f64(x), c)
     sum_k = torch.topk(d2, k, dim=-1, largest=False).values.sum(-1)
     density = (torch.exp(-(sum_k / k))
                + density_tie_break(n, torch.float32, x.device))
@@ -79,14 +97,14 @@ def dpc_density_parent(x: torch.Tensor, k: int):
         raise ValueError(f"dpc_density_parent runs on cuda or cpu, got {x.device}")
     b, n, c = x.shape
     k = min(k, n)
-    out = torch.empty((4, b, n), dtype=torch.float32, device=x.device)
-    density, parent, rowmax, sq = out.unbind(0)
-    d2 = torch.empty((b, n, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((3, b, n), dtype=torch.float32, device=x.device)
+    density, parent, rowmax = out.unbind(0)
+    gram = torch.empty((b, n, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     launched = ctypes.c_int(0)
     err = _entry()(x.data_ptr(), density.data_ptr(), parent.data_ptr(),
-                   rowmax.data_ptr(), d2.data_ptr(), sq.data_ptr(), b, n, c, k,
-                   1.0 / c, x.device.index, stream, ctypes.byref(launched))
+                   rowmax.data_ptr(), gram.data_ptr(), b, n, c, k, 1.0 / c,
+                   x.device.index, stream, ctypes.byref(launched))
     LAUNCHES += launched.value
     if err != 0:
         raise RuntimeError(f"cluster_dpc launch failed with CUDA error {err}")
@@ -100,7 +118,7 @@ def _entry():
 
     fn = load_library("cluster_dpc").dpc_density_parent_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int)]
     return fn

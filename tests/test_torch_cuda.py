@@ -25,7 +25,13 @@ each raising on a shape its chain does not take (rows 4 and 7: more than
 CPU, 5e-2 (chip_smoke.py's FWD_INT8_TOL). The serving kernels:
 quant_matmul and quant4_matmul 1e-5 max-rel (exact int products, the same
 float epilogue); the int8-cache decode attention 2e-3 max-rel with ≥ 99 %
-of the elements within 1e-5 of the largest. The flash-attention kernels,
+of the elements within 1e-5 of the largest, with q in f32, bf16 and f16
+(one launch, the output in q's type, the serving mask's wholly masked
+tiles skipped and counted) and at G = 8 past S = 5,085 (up to 8192, where
+the first kernel's shared memory ran out), printing the elements that
+differ from the plain version (expected 0: the same float64 sums rounded
+once). The DPC-KNN kernel also at N = 576, 729 (C = 1152) and 1024, its
+centers and assignments the plain route's. The flash-attention kernels,
 with chip_smoke.flash_case's bars: the forward's o 2e-3 max-rel with ≥ 99 %
 within 1e-5 of the largest (p rounds to the input type before P.V), lse
 1e-5, dq/dk/dv 1e-4 (float32, sums in another order; bf16's f32 operands
@@ -89,16 +95,22 @@ def _blobs(seed, n, c, n_blobs=5):
 
 @pytest.mark.parametrize("b,n,c,k", [
     (2, 50, 100, 8),        # ragged row tile, C not a multiple of the chunk
-    (1, 1024, 64, 1024),    # the largest N (shared memory above 48 KB), k=N
+    (2, 50, 99, 8),         # C not a multiple of 4: the scalar loads
+    (1, 1024, 64, 1024),    # the largest N, k=N
+    (1, 1024, 768, 64),     # the largest N at the base width
     (3, 256, 768, 64),      # the base configuration
+    (2, 576, 768, 64),      # base @384
     (1, 729, 1152, 64),     # so400m's token count
+    (2, 729, 1152, 64),     # so400m's token count and width
 ])
 def test_kernel_matches_reference(card, b, n, c, k):
     x = torch.from_numpy(np.stack([_blobs(s, n, c) for s in range(b)])).to(card)
     before = cluster_dpc.LAUNCHES
     dens, parent, rowmax = cluster_dpc.dpc_density_parent(x, k)
     torch.cuda.synchronize()
-    assert cluster_dpc.LAUNCHES == before + 3      # sqnorm, density, parent
+    # the Gram product and the density/parent pass
+    assert cluster_dpc.LAUNCHES == before + cluster_dpc.LAUNCHES_PER_CALL == \
+        before + 2
     rd, rp, rr = cluster_dpc.dpc_density_parent_reference(x, k)
     torch.testing.assert_close(dens, rd, rtol=1e-5, atol=0)
     torch.testing.assert_close(rowmax, rr, rtol=1e-5, atol=0)
@@ -106,6 +118,13 @@ def test_kernel_matches_reference(card, b, n, c, k):
     assert torch.isclose(got, want, rtol=1e-3, atol=1e-3).float().mean() >= 0.9
     peaks = want > 0.55
     torch.testing.assert_close(got[peaks], want[peaks], rtol=1e-4, atol=0)
+    # the kernel route's centers and assignments are the plain route's
+    kw = dict(k_max=min(64, n), min_cluster_num=min(8, n), threshold=0.55)
+    res = cluster_dpc.cluster_dpc_knn_kernel(x, k, **kw)
+    ref = cluster_dpc.select_and_assign(x, rd * rp, **kw)
+    assert torch.equal(res.num_clusters, ref.num_clusters)
+    assert torch.equal(res.center_idx, ref.center_idx)
+    assert torch.equal(res.idx_cluster, ref.idx_cluster)
 
 
 def test_tokenizer_routes_to_the_kernel(card):
@@ -115,12 +134,12 @@ def test_tokenizer_routes_to_the_kernel(card):
     before = cluster_dpc.LAUNCHES
     out = model(images)
     torch.cuda.synchronize()
-    assert cluster_dpc.LAUNCHES == before + 3
+    assert cluster_dpc.LAUNCHES == before + 2
     assert torch.isfinite(out.recon).all()
     # a token mask takes the plain path, as in the JAX package
     feats = model.tokenizer.encode_features(images)
     model.tokenizer.cluster(feats, token_mask=torch.ones(2, 16, device=card))
-    assert cluster_dpc.LAUNCHES == before + 3
+    assert cluster_dpc.LAUNCHES == before + 2
 
 
 # the cases of chip_smoke.int8_cases, and the CUDA launches of one call:
@@ -351,7 +370,7 @@ def test_int8_forward_routes_to_the_kernels(card):
     out = model(images)
     torch.cuda.synchronize()
     assert chip_smoke.int8_counts()[0] == chip_smoke.expected_calls(tok, det)
-    assert cluster_dpc.LAUNCHES == 3
+    assert cluster_dpc.LAUNCHES == 2
     assert torch.isfinite(out.recon).all()
 
 
@@ -512,6 +531,92 @@ def test_cache_attention_kernel_matches_plain(card):
     assert float((diff <= 1e-5 * scale).float().mean()) >= 0.99
 
 
+def _cache_case(card, b, s, kvh, g, d, dtype, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(b, kvh * g, d, generator=gen, device=card).to(dtype)
+
+    def int8():
+        f = torch.randn(b, s, kvh, d, generator=gen, device=card)
+        sc = f.abs().amax(-1) / 127
+        return torch.round(f / sc[..., None]).clamp(-127, 127).to(
+            torch.int8), sc
+
+    (k8, ks), (v8, vs) = int8(), int8()
+    return gen, q, k8, ks, v8, vs
+
+
+def _serving_mask(card, b, s, gen):
+    """The serving layout: a prompt with pad holes and the decoded tokens,
+    the tail of the cache masked (up to 160 of 512 keys valid)."""
+    valid = torch.zeros(b, s, dtype=torch.bool, device=card)
+    lengths = (128, 160, 97, 33)
+    for i in range(b):
+        valid[i, :lengths[i % len(lengths)]] = True
+    holes = torch.rand(b, s, generator=gen, device=card) < 0.1
+    return valid & ~holes
+
+
+def _check_cache(card, got, q, args, skipped=None):
+    want = ca.int8_cache_decode_attention_plain(q, *args,
+                                                q.shape[-1] ** -0.5)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    diff = (got.double() - want.double()).abs()
+    scale = want.double().abs().max()
+    assert float(diff.max() / scale) <= 2e-3
+    assert float((diff <= 1e-5 * scale).double().mean()) >= 0.99
+    print(f"cache attention {tuple(q.shape)} {q.dtype}: "
+          f"{int((got != want).sum())} elements differ from the plain "
+          f"version, cluster {ca.CLUSTER}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16],
+                         ids=["bf16", "f32", "f16"])
+def test_cache_attention_reads_q_in_its_type(card, dtype):
+    """The serving shape (B=4, S=512, 32 heads of 128): q in and out in its
+    own type, one launch a call, the serving mask's wholly masked tiles
+    skipped and counted."""
+    b, s, kvh, g, d = 4, 512, 32, 1, 128
+    gen, q, k8, ks, v8, vs = _cache_case(card, b, s, kvh, g, d, dtype)
+    valid = _serving_mask(card, b, s, gen)
+    skipped = torch.zeros(1, dtype=torch.int32, device=card)
+    before = ca.LAUNCHES
+    args = (k8, ks, v8, vs, valid)
+    got = ca.int8_cache_decode_attention(q, *args, skipped=skipped)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES == before + 1
+    assert int(skipped) == ca.masked_tiles(valid, kvh) > 0
+    assert ca.CLUSTER >= 2                     # S split over a cluster
+    _check_cache(card, got, q, args)
+
+
+@pytest.mark.parametrize("s,kvh,g,d", [(8192, 4, 8, 128), (5000, 2, 8, 128),
+                                       (1000, 3, 5, 64), (8192, 1, 8, 512),
+                                       (77, 2, 2, 16), (1, 1, 1, 128)])
+def test_cache_attention_at_long_caches_and_wide_groups(card, s, kvh, g, d):
+    """G = 8 past S ~ 5,085 (where a whole-row score buffer no longer fits
+    shared memory), an odd G, D at its limits, S not a multiple of the tile,
+    with holes, a prefix and a fully masked row."""
+    b = 3
+    gen, q, k8, ks, v8, vs = _cache_case(card, b, s, kvh, g, d,
+                                         torch.bfloat16)
+    valid = torch.rand(b, s, generator=gen, device=card) > 0.3
+    valid[0, 0] = True
+    valid[1] = False
+    valid[1, : max(1, s // 3)] = True          # a prefix
+    valid[2] = False                           # the uniform average
+    before = ca.LAUNCHES
+    args = (k8, ks, v8, vs, valid)
+    got = ca.int8_cache_decode_attention(q, *args)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES == before + 1
+    _check_cache(card, got, q, args)
+    uniform = (v8[2].float() * vs[2][..., None]).mean(0)     # (KVH, D)
+    torch.testing.assert_close(
+        got[2].float(), uniform.repeat_interleave(g, 0).to(q.dtype).float(),
+        rtol=1e-2, atol=1e-2)
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_serving_routes_to_the_kernels(card, bits):
     cfg = cfgs.tiny_setokim()
@@ -536,7 +641,7 @@ def test_serving_routes_to_the_kernels(card, bits):
     assert qm.CALLS[name] == 7 * layers * (2 + 3)
     assert qm.LAUNCHES[name] == 7 * layers * (2 * 2 + 3)
     assert ca.LAUNCHES == layers * 3
-    assert cluster_dpc.LAUNCHES == 3
+    assert cluster_dpc.LAUNCHES == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
