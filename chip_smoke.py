@@ -103,7 +103,27 @@ the last line:
                 to read the gap, the plain route again, the plain route
                 with its score sums in another order, each direction's
                 kernels alone, and a planted fault (delta dropped) that the
-                gradient bar must catch.
+                gradient bar must catch;
+  train_setok   stage-1 SeTok training at full width through the stage-1
+                CLI's own `build` (scripts/train_setok.py: base_tokenizer /
+                base_detokenizer, ViT-B/16 @256, batch 24, lr 1e-3, clip 1.0,
+                warm-up 100, bf16 compute over float32 parameters, frozen
+                backbone, structured synthetic images with their frozen
+                caption table) with disc_start 0, so that the GAN terms
+                carry weight: 3 updates, every count reset just before them
+                and read just after; ms per update, images/s, peak memory,
+                the losses, the launches of the clustering kernel per update
+                (one tokenize: cluster_dpc.LAUNCHES_PER_CALL), the frozen
+                ViT bit for bit unchanged, the generator unchanged by update
+                1 (lr 0) and moved by update 3, the discriminator moved by
+                update 1; then a profiled update (device ms by kind, busy
+                share);
+  train_setok_parity  ViT depth 2, Q-Former 2 layers, decoder depth 2 at
+                full width, float32 compute, dropout 0, LPIPS on, the GAN
+                factor at 1: the same weights and batch (B=4) on the card
+                and on the CPU; the clusters, the metrics of one step's
+                terms (no update), and the gradients of the pixel head and
+                the inner Block.
 
 Then the kernels summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no JAX: it imports setok_tpu_torch only.
@@ -138,6 +158,7 @@ from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
                                            quantize_weight,
                                            quantize_weight_int4,
                                            unpack_nibbles)
+from setok_tpu_torch.losses.gan import discriminator_loss
 from setok_tpu_torch.models.llama import (TRUNK_LINEARS, make_attention_mask,
                                           valid_quant_group)
 from setok_tpu_torch.models.setok import SeTok, expected_calls
@@ -145,8 +166,10 @@ from setok_tpu_torch.models.setokim import Setokim, splice_layout
 from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
 from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
+from setok_tpu_torch.scripts import train_setok
 from setok_tpu_torch.scripts.train_setokim import synthetic_batch
 from setok_tpu_torch.serve import ServeEngine
+from setok_tpu_torch.train.stage1 import Stage1Trainer
 from setok_tpu_torch.train.stage2 import Stage2Trainer, warmup_cosine
 from setok_tpu_torch.utils.init import init_random_, init_setokim_random_
 from setok_tpu_torch.utils.profiling import device_time_breakdown
@@ -664,6 +687,7 @@ def int8_counts() -> tuple:
     return calls, launches
 
 
+@torch.no_grad()          # the forward's stages, without a graph
 def staged_forward(cpu_model: SeTok, gpu_model: SeTok, seed: int,
                    tol: float, name: str, batch: int = 4,
                    config: str = "base_tokenizer/base_detokenizer") -> dict:
@@ -2288,6 +2312,205 @@ def phase_train_parity(cfg) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------------
+# stage-1 SeTok training
+
+SETOK_TRAIN_UPDATES = 3
+SETOK_PARITY_BATCH = 4
+# card against CPU in float32 (TF32 off): the bars of stage-2's parity
+SETOK_PARITY_LOSS_TOL = TRAIN_PARITY_LOSS_TOL
+SETOK_PARITY_GRAD_TOL = TRAIN_PARITY_GRAD_TOL
+
+
+def setok_train_args(*extra: str):
+    """The stage-1 CLI's flags of the chip phases: its defaults
+    (train_setok.sh's configuration), structured synthetic data, and
+    disc_start 0."""
+    return train_setok.parse_args(
+        ["--synthetic", "64", "--synthetic-structured", "--steps",
+         str(SETOK_TRAIN_UPDATES), "--disc-start", "0", *extra])
+
+
+def on_card(batch: dict) -> dict:
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def moved(params, before) -> int:
+    return sum(not torch.equal(p.detach(), b) for p, b in zip(params, before))
+
+
+def phase_train_setok() -> int:
+    """Three updates at full width, every count reset just before them and
+    read just after; then one profiled update. Returns the clustering
+    kernel's launches in the three."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = setok_train_args()
+    tr, stream = train_setok.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batches = [on_card(next(stream)) for _ in range(SETOK_TRAIN_UPDATES + 1)]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    vit = list(tr.model.tokenizer.image_feature_encoder.parameters())
+    vit_before = [p.detach().clone() for p in vit]
+    gen_before = [p.detach().clone() for p in tr.gen_params]
+    disc_names = [n for n, _ in tr.disc.named_parameters()]
+    disc_before = [p.detach().clone() for p in tr.disc_params]
+    losses, times = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(SETOK_TRAIN_UPDATES):
+        t = time.perf_counter()
+        metrics = tr.train_step(batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            gen_moved_1 = moved(tr.gen_params, gen_before)
+            disc_moved_1 = [n for n, p, b in zip(disc_names, tr.disc_params,
+                                                 disc_before)
+                            if not torch.equal(p.detach(), b)]
+    torch.cuda.synchronize()
+    launches = cluster_dpc.LAUNCHES
+    gen_moved_3 = moved(tr.gen_params, gen_before)
+    vit_unchanged = moved(vit, vit_before) == 0
+    checksum = float(sum(p.detach().double().sum() for p in vit))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del vit_before, gen_before, disc_before
+    profile = device_time_breakdown(lambda: tr.train_step(batches[-1], gen))
+    b = args.batch_size
+    steady = times[1:]
+    tok = tr.tokenizer_cfg
+    res = {"phase": "train_setok",
+           "config": "base_tokenizer/base_detokenizer (scripts/train_setok.sh)",
+           "batch": b, "image_size": tok.vit.image_size,
+           "compute_dtype": tr.train_cfg.compute_dtype,
+           "disc_start": tr.gan_cfg.disc_start,
+           "trainable_params": sum(p.numel() for p in tr.gen_params),
+           "disc_params": sum(p.numel() for p in tr.disc_params),
+           "frozen_params": sum(p.numel() for p in vit),
+           "build_s": build_s, "updates": SETOK_TRAIN_UPDATES,
+           "lr_per_update": [warmup_cosine(i, tr.train_cfg.learning_rate,
+                                           tr.warmup, SETOK_TRAIN_UPDATES)
+                             for i in range(SETOK_TRAIN_UPDATES)],
+           "losses": losses, "ms_per_update": [1e3 * t for t in times],
+           "ms_per_update_after_update_1": 1e3 * sum(steady) / len(steady),
+           "images_per_s_after_update_1": b * len(steady) / sum(steady),
+           "peak_memory_gb": peak_gb,
+           "cluster_launches": launches,
+           "cluster_launches_per_update": launches / SETOK_TRAIN_UPDATES,
+           "frozen_vit_checksum": checksum,
+           "frozen_vit_unchanged": vit_unchanged,
+           "generator_params_moved_by_update_1": gen_moved_1,
+           "generator_params_moved_by_update_3": [gen_moved_3,
+                                                  len(tr.gen_params)],
+           "disc_params_moved_by_update_1": [len(disc_moved_1),
+                                             len(disc_names)],
+           "profiled_update": profile,
+           "phase_seconds": time.perf_counter() - t0}
+    emit(res)
+    check(all(np.isfinite(v) for row in losses for v in row.values()),
+          "a stage-1 loss is not finite")
+    check(tr.updates == SETOK_TRAIN_UPDATES + 1, f"{tr.updates} updates")
+    check(launches == SETOK_TRAIN_UPDATES * cluster_dpc.LAUNCHES_PER_CALL,
+          f"clustering launches {launches} in {SETOK_TRAIN_UPDATES} "
+          f"updates, expected {cluster_dpc.LAUNCHES_PER_CALL} each")
+    check(vit_unchanged, "the frozen ViT moved")
+    check(gen_moved_1 == 0, f"the first update (lr 0) moved {gen_moved_1} "
+          "generator parameters")
+    check(gen_moved_3 >= 0.9 * len(tr.gen_params),
+          f"only {gen_moved_3} of {len(tr.gen_params)} generator parameters "
+          "moved by the third update")
+    check(all(n in disc_moved_1 for n in disc_names if n.endswith("weight")),
+          f"the first update moved only {disc_moved_1} of the discriminator")
+    check(peak_gb < 80.0, f"peak memory {peak_gb} GB")
+    del tr, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def setok_step_terms(tr: Stage1Trainer, batch) -> tuple:
+    """One stage-1 step's terms without an update, in one pass: the
+    generator's metrics and total, the discriminator's loss and mean
+    logits, and the gradients of the pixel head and the inner Block."""
+    total, metrics, recon = tr.generator_terms(batch)
+    named = {"pixel_head.weight": tr.model.detokenizer.pixel_head.weight}
+    named.update({f"inner_encoder.{n}": p for n, p in
+                  tr.model.tokenizer.inner_encoder.named_parameters()})
+    grads = torch.autograd.grad(total, list(named.values()))
+    with torch.no_grad():
+        real, fake = tr.disc(batch["gen_image"]), tr.disc(recon)
+        metrics.update(total_loss=total, logits_real=real.mean(),
+                       logits_fake=fake.mean(), d_loss=discriminator_loss(
+                           real, fake, tr.step, tr.gan_cfg))
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            dict(zip(named, grads)))
+
+
+def phase_train_setok_parity() -> None:
+    """The stage-1 step cut to ViT depth 2, Q-Former 2 and decoder depth 2
+    at full width, float32, dropout 0, LPIPS on: the card against the CPU
+    on the same weights and batch."""
+    t0 = time.perf_counter()
+    args = setok_train_args("--batch-size", str(SETOK_PARITY_BATCH),
+                            "--lpips")
+    tok, det = train_setok.configs(args)
+    tok = cfgs.replace(tok, vit=cfgs.replace(tok.vit, depth=2),
+                       proj_drop=0.0, attn_drop=0.0)
+    det = cfgs.replace(det, decoder_depth=2, mapper_layers=2, proj_drop=0.0,
+                       attn_drop=0.0)
+    trainers = [Stage1Trainer(
+        tok, det, gan_cfg=cfgs.GANLossConfig(disc_start=0, warm_up_end=0),
+        contrastive_cfg=cfgs.ContrastiveLossConfig(
+            text_embed_dim=tok.token_feat_dim),
+        train_cfg=cfgs.TrainConfig(compute_dtype="float32"), use_lpips=True,
+        device=dev) for dev in ("cuda", "cpu")]
+    trainers[1].init_weights_(SEED + 3)
+    for name in ("model", "disc", "contrastive", "lpips"):
+        getattr(trainers[0], name).load_state_dict(
+            getattr(trainers[1], name).state_dict())
+    for tr in trainers:
+        tr.init_state()
+    host = next(train_setok.synthetic_batches(args, tok.token_feat_dim))
+    batches = [on_card(host), {k: torch.from_numpy(v)
+                               for k, v in host.items()}]
+    with torch.no_grad():
+        toks = [tr.model.tokenize(bt["comp_image"])
+                for tr, bt in zip(trainers, batches)]
+    same = (torch.equal(toks[0].idx_cluster.cpu(), toks[1].idx_cluster)
+            and torch.equal(toks[0].num_clusters.cpu(), toks[1].num_clusters))
+    (m_g, g_g), (m_c, g_c) = (setok_step_terms(tr, bt)
+                              for tr, bt in zip(trainers, batches))
+    metrics = {k: [m_g[k], m_c[k]] for k in m_c}
+    loss_rel = {k: abs(a - b) / max(abs(b), 1e-6)
+                for k, (a, b) in metrics.items()}
+    grad_rel = {n: max_rel(g_g[n], g_c[n]) for n in g_c}
+    worst = max(grad_rel, key=grad_rel.get)
+    res = {"phase": "train_setok_parity", "vit_depth": 2, "mapper_layers": 2,
+           "decoder_depth": 2, "batch": SETOK_PARITY_BATCH,
+           "compute_dtype": "float32", "lpips": True,
+           "clusters_identical": same,
+           "num_clusters": toks[1].num_clusters.tolist(),
+           "metrics_card_cpu": metrics,
+           "metric_max_rel": max(loss_rel.values()),
+           "metric_worst": max(loss_rel, key=loss_rel.get),
+           "grads_compared": len(grad_rel), "grad_max_rel": grad_rel[worst],
+           "grad_worst": worst,
+           "pixel_head_grad_max_rel": grad_rel["pixel_head.weight"],
+           "phase_seconds": time.perf_counter() - t0}
+    emit(res)
+    check(same, "train_setok_parity: the card's clusters differ from the "
+          "CPU's")
+    check(res["metric_max_rel"] <= SETOK_PARITY_LOSS_TOL,
+          f"train_setok_parity: {res['metric_worst']} "
+          f"{metrics[res['metric_worst']]}")
+    check(res["grad_max_rel"] <= SETOK_PARITY_GRAD_TOL,
+          f"train_setok_parity: gradient {worst} {grad_rel[worst]} > "
+          f"{SETOK_PARITY_GRAD_TOL}")
+    del trainers, batches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2355,6 +2578,10 @@ def main() -> int:
     for name, e in flash_entries.items():
         e["launches"] = launches[name]
     phase_train_parity(setokim)
+    entry["train_setok_launches"] = phase_train_setok()
+    entry["train_setok_launches_per_update"] = \
+        entry["train_setok_launches"] / SETOK_TRAIN_UPDATES
+    phase_train_setok_parity()
 
     emit({"kernels": [entry, *int8_entries.values(),
                       *unfused_entries.values(), *serve_entries.values(),

@@ -33,8 +33,10 @@ class ViTConfig:
     # 'patch' drops a class token when there is one.
     select_feature: str = "patch"
     use_class_token: bool = False
-    # 2x2 token merge after this block index (None = off). The port does not
-    # run it yet; see ROADMAP.md "Queue A".
+    # 2x2 token merge after this block index (None = off): a space-to-depth
+    # fold and a linear projection, so the later blocks and the tokenizer
+    # run at N/4. merge_pool_init starts the projection as the exact 2x2
+    # average pool (0.25·[I;I;I;I], zero bias).
     merge_layer: Optional[int] = None
     merge_pool_init: bool = True
 
@@ -141,6 +143,36 @@ class DetokenizerConfig:
 
 
 @dataclass(frozen=True)
+class GANLossConfig:
+    """The stage-1 PatchGAN loss (losses/gan.py): the discriminator's input
+    channels and depth, the step at which the adversarial terms start, the
+    generator factor's linear warm-up end, the discriminator loss ('hinge'
+    or 'vanilla'), the adaptive weight and its scale, and the factor."""
+
+    disc_in_channels: int = 3
+    disc_num_layers: int = 2
+    disc_start: int = 5000
+    warm_up_end: int = 200
+    disc_loss: str = "hinge"
+    use_adaptive_weight: bool = True
+    weight: float = 1.0
+    factor: float = 1.0
+
+
+@dataclass(frozen=True)
+class ContrastiveLossConfig:
+    """The stage-1 image-text contrastive loss (losses/contrastive.py): the
+    initial temperature, the multi-label branch (0 = off) with its own
+    temperature unless shared, its weight, and the text embedding width."""
+
+    contrast_temperature: float = 0.07
+    multi_label: int = 0
+    share_temperature: bool = False
+    multi_label_loss_weight: float = 1.0
+    text_embed_dim: int = 768
+
+
+@dataclass(frozen=True)
 class DiffLossConfig:
     """MAR diffusion head (losses/diffloss.py): the per-token denoiser's
     widths, the sampling steps, the batch tiling and the mask-rate floor."""
@@ -200,11 +232,14 @@ class SetokimConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimisation settings of the trainers (train/stage2.py): AdamW, a
-    linear warm-up then cosine decay, the global-norm clip (0 disables),
-    micro-batches per update, and the mixed-precision policy (float32
-    parameters, `compute_dtype` activations, `remat` per trunk block).
-    `mesh` of the JAX package's copy is left out: the port runs on one card.
+    """Optimisation settings of the trainers (train/stage1.py,
+    train/stage2.py): AdamW, a linear warm-up then cosine decay, the
+    global-norm clip (0 disables), micro-batches per update, and the
+    mixed-precision policy (float32 parameters, `compute_dtype`
+    activations, `remat` per trunk block). Stage-1 also reads the
+    discriminator's constant learning rate and the weights of the L1,
+    LPIPS and contrastive terms. `mesh` of the JAX package's copy is left
+    out: the port runs on one card.
     """
 
     learning_rate: float = 1e-3

@@ -4,8 +4,11 @@ The counterpart of `setok_tpu/models/detokenizer.py`: learned mask-token
 queries, the Q-Former mapper cross-attending to the tokens, a linear to the
 decoder width plus a 2-D sin-cos encoding, `decoder_depth` ViT blocks, the
 final LayerNorm (eps 1e-5) and the pixel head with unpatchify. Images are
-NHWC. `quant8=True` (inference only) passes to the Q-Former and the decoder
-blocks.
+NHWC. The forward carries gradients and returns `hidden`, the pixel head's
+input, beside the image (stage-1's adaptive GAN weight differentiates the
+head alone on it). A `generator` runs the dropout of the Q-Former
+(`proj_drop`, `attn_drop`) and of the decoder blocks. `quant8=True`
+(inference only) passes to the Q-Former and the decoder blocks.
 """
 
 from __future__ import annotations
@@ -65,7 +68,9 @@ class SetokDeTokenizer(nn.Module):
         self.mapper = QFormer(cfg.hidden_dim, num_layers=cfg.mapper_layers,
                               num_heads=cfg.mapper_heads,
                               cross_attention_freq=cfg.cross_attention_freq,
-                              quant8=quant8, dtype=dtype, device=device)
+                              dropout=cfg.proj_drop,
+                              attn_dropout=cfg.attn_drop, quant8=quant8,
+                              dtype=dtype, device=device)
         self.decoder_fc_in = Dense(cfg.hidden_dim, cfg.decoder_embed_dim,
                                    dtype=dtype, device=device)
         self.register_buffer("pos", posenc_2d_flat(
@@ -74,28 +79,29 @@ class SetokDeTokenizer(nn.Module):
         for i in range(cfg.decoder_depth):
             self.add_module(f"pixel_decoder_{i}", ViTBlock(
                 cfg.decoder_embed_dim, cfg.decoder_nheads,
-                mlp_ratio=cfg.mlp_ratio, norm_eps=1e-5, quant8=quant8,
-                dtype=dtype, device=device))
+                mlp_ratio=cfg.mlp_ratio, norm_eps=1e-5,
+                proj_drop=cfg.proj_drop, attn_drop=cfg.attn_drop,
+                quant8=quant8, dtype=dtype, device=device))
         self.decoder_norm = LayerNorm(cfg.decoder_embed_dim, eps=1e-5,
                                       dtype=dtype, device=device)
         self.pixel_head = Dense(cfg.decoder_embed_dim,
                                 cfg.patch_size ** 2 * 3, dtype=dtype,
                                 device=device)
 
-    # frozen in every path the port trains so far (stage-2)
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
-                token_valid: Optional[torch.Tensor] = None) -> DetokenizerOutput:
+                token_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> DetokenizerOutput:
         """tokens: (B, K, token_feat_dim); token_valid: (B, K) bool."""
         cfg = self.cfg
         b = tokens.shape[0]
         queries = self.mask_tokens.to(self.dtype).expand(b, -1, -1)
         x = self.mapper_fc_in(tokens)
-        x = self.mapper(queries, x, token_valid)
+        x = self.mapper(queries, x, token_valid, generator)
         x = self.decoder_fc_in(x)
         x = x + self.pos.to(x.dtype)[None]
         for i in range(cfg.decoder_depth):
-            x = getattr(self, f"pixel_decoder_{i}")(x)
+            x = getattr(self, f"pixel_decoder_{i}")(x, generator=generator)
         hidden = self.decoder_norm(x)
         image = unpatchify(self.pixel_head(hidden), cfg.patch_size)
         return DetokenizerOutput(image=image, hidden=hidden)

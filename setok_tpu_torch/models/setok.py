@@ -1,6 +1,10 @@
-"""SeTok stage-1 model: tokenizer + detokenizer, inference forward.
+"""SeTok stage-1 model: tokenizer + detokenizer.
 
-The counterpart of `setok_tpu/models/setok.py`. Parameters are float32;
+The counterpart of `setok_tpu/models/setok.py`. `tokenize` and `detokenize`
+are the training entry points: they build a graph (the tokenizer's
+clustering and frozen backbone excepted) and take a `torch.Generator` for
+the dropout. `forward` is the inference entry: the whole encode→decode
+under `torch.inference_mode()`, deterministic. Parameters are float32;
 `dtype=torch.bfloat16` follows the JAX package's mixed policy (activations
 cast per op, softmax, LayerNorm statistics and clustering in float32).
 `quant8=True` is the int8 inference form that the JAX package's `bench.py`
@@ -19,8 +23,9 @@ from torch import nn
 
 from setok_tpu_torch.config import DetokenizerConfig, TokenizerConfig
 from setok_tpu_torch.kernels import fused_sublayer as fs
-from setok_tpu_torch.models.detokenizer import SetokDeTokenizer
-from setok_tpu_torch.models.tokenizer import SetokTokenizer
+from setok_tpu_torch.models.detokenizer import (DetokenizerOutput,
+                                                SetokDeTokenizer)
+from setok_tpu_torch.models.tokenizer import SetokTokenizer, TokenizerOutput
 from setok_tpu_torch.ops.blocks import DENSE_INT8_MAX
 from setok_tpu_torch.utils.device import resolve_device
 
@@ -44,6 +49,19 @@ class SeTok(nn.Module):
                                         device=device)
         self.detokenizer = SetokDeTokenizer(det_cfg, quant8=quant8,
                                             dtype=dtype, device=device)
+
+    def tokenize(self, images: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> TokenizerOutput:
+        """images (B, H, W, 3) → concept tokens, with a graph."""
+        return self.tokenizer(images, generator=generator)
+
+    def detokenize(self, tokens: torch.Tensor,
+                   token_valid: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> DetokenizerOutput:
+        """Concept tokens → image and the pixel head's input, with a graph."""
+        return self.detokenizer(tokens, token_valid, generator)
 
     @torch.inference_mode()
     def forward(self, images: torch.Tensor,

@@ -17,8 +17,10 @@ The training forward's randomness is split out: `draw_forward` makes the
 draws (the tower's dropout generator, and the diffusion branch's orders,
 mask rate, timesteps and noise) from a `torch.Generator`, and `forward`
 computes on them, so that the JAX package's draws can be replayed. The
-vision tower is frozen (its methods run without gradients); its tokens
-enter the trainable projector as constants.
+vision tower and the detokenizer are frozen, as the JAX package builds
+them (`freeze_backbone=True`, label 'frozen'): every call of them here runs
+under `torch.no_grad()`, and the tower's tokens enter the trainable
+projector as constants.
 
 The cache is written in place (models/llama.py); `cache_valid` is returned
 as a new tensor, as the JAX package returns it. The serving entry points
@@ -142,12 +144,14 @@ class Setokim(nn.Module):
     # ------------------------------------------------------------------
     def tokenize(self, images, generator=None):
         """Concept tokens of (N, H, W, 3) images (SeTok encode)."""
-        return self.vision_tower(images, generator=generator)
+        with torch.no_grad():
+            return self.vision_tower(images, generator=generator)
 
     def encode_images(self, images, generator=None):
         """images (N, H, W, 3) → (N, k_max, llama hidden), valid (N, k_max).
         The frozen tower's tokens enter the projector as constants."""
-        tok = self.vision_tower(images, generator=generator)
+        with torch.no_grad():
+            tok = self.vision_tower(images, generator=generator)
         return self.mm_in_projector(tok.tokens), tok.token_valid
 
     def prepare_multimodal(self, input_ids, images, generator=None):
@@ -264,7 +268,8 @@ class Setokim(nn.Module):
         z = torch.gather(hidden, 1, slots[..., None].expand(
             -1, -1, hidden.shape[-1]))
         z = self.mm_out_projector(z)
-        gold = self.vision_tower(gen_images)
+        with torch.no_grad():
+            gold = self.vision_tower(gen_images)
         target, target_valid = gold.tokens, gold.token_valid
         num_masked = torch.ceil(tn * draws.rate).to(torch.int64)
         diff_mask = mask_by_order(num_masked.expand(b), draws.orders)
@@ -283,9 +288,10 @@ class Setokim(nn.Module):
         detokenizer on a dummy (the one submodule the forward skips). Here
         every parameter exists at construction; this runs each once."""
         out = self(input_ids, images, labels, gen_images, draws)
-        self.vision_generator(torch.zeros(
-            (1, self.cfg.tokenizer.k_max, self.cfg.detokenizer.token_feat_dim),
-            device=self.device))
+        with torch.no_grad():
+            self.vision_generator(torch.zeros(
+                (1, self.cfg.tokenizer.k_max,
+                 self.cfg.detokenizer.token_feat_dim), device=self.device))
         return out
 
     # ------------------------------------------------------------------

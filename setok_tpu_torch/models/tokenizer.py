@@ -15,10 +15,15 @@ the card; every other case runs ops.clustering.cluster_dpc_knn.
 then run the fused int8 sublayer kernels and return float32.
 
 A `generator` runs the Blocks' dropout (`proj_drop`, `attn_drop`), as the
-JAX package's `deterministic=False` does. The tower is frozen in every path
-the port trains so far (stage-2: the JAX package stops the ViT's gradient
-and drops the rest), so its methods run under `torch.no_grad()` and hand
-out plain tensors that a trainable module downstream takes as constants.
+JAX package's `deterministic=False` does.
+
+Gradients: the clustering never carries one (`cluster` runs under
+`torch.no_grad()`: assignments are data). `freeze_backbone` (the default,
+as in the JAX package) runs the ViT without a gradient; with a token merge
+whose projection is randomly initialised (`merge_pool_init=False`) it
+freezes only the blocks up to the merge, so that the projection and the
+later blocks train (`_split_freeze`). The rest (the merge's LayerNorm
+`merge_out_norm`, `feat_proj`, the two Blocks and `out`) carries gradients.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from torch import nn
 from setok_tpu_torch.config import TokenizerConfig
 from setok_tpu_torch.kernels.cluster_dpc import cluster_dpc_knn_kernel
 from setok_tpu_torch.models.vit import ViT
-from setok_tpu_torch.ops.blocks import Block, Dense
+from setok_tpu_torch.ops.blocks import Block, Dense, LayerNorm
 from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
 from setok_tpu_torch.ops.posenc import posenc_2d_flat
@@ -47,18 +52,27 @@ class TokenizerOutput(NamedTuple):
 
 
 class SetokTokenizer(nn.Module):
-    def __init__(self, cfg: TokenizerConfig, *, quant8: bool = False,
-                 dtype=torch.float32, device=None):
+    def __init__(self, cfg: TokenizerConfig, *, freeze_backbone: bool = True,
+                 quant8: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.image_feature_encoder = ViT(cfg.vit, quant8=quant8, dtype=dtype,
-                                         device=device)
+        self.freeze_backbone = freeze_backbone
+        merged = cfg.vit.merge_layer is not None
+        self._split_freeze = (freeze_backbone and merged
+                              and not cfg.vit.merge_pool_init)
+        self.image_feature_encoder = ViT(cfg.vit, quant8=quant8,
+                                         freeze_pre_merge=self._split_freeze,
+                                         dtype=dtype, device=device)
+        # the merge's LayerNorm (flax's default eps) pins the scale of the
+        # features that the clustering and the tokens see
+        self.merge_out_norm = (LayerNorm(cfg.vit.width, eps=1e-6, dtype=dtype,
+                                         device=device) if merged else None)
         # an explicit projection when the ViT width differs from hidden_dim
         self.feat_proj = (None if cfg.vit.width == cfg.hidden_dim else
                           Dense(cfg.vit.width, cfg.hidden_dim, dtype=dtype,
                                 device=device))
-        grid = cfg.vit.grid
+        grid = cfg.vit.grid // 2 if merged else cfg.vit.grid
         self.register_buffer("pos", posenc_2d_flat(
             grid, grid, cfg.hidden_dim, dtype=torch.float64, device=device),
             persistent=False)
@@ -72,10 +86,25 @@ class SetokTokenizer(nn.Module):
         self.out = Dense(cfg.hidden_dim, cfg.token_feat_dim, dtype=dtype,
                          device=device)
 
-    @torch.no_grad()
+    def frozen_parameters(self) -> list:
+        """The backbone's parameters that no gradient reaches: under
+        `freeze_backbone` the whole ViT, or with `_split_freeze` its patch
+        and position embeddings and the blocks up to the merge."""
+        vit = self.image_feature_encoder
+        if not self.freeze_backbone:
+            return []
+        if self._split_freeze:
+            return vit.pre_merge_parameters()
+        return list(vit.parameters())
+
     def encode_features(self, images: torch.Tensor) -> torch.Tensor:
-        """ViT features + 2-D sin-cos encoding, (B, N, hidden_dim)."""
-        feats = self.image_feature_encoder(images)
+        """ViT features (+ `merge_out_norm`, `feat_proj`) + 2-D sin-cos
+        encoding, (B, N, hidden_dim)."""
+        frozen = self.freeze_backbone and not self._split_freeze
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            feats = self.image_feature_encoder(images)
+        if self.merge_out_norm is not None:
+            feats = self.merge_out_norm(feats)
         if self.feat_proj is not None:
             feats = self.feat_proj(feats)
         return feats + self.pos.to(feats.dtype)[None]
@@ -85,11 +114,12 @@ class SetokTokenizer(nn.Module):
                 token_mask: Optional[torch.Tensor] = None,
                 threshold: Optional[float] = None,
                 k: Optional[int] = None) -> ClusterResult:
-        """DPC-KNN over features x: (B, N, D), in float32."""
+        """DPC-KNN over features x: (B, N, D), in float32, without a
+        gradient."""
         cfg = self.cfg
         thr = cfg.threshold if threshold is None else threshold
         knn = cfg.knn if k is None else k
-        xs = x.float()
+        xs = x.detach().float()
         if (cfg.use_pallas_cluster and token_mask is None
                 and not cfg.cluster_dist_norm and xs.is_cuda):
             return cluster_dpc_knn_kernel(
@@ -100,7 +130,6 @@ class SetokTokenizer(nn.Module):
                                threshold=thr, token_mask=token_mask,
                                dist_norm=cfg.cluster_dist_norm)
 
-    @torch.no_grad()
     def group_encode(self, x: torch.Tensor, res: ClusterResult,
                      token_mask: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None

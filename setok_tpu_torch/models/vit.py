@@ -12,6 +12,15 @@ block output float32), else the float block structure with `Attention` and
 `Mlp` in their int8 forwards (ops/blocks.py): at 384 px the attention's
 int8 `Dense`s and `fused_mlp_int8`, at so400m every linear through
 `quant_matmul`.
+
+`ViTConfig.merge_layer` folds each 2x2 neighbourhood of patches into one
+token after that block (space-to-depth, then the `merge_proj` linear from
+4·width to width), so the later blocks and the tokenizer run at N/4. With
+`merge_pool_init` the projection starts as the exact 2x2 average pool.
+The forward carries gradients; `freeze_pre_merge` runs the blocks up to
+the merge without them (the JAX package's stop-gradient there), which the
+tokenizer asks for when a frozen backbone meets a randomly initialised
+merge projection.
 """
 
 from __future__ import annotations
@@ -59,12 +68,9 @@ class ViT(nn.Module):
     """
 
     def __init__(self, cfg: ViTConfig, *, quant8: bool = False,
-                 dtype=torch.float32, device=None):
+                 freeze_pre_merge: bool = False, dtype=torch.float32,
+                 device=None):
         super().__init__()
-        if cfg.merge_layer is not None:
-            raise NotImplementedError(
-                "ViTConfig.merge_layer (the 2x2 token merge) is not ported "
-                "yet: ROADMAP.md, Queue A, 'token merge'")
         if cfg.use_class_token:
             raise NotImplementedError(
                 "ViTConfig.use_class_token is not ported: no configuration "
@@ -72,6 +78,7 @@ class ViT(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
+        self.freeze_pre_merge = freeze_pre_merge
         p, c = cfg.patch_size, cfg.width
         self.patch_embed = Dense(p * p * 3, c, dtype=dtype, device=device)
         self.pos_embed = nn.Parameter(
@@ -81,9 +88,41 @@ class ViT(nn.Module):
             self.add_module(f"block_{i}", ViTEncoderBlock(
                 c, cfg.num_heads, cfg.mlp_ratio, quant8=quant8, dtype=dtype,
                 device=device))
+        self.merge_proj = None
+        if cfg.merge_layer is not None:
+            self.merge_proj = Dense(4 * c, c, dtype=dtype, device=device)
+            self.init_fixed_()
 
-    # frozen wherever the port runs it (the JAX package stops its gradient)
     @torch.no_grad()
+    def init_fixed_(self) -> None:
+        """The parameters that the configuration fixes rather than draws:
+        with `merge_pool_init`, `merge_proj` as the exact 2x2 average pool
+        (the folded axis holds the four neighbours as blocks of width, so
+        0.25·[I I I I] averages them) and a zero bias."""
+        if self.merge_proj is None or not self.cfg.merge_pool_init:
+            return
+        c = self.cfg.width
+        eye = torch.eye(c, device=self.merge_proj.weight.device)
+        self.merge_proj.weight.copy_(0.25 * torch.cat([eye] * 4, dim=1))
+        self.merge_proj.bias.zero_()
+
+    def pre_merge_parameters(self) -> list:
+        """The parameters of what runs before the merge (the patch and
+        position embeddings and the blocks up to `merge_layer`): those
+        `freeze_pre_merge` runs without a gradient."""
+        blocks = [getattr(self, f"block_{i}")
+                  for i in range(self.cfg.merge_layer + 1)]
+        return [self.pos_embed, *self.patch_embed.parameters(),
+                *(p for b in blocks for p in b.parameters())]
+
+    def merge(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, g·g, C) → (B, g/2·g/2, 4C): each 2x2 neighbourhood of the
+        patch grid into one token, its four patches in row-major order."""
+        b, n, c = x.shape
+        g = int(round(n ** 0.5))
+        x = x.reshape(b, g // 2, 2, g // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(b, (g // 2) * (g // 2), 4 * c)
+
     def forward(self, images: torch.Tensor,
                 select_layer: Optional[int] = None) -> torch.Tensor:
         cfg = self.cfg
@@ -92,10 +131,22 @@ class ViT(nn.Module):
             raise IndexError(f"select_layer {sel} out of range for depth "
                              f"{cfg.depth}")
         tap = sel % cfg.depth          # HF hidden_states: -1 = last block
+        merge_at = cfg.merge_layer
+        if merge_at is not None and tap < merge_at:
+            raise ValueError(f"select_layer {sel} taps a block before the "
+                             f"merge after block {merge_at}")
 
-        x = self.patch_embed(patchify(images.to(self.dtype), cfg.patch_size))
-        x = x + self.pos_embed.to(self.dtype)
         # blocks after the tapped one would be dead compute
-        for i in range(tap + 1):
+        pre = tap if merge_at is None else merge_at
+        frozen = self.freeze_pre_merge and merge_at is not None
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            x = self.patch_embed(patchify(images.to(self.dtype),
+                                          cfg.patch_size))
+            x = x + self.pos_embed.to(self.dtype)
+            for i in range(pre + 1):
+                x = getattr(self, f"block_{i}")(x)
+        if merge_at is not None:
+            x = self.merge_proj(self.merge(x))
+        for i in range(pre + 1, tap + 1):
             x = getattr(self, f"block_{i}")(x)
         return x

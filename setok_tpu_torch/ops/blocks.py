@@ -343,23 +343,30 @@ class Block(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    """Pre-norm timm-style ViT block, used by the pixel decoder."""
+    """Pre-norm timm-style ViT block, used by the pixel decoder; its
+    attention takes `attn_drop` and `proj_drop`, its MLP `proj_drop`."""
 
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, norm_eps: float, quant8: bool = False,
-                 dtype=torch.float32, device=None):
+                 qkv_bias: bool = True, norm_eps: float,
+                 proj_drop: float = 0.0, attn_drop: float = 0.0,
+                 quant8: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         self.quant8 = quant8
         self.norm1 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
+                              attn_drop=attn_drop, proj_drop=proj_drop,
                               quant8=quant8, dtype=dtype, device=device)
         self.norm2 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant8=quant8, dtype=dtype,
-                       device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=proj_drop,
+                       quant8=quant8, dtype=dtype, device=device)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
-        if self.quant8 and fused_int8_fits(self.attn, self.mlp, x, mask):
-            x = self.attn.sublayer_int8(x.float(), self.norm1, mask)
-            return self.mlp.sublayer_int8(x, self.norm2)
-        x = x + self.attn(self.norm1(x), mask=mask)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        if self.quant8:
+            if generator is not None:
+                raise ValueError("quant8 is inference only: no dropout")
+            if fused_int8_fits(self.attn, self.mlp, x, mask):
+                x = self.attn.sublayer_int8(x.float(), self.norm1, mask)
+                return self.mlp.sublayer_int8(x, self.norm2)
+        x = x + self.attn(self.norm1(x), mask=mask, generator=generator)
+        return x + self.mlp(self.norm2(x), generator)

@@ -63,6 +63,44 @@ def warmup_cosine(count: int, peak: float, warmup: int, total: int) -> float:
     return peak * 0.5 * (1.0 + math.cos(math.pi * c / decay))
 
 
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares (optax.global_norm)."""
+    return torch.sqrt(sum((g * g).sum() for g in grads))
+
+
+def clip_by_global_norm(grads, max_norm: float) -> list:
+    """optax.clip_by_global_norm: every gradient g / norm · max_norm where
+    the global norm is at least max_norm (not `clip_grad_norm_`'s rule)."""
+    norm = global_norm(grads)
+    clip = norm >= max_norm
+    return [torch.where(clip, g / norm * max_norm, g) for g in grads]
+
+
+def accumulate(acc, grads, n: int):
+    """optax.MultiSteps' running mean of the micro-batches' gradients: the
+    first micro-batch's (n = 0), then acc += (g - acc) / (n + 1)."""
+    if n == 0:
+        return grads
+    for a, g in zip(acc, grads):
+        a.add_((g - a) / (n + 1))
+    return acc
+
+
+@torch.no_grad()
+def optimizer_step(opt: torch.optim.Optimizer, params, grads,
+                   max_norm: float, lr) -> None:
+    """One update of `opt`: the gradients clipped to `max_norm` (0: not at
+    all) by their global norm, each group at the rate `lr(group)`."""
+    if max_norm > 0:
+        grads = clip_by_global_norm(grads, max_norm)
+    for p, g in zip(params, grads):
+        p.grad = g
+    for group in opt.param_groups:
+        group["lr"] = lr(group)
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+
+
 @dataclasses.dataclass(eq=False)
 class Stage2Trainer:
     cfg: SetokimConfig
@@ -198,34 +236,17 @@ class Stage2Trainer:
                  for p, g in zip(self.trainable, grads)]
         k = self.train_cfg.grad_accum_steps
         n = self.step % k
-        if n == 0:
-            self._acc = grads
-        else:
-            for acc, g in zip(self._acc, grads):
-                acc.add_((g - acc) / (n + 1))
+        self._acc = accumulate(self._acc, grads, n)
         self.step += 1
         if n == k - 1:
-            self._update(self._acc)
+            optimizer_step(self.optimizer, self.trainable, self._acc,
+                           self.train_cfg.max_grad_norm,
+                           lambda group: self.lr(group["label"]))
+            self.updates += 1
             self._acc = None
         return {"lm_loss": out.lm_loss.detach(),
                 "diff_loss": out.diff_loss.detach(),
                 "total_loss": out.loss.detach()}
-
-    @torch.no_grad()
-    def _update(self, grads) -> None:
-        max_norm = self.train_cfg.max_grad_norm
-        if max_norm > 0:
-            norm = torch.sqrt(sum((g * g).sum() for g in grads))
-            clip = norm >= max_norm
-            grads = [torch.where(clip, g / norm * max_norm, g)
-                     for g in grads]
-        for p, g in zip(self.trainable, grads):
-            p.grad = g
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr(group["label"])
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        self.updates += 1
 
     def merged_params(self) -> Dict[str, torch.Tensor]:
         """The model's state dict with the adapters merged in."""

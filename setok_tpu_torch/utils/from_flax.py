@@ -8,7 +8,9 @@ conversions:
   * a Dense `kernel (in, out)` becomes `weight = kernel.T`;
   * the patch-embed Conv `kernel (p, p, 3, C)` (HWIO) becomes the
     `(C, p·p·3)` weight of the patchify matmul;
-  * a LayerNorm or RMSNorm `scale` becomes `weight`;
+  * any other Conv `kernel (kh, kw, in, out)` (HWIO: the discriminator's,
+    LPIPS') becomes the `(out, in, kh, kw)` weight of `F.conv2d`;
+  * a LayerNorm, RMSNorm or GroupNorm `scale` becomes `weight`;
   * an Embed `embedding (vocab, C)` becomes the `nn.Embedding` weight;
   * a `QuantDense` `q (in, out)` int8 and a `Quant4Dense` `p (in/2, out)`
     int8 stay int8, transposed to the (out, in) layout of the port's
@@ -25,6 +27,10 @@ unused leaf raises.
 {'a': (in, r), 'b': (r, out)}}, paths such as
 "['params']['llama']['model']['layer_0']['attn']['q_proj']['kernel']") into
 the port's adapters ({module name: (A, B)}, the same layout), strictly.
+
+`load_stage1_flax` fills a stage-1 trainer from the JAX `Stage1State`'s
+trees: `gen_params` {'setok', 'contrastive'[, 'text_encoder']},
+`disc_params` and `lpips_params`, each strictly.
 """
 
 from __future__ import annotations
@@ -74,12 +80,15 @@ def from_flax(params, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
             continue
         leaf = path[-1]
         if leaf == "kernel":
-            if value.ndim == 4:                 # HWIO conv → patchify matmul
-                value = value.reshape(-1, value.shape[-1])
-            if value.ndim != 2:
+            if value.ndim == 4 and path[-2] != "patch_embed":
+                value = value.transpose(3, 2, 0, 1)    # HWIO → OIHW
+            elif value.ndim == 4:               # HWIO conv → patchify matmul
+                value = value.reshape(-1, value.shape[-1]).T
+            elif value.ndim == 2:
+                value = value.T
+            else:
                 raise ValueError(f"{'/'.join(path)}: kernel of shape "
                                  f"{value.shape}")
-            value = value.T
         elif leaf in ("q", "p"):                # int8 (in or in/2, out)
             if value.ndim != 2 or value.dtype != np.int8:
                 raise ValueError(f"{'/'.join(path)}: int8 matrix expected, "
@@ -88,7 +97,7 @@ def from_flax(params, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
         key = flax_state_key(path)
         if key in state:
             raise KeyError(f"two flax leaves map to {key}")
-        value = np.ascontiguousarray(value)
+        value = np.array(value, order="C")     # 0-d leaves stay 0-d
         state[key] = (torch.from_numpy(value.copy())
                       if np.issubdtype(value.dtype, np.integer)
                       else torch.tensor(value, dtype=torch.float32))
@@ -142,3 +151,27 @@ def load_flax_params(model: nn.Module, params,
                              f"{own[key].dtype}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def load_stage1_flax(trainer, gen_params, disc_params,
+                     lpips_params=None):
+    """Fill a `train.stage1.Stage1Trainer`'s modules from the JAX
+    `Stage1State` trees (numpy leaves). The generator tree must hold
+    exactly the trainer's parts ('setok', 'contrastive', and
+    'text_encoder' when the trainer has one), and `lpips_params` must be
+    given exactly when it has an LPIPS net."""
+    parts = {"setok": trainer.model, "contrastive": trainer.contrastive}
+    if trainer.text_encoder is not None:
+        parts["text_encoder"] = trainer.text_encoder
+    if set(gen_params) != set(parts):
+        raise KeyError(f"gen_params holds {sorted(gen_params)}, the "
+                       f"trainer {sorted(parts)}")
+    if (lpips_params is None) != (trainer.lpips is None):
+        raise KeyError("lpips_params must be given exactly when the "
+                       "trainer has an LPIPS net")
+    for name, module in parts.items():
+        load_flax_params(module, gen_params[name])
+    load_flax_params(trainer.disc, disc_params)
+    if trainer.lpips is not None:
+        load_flax_params(trainer.lpips, lpips_params)
+    return trainer

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -17,30 +19,47 @@ _NORMAL_002 = ("time_embed.fc1.weight", "time_embed.fc2.weight")
 _ZEROS = ("adaLN.weight", "final_layer.linear.weight")
 
 
-def _draw(name: str, shape, gen: torch.Generator, device) -> torch.Tensor:
-    """Matrices LeCun-normal (std 1/sqrt(fan_in)), embeddings and the
-    timestep MLP N(0, 0.02²), the diffusion head's modulations and final
-    projection 0, norm weights 1, biases 0."""
+def _draw(name: str, shape, gen: torch.Generator, device,
+          conv_std=None) -> torch.Tensor:
+    """Matrices LeCun-normal (std 1/sqrt(fan_in)), convolution kernels
+    (out, in, kh, kw) too (fan_in = in·kh·kw) unless `conv_std` is given
+    (then N(0, conv_std²)), embeddings and the timestep MLP N(0, 0.02²),
+    the diffusion head's modulations and final projection 0, norm weights 1,
+    biases 0."""
     if name.endswith(_ZEROS):
         return torch.zeros(shape, device=device)
     if name.rsplit(".", 1)[-1] in _EMBEDDINGS or name.endswith(_NORMAL_002):
         return torch.randn(shape, generator=gen, device=device) * 0.02
-    if len(shape) == 2:
-        return (torch.randn(shape, generator=gen, device=device)
-                * shape[1] ** -0.5)
+    if len(shape) in (2, 4):
+        std = (conv_std if conv_std is not None and len(shape) == 4
+               else math.prod(shape[1:]) ** -0.5)
+        return torch.randn(shape, generator=gen, device=device) * std
     if name.endswith("weight"):
         return torch.ones(shape, device=device)
     return torch.zeros(shape, device=device)
 
 
+def _init_fixed(model: nn.Module) -> None:
+    """The parameters a configuration fixes rather than draws (a pool-init
+    merge projection, the contrastive temperatures): each module's
+    `init_fixed_`, where it has one."""
+    for mod in model.modules():
+        if hasattr(mod, "init_fixed_"):
+            mod.init_fixed_()
+
+
 @torch.no_grad()
-def init_random_(model: nn.Module, seed: int) -> nn.Module:
-    """Overwrite every parameter from a CPU generator seeded with `seed`.
-    The draw does not depend on the device the model lies on, so a model
-    on the card and one on the CPU get the same weights."""
+def init_random_(model: nn.Module, seed: int,
+                 conv_std=None) -> nn.Module:
+    """Overwrite every parameter from a CPU generator seeded with `seed`
+    (then the fixed ones, `_init_fixed`). The draw does not depend on the
+    device the model lies on, so a model on the card and one on the CPU get
+    the same weights. `conv_std`: convolution kernels N(0, conv_std²) (the
+    discriminator's flax initializer), else LeCun-normal."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
-        p.copy_(_draw(name, p.shape, gen, "cpu"))
+        p.copy_(_draw(name, p.shape, gen, "cpu", conv_std))
+    _init_fixed(model)
     return model
 
 
@@ -58,6 +77,7 @@ def init_setokim_random_(model: nn.Module, seed: int,
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, p in model.named_parameters():
         p.copy_(_draw(name, p.shape, gen, device))
+    _init_fixed(model)
     for name, mod in model.named_modules():
         if isinstance(mod, QuantDense):
             bits, group, out, inp = 8, 0, *mod.q.shape

@@ -16,7 +16,7 @@ CATEGORIES = (
     ("flash_forward", ("flash_fwd", "flash_classes")),
     ("flash_dq", ("flash_dq",)),
     ("flash_dkv", ("flash_dkv",)),
-    ("cluster_dpc", ("density_kernel", "parent_kernel", "sqnorm_kernel")),
+    ("cluster_dpc", ("gram_kernel", "density_parent_kernel")),
     # the int8 sublayers' and fused_mlp_int8's wgmma GEMMs (their epilogues
     # name them), and their one-read pass over the hidden or attention rows
     ("int8_mlp_gemm", ("mlpfc",)),
@@ -28,7 +28,12 @@ CATEGORIES = (
     ("cache_attention", ("cache_attn_kernel",)),
     ("int8_attention_mma", ("attn_mma_kernel",)),
     ("int8_rows", ("rows_kernel",)),
+    # cuDNN's convolutions (the discriminator, LPIPS), forward and both
+    # backward products, before the GEMMs whose names they share
+    ("convolution", ("fprop", "dgrad", "wgrad", "cudnn", "conv2d",
+                     "convolve")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
+    ("pooling", ("max_pool", "pool2d")),
     ("softmax", ("softmax",)),
     ("layer_norm", ("layer_norm",)),
     ("gelu", ("gelu",)),

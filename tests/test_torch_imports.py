@@ -26,6 +26,15 @@ def test_port_and_chip_smoke_import_no_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         setok_tpu_torch.__path__, prefix="setok_tpu_torch."))
     assert "setok_tpu_torch.kernels.cluster_dpc" in modules
+    # the stage-1 training path
+    assert {"setok_tpu_torch.train.stage1", "setok_tpu_torch.losses.gan",
+            "setok_tpu_torch.losses.lpips",
+            "setok_tpu_torch.losses.contrastive",
+            "setok_tpu_torch.losses.mse",
+            "setok_tpu_torch.models.text_encoder",
+            "setok_tpu_torch.utils.metrics",
+            "setok_tpu_torch.utils.synthetic",
+            "setok_tpu_torch.scripts.train_setok"} <= set(modules)
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, "setok_tpu_torch", *modules,
          "chip_smoke", "chip_kernel_times"],

@@ -373,7 +373,8 @@ def test_int8_group_encode_on_blobs_with_empty_clusters():
     want = jm.apply(params, jnp.asarray(feats), method=JTok.tokenize_features)
     tm = load_flax_params(SetokTokenizer(tcfg.tiny_tokenizer(), quant8=True,
                                          device="cpu"), to_np(params))
-    got = tm.tokenize_features(torch.from_numpy(feats))
+    with torch.no_grad():
+        got = tm.tokenize_features(torch.from_numpy(feats))
     np.testing.assert_array_equal(got.idx_cluster.numpy(),
                                   np.asarray(want.idx_cluster))
     valid = got.token_valid.numpy()

@@ -52,13 +52,14 @@ def test_vit_matches_jax():
     want = np.asarray(jm.apply(params, jnp.asarray(x)))
     tm = load_flax_params(ViT(tcfg.tiny_tokenizer().vit, device="cpu"),
                           to_np(params))
-    got = tm(torch.from_numpy(x)).numpy()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+        got0 = tm(torch.from_numpy(x), select_layer=0).numpy()
     assert got.shape == want.shape
     assert max_abs(got, want) <= TOL
     # select_layer taps work as HF hidden_states do
     want0 = np.asarray(jm.apply(params, jnp.asarray(x), select_layer=0))
-    assert max_abs(tm(torch.from_numpy(x), select_layer=0).numpy(),
-                   want0) <= TOL
+    assert max_abs(got0, want0) <= TOL
 
 
 def test_vit_drops_the_ragged_edge_as_jax():
@@ -72,7 +73,8 @@ def test_vit_drops_the_ragged_edge_as_jax():
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
     want = np.asarray(jm.apply(params, jnp.asarray(x)))
     tm = load_flax_params(ViT(tvit, device="cpu"), to_np(params))
-    got = tm(torch.from_numpy(x)).numpy()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (2, 16, jvit.width)
     assert max_abs(got, want) <= TOL
 
@@ -85,7 +87,8 @@ def test_tokenizer_matches_jax(seed):
     want = jm.apply(params, jnp.asarray(x))
     tm = load_flax_params(SetokTokenizer(tcfg.tiny_tokenizer(), device="cpu"),
                           to_np(params))
-    got = tm(torch.from_numpy(x))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
     np.testing.assert_array_equal(got.idx_cluster.numpy(),
                                   np.asarray(want.idx_cluster))
     np.testing.assert_array_equal(got.num_clusters.numpy(),
@@ -108,8 +111,9 @@ def test_qformer_matches_jax():
     tm = load_flax_params(QFormer(32, num_layers=3, num_heads=2,
                                   cross_attention_freq=2, device="cpu"),
                           to_np(params))
-    got = tm(torch.from_numpy(q), torch.from_numpy(enc),
-             torch.from_numpy(mask)).numpy()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(q), torch.from_numpy(enc),
+                 torch.from_numpy(mask)).numpy()
     assert max_abs(got, want) <= TOL
 
 
@@ -124,7 +128,8 @@ def test_detokenizer_matches_jax():
     want = jm.apply(params, tokens, valid)
     tm = load_flax_params(SetokDeTokenizer(tcfg.tiny_detokenizer(),
                                            device="cpu"), to_np(params))
-    got = tm(torch.from_numpy(tokens), torch.from_numpy(valid))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(tokens), torch.from_numpy(valid))
     assert got.image.shape == want.image.shape == (2, 32, 32, 3)
     assert max_abs(got.image.numpy(), want.image) <= TOL
     assert max_abs(got.hidden.numpy(), want.hidden) <= TOL
@@ -182,8 +187,10 @@ def test_entry_points_default_to_the_card(build, monkeypatch):
         build()
 
 
-@pytest.mark.parametrize("option", [{"merge_layer": 0},
-                                    {"use_class_token": True}])
+# the merge_layer case (option0) went with the code that raised: the token
+# merge is ported (tests/test_torch_token_merge.py)
+@pytest.mark.parametrize("option", [{"use_class_token": True}],
+                         ids=["option1"])
 def test_unported_vit_options_raise(option):
     vit = tcfg.replace(tcfg.tiny_tokenizer().vit, **option)
     with pytest.raises(NotImplementedError, match=next(iter(option))):
