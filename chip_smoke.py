@@ -74,6 +74,22 @@ the last line:
                 the weight-streaming bound, a profiled decode step, and the
                 launches of each kernel per decode step (one a trunk
                 linear) and per admission;
+  generate      on the bits-8 model of serve (its diffusion head moved off
+                its zero initialisation by N(0, 0.02²) from the seed): the
+                serving requests at decode_block 4 and in single steps, in
+                turns (1, 4, 4, 1: identical greedy streams; tokens/s,
+                dispatches, a profiled dispatch's busy share; per dispatch
+                4 x the launches of rows 8 and 11 of a step), a batch mixing greedy rows and
+                rows at temperature 0.8 / top-p 0.9 (the greedy rows
+                unchanged), generate_image over the 80 hidden states of a
+                real decode (16 iterations of 100 sampling steps, cfg 1
+                and 3: a finite (1, 256, 256, 3) image, its ms, no launch
+                of a table kernel, a profiled render by kernel kind), the
+                requests again with im_start_id / im_end_id taken from the
+                greedy streams (the pair with the fewest spans; every
+                non-empty span rendered at retirement), and the render cut to 2 iterations of 10
+                steps on a fixed span and fixed draws, card against CPU
+                (tokens and image within FWD_REL_TOL);
   serve_parity  the same with the trunk cut to 2 layers, through the
                 kernels and through the plain versions on the card: logits
                 at every step and greedy tokens;
@@ -158,11 +174,15 @@ from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
                                            quantize_weight,
                                            quantize_weight_int4,
                                            unpack_nibbles)
+from setok_tpu_torch.diffusion.gaussian import create_diffusion
+from setok_tpu_torch.losses.diffloss import SampleDraws
 from setok_tpu_torch.losses.gan import discriminator_loss
 from setok_tpu_torch.models.llama import (TRUNK_LINEARS, make_attention_mask,
                                           valid_quant_group)
 from setok_tpu_torch.models.setok import SeTok, expected_calls
-from setok_tpu_torch.models.setokim import Setokim, splice_layout
+from setok_tpu_torch.models.generate import (find_image_spans,
+                                             generate_image, generate_text)
+from setok_tpu_torch.models.setokim import ImageDraws, Setokim, splice_layout
 from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
 from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
@@ -1523,12 +1543,15 @@ def trunk_bytes(model: Setokim) -> int:
                for t in mod.buffers())
 
 
-def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None):
-    """The requests through a ServeEngine; per step its wall time, its
-    prefill calls and the launch counts it added."""
+def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None,
+               submit_kw=None, **engine_kw):
+    """The requests through a ServeEngine (`engine_kw` beside the serving
+    configuration; `submit_kw` a dict of submit arguments per request);
+    per step its wall time, its prefill calls and the launch counts it
+    added. Renders left at the end are harvested before the check."""
     eng = ServeEngine(model, max_batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
                       max_len=MAX_LEN, eos_id=-1, pad_id=0,
-                      cache_dtype=torch.int8)
+                      cache_dtype=torch.int8, **engine_kw)
     prefills = {"image": 0, "text": 0}
 
     def counted(kind, fn):
@@ -1541,8 +1564,9 @@ def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None):
     eng._prefill_text_impl = counted("text", eng._prefill_text_impl)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    handles = [eng.submit(ids, image=img, max_new_tokens=new_tokens)
-               for ids, img in reqs]
+    handles = [eng.submit(ids, image=img, max_new_tokens=new_tokens,
+                          **(submit_kw[i] if submit_kw else {}))
+               for i, (ids, img) in enumerate(reqs)]
     steps, profile = [], None
     while True:
         before = (serve_counts(), sum(prefills.values()))
@@ -1567,13 +1591,16 @@ def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None):
             - before[0]["cache_attention"]})
         if active == 0 and eng._queue.empty():
             break
+    eng._harvest_renders()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(all(r.done for r in handles), "a request did not finish")
     return eng, handles, steps, prefills, wall, profile
 
 
-def phase_serve(cfg, bits: int) -> dict:
-    """The serving path at full width at `bits`, its counts from one run."""
+def phase_serve(cfg, bits: int, keep: bool = False):
+    """The serving path at full width at `bits`, its counts from one run
+    (and, with `keep`, the model, for the next phase)."""
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = build_setokim(cfg, bits)
@@ -1652,11 +1679,255 @@ def phase_serve(cfg, bits: int) -> dict:
     check(not counts["quant_matmul"]["quant_matmul" if bits == 4
                                      else "quant4_matmul"],
           "the other weight format's kernel launched")
+    out = {"calls": calls, "launches": counts["quant_matmul_launches"][name],
+           "cache_launches": counts["cache_attention"],
+           "decode_steps": len(decode)}
+    if keep:
+        return out, model
     del model, eng
     torch.cuda.empty_cache()
-    return {"calls": calls, "launches": counts["quant_matmul_launches"][name],
-            "cache_launches": counts["cache_attention"],
-            "decode_steps": len(decode)}
+    return out
+
+
+# ----------------------------------------------------------------------------
+# generation: decode_block, per-request sampling, image generation
+
+GEN_BLOCK = 4               # decode steps per dispatch, against 1
+GEN_ITERS = 16              # MaskGIT iterations of a full render
+GEN_CFG = 3.0               # the guided render's scale
+GEN_CUT_ITERS, GEN_CUT_STEPS = 2, "10"     # the render held to the CPU
+GEN_SAMPLED = {"temperature": 0.8, "top_p": 0.9}
+
+
+def all_launches() -> dict:
+    """Every kernel's launches since the last reset, by table row name."""
+    out = {"dpc_density_parent": cluster_dpc.LAUNCHES,
+           "int8_cache_decode_attention": ca.LAUNCHES, **qm.LAUNCHES,
+           **fa.LAUNCHES}
+    for mod in (fs, fba, fm, fai):
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def move_diffusion_head(model: Setokim) -> None:
+    """The diffusion head's parameters moved by N(0, 0.02²) from the seed:
+    its zero-initialised modulations and output layer would leave the
+    sampler's model output at 0."""
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 13)
+    with torch.no_grad():
+        for p in model.diffloss.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen,
+                                      device=p.device))
+
+
+def span_markers(streams) -> tuple:
+    """The pair of ids (start, end) of the first stream between which it
+    holds a non-empty span, with the fewest spans over all the streams
+    (each span is a full render)."""
+    first = streams[0]
+    pairs = {(start, end) for i, start in enumerate(first)
+             for end in first[i + 2:]
+             if end != start and spans_of(first, start, end)}
+    if not pairs:
+        raise SystemExit(f"chip_smoke: FAILED: no id pair of the greedy "
+                         f"stream {first} holds a non-empty span")
+    return min(sorted(pairs), key=lambda p: sum(
+        len(spans_of(t, *p)) for t in streams))
+
+
+def spans_of(tokens, start: int, end: int) -> list:
+    return [(s, e) for s, e in find_image_spans(np.asarray(tokens), start,
+                                                end) if e > s]
+
+
+def fixed_image_draws(b: int, seq_len: int, c: int, num_iter: int,
+                      steps: int, use_cfg: bool):
+    """Draws of one sample_image_tokens made on the CPU from the seed, and
+    a function that places them on a device."""
+    gen = torch.Generator().manual_seed(SEED + 17)
+    orders = torch.argsort(torch.rand((b, seq_len), generator=gen), dim=1)
+    n = b * seq_len * (2 if use_cfg else 1)
+    its = [(torch.randn((n // 2 if use_cfg else n, c), generator=gen),
+            torch.randn((steps, n, c), generator=gen))
+           for _ in range(num_iter)]
+
+    def on(device) -> ImageDraws:
+        placed = [SampleDraws(a.to(device), z.to(device).__getitem__)
+                  for a, z in its]
+        return ImageDraws(orders.to(device), placed.__getitem__)
+    return on
+
+
+def timed_render(model, span, scale: float) -> tuple:
+    """One full render from the seed: (image, ms, every launch of the
+    table's kernels it made)."""
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    image = generate_image(model, span, gen, GEN_ITERS, scale)
+    torch.cuda.synchronize()
+    return image, 1e3 * (time.perf_counter() - t), all_launches()
+
+
+def engine_run_summary(handles, steps, wall, profile, block: int) -> dict:
+    decode = [st for st in steps if st["decode"]]
+    pure = [st for st in decode if not st["prefills"]]
+    ntok = sum(len(r.tokens) for r in handles)
+    return {"decode_block": block, "tokens": ntok, "wall_s": wall,
+            "tokens_per_s": ntok / wall, "steps": len(steps),
+            "decode_dispatches": len(decode),
+            "pure_dispatch_ms_median": statistics.median(
+                1e3 * st["s"] for st in pure),
+            "ttft_mean_ms": 1e3 * statistics.mean(r.ttft for r in handles),
+            "profiled_dispatch": profile,
+            "busy_share": profile["busy_share"],
+            "device_ms_per_token_step": profile["device_ms"] / block}
+
+
+def phase_generate(cfg, model: Setokim) -> dict:
+    """Generation at full width on the bits-8 model of phase_serve: the
+    serving requests at decode_block 4 against single steps, a batch
+    mixing greedy and sampled rows, full renders of an 80-token span of a
+    real decode (cfg 1 and GEN_CFG), a render through the engine's
+    retirement, and a cut render held to the CPU. Returns the launches of
+    rows 8 and 11 in the decode_block run."""
+    t0 = time.perf_counter()
+    dev = model.device
+    move_diffusion_head(model)
+    layers = cfg.llama.num_layers
+    per_call = len(TRUNK_LINEARS) * layers
+    reqs = serve_requests(cfg, SEED + 8)
+    runs, handles_of, block_counts = [], [], None
+    # in turns: single steps, blocks, blocks, single steps
+    for block in (1, GEN_BLOCK, GEN_BLOCK, 1):
+        reset_counts()
+        _, handles, steps, _, wall, _ = run_engine(
+            model, reqs, NEW_TOKENS, decode_block=block)
+        counts = serve_counts()
+        # the profiled dispatch, in a run of its own: a pure decode one
+        profile = run_engine(model, reqs[:SERVE_BATCH], 8 if block == 1
+                             else 12, profile_step=3 if block == 1 else 1,
+                             decode_block=block)[-1]
+        runs.append(engine_run_summary(handles, steps, wall, profile, block))
+        handles_of.append([r.tokens for r in handles])
+        pure = [st for st in steps if st["decode"] and not st["prefills"]]
+        check(bool(pure) and all(
+            st["quant_launches"] == per_call * block
+            and st["cache_launches"] == layers * block for st in pure),
+            f"decode_block {block}: a dispatch did not launch "
+            f"{per_call * block} quant_matmul and {layers * block} "
+            "cache-attention kernels")
+        check(all(len(r.tokens) == NEW_TOKENS for r in handles),
+              f"decode_block {block}: a request stopped early")
+        if block == GEN_BLOCK and block_counts is None:
+            block_counts = counts
+    greedy = handles_of[0]
+    identical = all(tokens == greedy for tokens in handles_of)
+
+    # greedy and sampled rows in one batch
+    mixed_kw = [GEN_SAMPLED if i % 2 else {} for i in range(len(reqs))]
+    mixed = run_engine(model, reqs, NEW_TOKENS, submit_kw=mixed_kw,
+                       per_request_sampling=True)[1]
+    greedy_rows_same = all(mixed[i].tokens == greedy[i]
+                           for i in range(0, len(reqs), 2))
+    sampled_rows_moved = sum(mixed[i].tokens != greedy[i]
+                             for i in range(1, len(reqs), 2))
+
+    # full renders of an 80-token span of a real decode
+    ids, image = reqs[0]
+    row = np.zeros((1, PROMPT_LEN), np.int64)
+    row[0, :len(ids)] = ids
+    out = generate_text(model, torch.from_numpy(row).to(dev),
+                        torch.from_numpy(image)[None].to(dev),
+                        cfg.target_num + 1, eos_id=-1)
+    span = out.hidden[:, :cfg.target_num]
+    renders = {}
+    for scale in (1.0, GEN_CFG):
+        img, ms, launches = timed_render(model, span, scale)
+        renders[scale] = {"cfg_scale": scale, "shape": list(img.shape),
+                          "finite": bool(torch.isfinite(img).all()),
+                          "ms": ms, "launches": {
+                              k: v for k, v in launches.items() if v}}
+        check(tuple(img.shape) == (1, 256, 256, 3)
+              and renders[scale]["finite"],
+              f"render at cfg {scale}: shape {tuple(img.shape)}, finite "
+              f"{renders[scale]['finite']}")
+        check(not any(launches.values()),
+              f"the render launched a kernel of the table: {launches}")
+    profile = device_time_breakdown(lambda: generate_image(
+        model, span, torch.Generator(device=dev).manual_seed(SEED),
+        GEN_ITERS, 1.0))
+
+    # a render through the engine's retirement: markers from the greedy run
+    start, end = span_markers(greedy)
+    want_spans = [len(spans_of(t, start, end)) for t in greedy]
+    t = time.perf_counter()
+    _, served, *_ = run_engine(model, reqs, NEW_TOKENS, im_start_id=start,
+                               im_end_id=end, num_iter=GEN_ITERS)
+    engine_render_s = time.perf_counter() - t
+    engine_images = [len(r.images_out) for r in served]
+    engine_ok = ([r.tokens for r in served] == greedy
+                 and engine_images == want_spans
+                 and all(im.shape == (256, 256, 3) and np.isfinite(im).all()
+                         for r in served for im in r.images_out))
+
+    # the cut render, card against CPU, on the same weights and draws
+    cut = cfgs.replace(cfg, llama=cfgs.replace(cfg.llama, num_layers=0,
+                                               vocab_size=32))
+    cpu = Setokim(cut, target_token_id=3, device="cpu")
+    for name in ("mm_out_projector", "diffloss", "vision_generator"):
+        getattr(cpu, name).load_state_dict(getattr(model, name).state_dict())
+    full_schedule = model.diffloss.gen_diffusion
+    model.diffloss.gen_diffusion = cpu.diffloss.gen_diffusion = \
+        create_diffusion(GEN_CUT_STEPS, noise_schedule="cosine")
+    hidden = torch.from_numpy(np.random.RandomState(SEED).randn(
+        1, cfg.target_num, cfg.llama.hidden_size).astype(np.float32))
+    draws = fixed_image_draws(1, cfg.target_num,
+                              cfg.diffloss.target_channels, GEN_CUT_ITERS,
+                              int(GEN_CUT_STEPS), True)
+    sides = {}
+    for side, m, d in (("cpu", cpu, "cpu"), ("card", model, dev)):
+        toks = m.sample_image_tokens(hidden.to(d), None, GEN_CUT_ITERS,
+                                     GEN_CFG, draws=draws(d))
+        sides[side] = (toks, m.render_image(toks).image)
+    model.diffloss.gen_diffusion = full_schedule
+    del cpu
+    cut_rel = {"tokens": max_rel(sides["card"][0], sides["cpu"][0]),
+               "image": max_rel(sides["card"][1], sides["cpu"][1])}
+
+    res = {"phase": "generate", "config": "base_setokim", "bits": 8,
+           "kv_cache": "int8", "cache_kernel": True,
+           "requests": len(reqs), "new_tokens_each": NEW_TOKENS,
+           "decode_block_runs_in_turns": runs,
+           "decode_block_streams_identical": identical,
+           "per_request": {"sampled_rows": GEN_SAMPLED,
+                           "greedy_rows_unchanged": greedy_rows_same,
+                           "sampled_rows_that_differ": sampled_rows_moved},
+           "render": {"span_tokens": cfg.target_num, "num_iter": GEN_ITERS,
+                      "sampling_steps": cfg.diffloss.num_sampling_steps,
+                      "runs": list(renders.values()),
+                      "profiled_render_cfg1": profile},
+           "engine_render": {"im_start_id": start, "im_end_id": end,
+                             "images_per_request": engine_images,
+                             "seconds": engine_render_s, "ok": engine_ok},
+           "cut_render_card_vs_cpu": {"num_iter": GEN_CUT_ITERS,
+                                      "respacing": GEN_CUT_STEPS,
+                                      "cfg_scale": GEN_CFG,
+                                      "max_rel": cut_rel,
+                                      "tol": FWD_REL_TOL},
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    check(identical, "decode_block 4 streams differ from single steps")
+    check(greedy_rows_same, "a greedy row changed beside sampled rows")
+    check(engine_ok, f"the engine's retirement render: images "
+          f"{engine_images}, spans {want_spans}")
+    check(max(cut_rel.values()) <= FWD_REL_TOL,
+          f"cut render card vs CPU: {cut_rel} > {FWD_REL_TOL}")
+    return {"launches": block_counts["quant_matmul_launches"][
+        "quant_matmul"], "cache_launches": block_counts["cache_attention"],
+        "dispatches": runs[1]["decode_dispatches"],
+        "decode_block": GEN_BLOCK}
 
 
 @contextmanager
@@ -2558,7 +2829,21 @@ def main() -> int:
     serve_entries = phase_serve_kernels()
     setokim = cfgs.base_setokim()
     for bits, name in ((8, "quant_matmul"), (4, "quant4_matmul")):
-        counts = phase_serve(setokim, bits)
+        if bits == 8:
+            counts, model8 = phase_serve(setokim, bits, keep=True)
+            gen = phase_generate(setokim, model8)
+            del model8
+            torch.cuda.empty_cache()
+            serve_entries[name]["generate_launches"] = {
+                "decode_block": gen["decode_block"],
+                "dispatches": gen["dispatches"],
+                "launches": gen["launches"]}
+            serve_entries["int8_cache_decode_attention"][
+                "generate_launches"] = {"decode_block": gen["decode_block"],
+                                        "dispatches": gen["dispatches"],
+                                        "launches": gen["cache_launches"]}
+        else:
+            counts = phase_serve(setokim, bits)
         serve_entries[name]["launches"] = counts["launches"]
         serve_entries[name]["calls"] = counts["calls"]
         if bits == 8:

@@ -4,27 +4,30 @@ loss of the MAR head.
 The counterpart of `setok_tpu/diffusion/gaussian.py`: the schedule tables
 in numpy float64 (`betas_for_alpha_bar`, `get_named_beta_schedule`,
 `space_timesteps`, `create_diffusion`, respacing included), `q_sample`,
-`q_posterior_mean_variance` and `training_losses` (epsilon prediction, MSE
-plus the variational-bound term of the learned-range variance). The noise
-of `training_losses` is an argument: the caller draws it
-(losses/diffloss.py), so that the same draws give the same loss in both
-packages.
+`q_posterior_mean_variance`, `training_losses` (epsilon prediction, MSE
+plus the variational-bound term of the learned-range variance) and the
+samplers `p_sample`, `p_sample_loop` and `ddim_sample_loop`.
 
-Sampling (`p_sample`, `p_sample_loop`, `ddim_sample_loop`) waits for image
-generation: ROADMAP.md, Queue A (image rendering through the diffusion
-head).
+The noise is always an argument: the caller draws it (losses/diffloss.py),
+so that the same draws give the same result in both packages. A sampling
+loop takes its initial noise and `step_noise(i)`, the noise of its i-th
+step (timestep T-1-i), which may draw on the fly from a generator or read
+a tensor of replayed draws. Where the JAX package scans, the loops here are
+Python loops over the respaced steps; each step reads the tables from a
+per-device copy made once.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Set, Union
+from typing import Callable, Dict, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
 
 ModelFn = Callable[..., torch.Tensor]  # (x_t, t, cond) -> model output
+StepNoise = Callable[[int], torch.Tensor]  # loop step i -> noise like x
 
 
 def betas_for_alpha_bar(num_steps: int, alpha_bar,
@@ -141,20 +144,34 @@ class GaussianDiffusion:
                                      * np.sqrt(alphas)
                                      / (1.0 - self.alphas_cumprod))
         self._betas = betas
+        self._log_betas = np.log(betas)
+        self._fixed_large_variance = np.append(self.posterior_variance[1],
+                                               betas[1:])
+        # (id(table), dtype, device) -> (table, its tensor on that device)
+        self._on_device: Dict[Tuple, Tuple[np.ndarray, torch.Tensor]] = {}
 
     # -- helpers ------------------------------------------------------------
+    def _table(self, arr: np.ndarray, dtype, device) -> torch.Tensor:
+        """A table as a tensor on `device`, copied there once (the entry
+        holds the array, so its id stays its own)."""
+        key = (id(arr), dtype, torch.device(device))
+        hit = self._on_device.get(key)
+        if hit is None:
+            hit = (arr, torch.as_tensor(arr, dtype=dtype, device=device))
+            self._on_device[key] = hit
+        return hit[1]
+
     def _extract(self, arr: np.ndarray, t: torch.Tensor,
                  ndim: int) -> torch.Tensor:
         """The float32 table entries of the (N,) timesteps, shaped to
         broadcast over (N, ...)."""
-        out = torch.as_tensor(arr, dtype=torch.float32, device=t.device)[t]
+        out = self._table(arr, torch.float32, t.device)[t]
         return out.reshape(t.shape[0], *([1] * (ndim - 1)))
 
     def _model_t(self, t: torch.Tensor) -> torch.Tensor:
         if self.timestep_map is None:
             return t
-        return torch.as_tensor(self.timestep_map, dtype=t.dtype,
-                               device=t.device)[t]
+        return self._table(self.timestep_map, t.dtype, t.device)[t]
 
     # -- q distributions ----------------------------------------------------
     def q_sample(self, x_start, t, noise):
@@ -188,14 +205,13 @@ class GaussianDiffusion:
             eps, var_values = out.chunk(2, dim=1)
             min_log = self._extract(self.posterior_log_variance_clipped, t,
                                     nd)
-            max_log = self._extract(np.log(self._betas), t, nd)
+            max_log = self._extract(self._log_betas, t, nd)
             frac = (var_values + 1) / 2
             model_log_variance = frac * max_log + (1 - frac) * min_log
             model_variance = torch.exp(model_log_variance)
         else:
             eps = out
-            model_variance = self._extract(
-                np.append(self.posterior_variance[1], self._betas[1:]), t, nd)
+            model_variance = self._extract(self._fixed_large_variance, t, nd)
             model_log_variance = torch.log(model_variance)
         pred_xstart = self._predict_xstart_from_eps(x, t, eps)
         if clip_denoised:
@@ -204,6 +220,61 @@ class GaussianDiffusion:
         return {"mean": mean, "variance": model_variance,
                 "log_variance": model_log_variance,
                 "pred_xstart": pred_xstart, "eps": eps}
+
+    def p_sample(self, model: ModelFn, x, t, noise, clip_denoised=False,
+                 model_kwargs=None, temperature=1.0):
+        """One step x_t → x_{t-1} with the given noise (like x), scaled by
+        `temperature`; rows at t = 0 take the mean."""
+        out = self.p_mean_variance(model, x, t, clip_denoised, model_kwargs)
+        nonzero = (t != 0).to(x.dtype).reshape(
+            t.shape[0], *([1] * (x.dim() - 1)))
+        return (out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"])
+                * noise * temperature)
+
+    def _loop(self, shape, noise: torch.Tensor, step_noise: StepNoise,
+              step) -> torch.Tensor:
+        """x from `noise`, then step(x, t, step_noise(i)) for t = T-1 .. 0."""
+        x = noise
+        for i in range(self.num_timesteps):
+            t = torch.full((shape[0],), self.num_timesteps - 1 - i,
+                           dtype=torch.int32, device=x.device)
+            x = step(x, t, step_noise(i))
+        return x
+
+    def p_sample_loop(self, model: ModelFn, shape, noise: torch.Tensor,
+                      step_noise: StepNoise, clip_denoised=False,
+                      model_kwargs=None, temperature=1.0) -> torch.Tensor:
+        """Ancestral sampling over every (respaced) step from `noise`."""
+        return self._loop(shape, noise, step_noise, lambda x, t, z: (
+            self.p_sample(model, x, t, z, clip_denoised, model_kwargs,
+                          temperature)))
+
+    def ddim_sample_loop(self, model: ModelFn, shape, noise: torch.Tensor,
+                         step_noise: StepNoise, clip_denoised=False,
+                         model_kwargs=None, eta=0.0) -> torch.Tensor:
+        """DDIM sampling over every (respaced) step; `eta` scales its
+        noise (0: deterministic)."""
+        def step(x, t, z):
+            out = self.p_mean_variance(model, x, t, clip_denoised,
+                                       model_kwargs)
+            eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+            nd = x.dim()
+            alpha_bar = self._extract(self.alphas_cumprod, t, nd)
+            alpha_bar_prev = self._extract(self.alphas_cumprod_prev, t, nd)
+            sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                     * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+            mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+                         + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
+            nonzero = (t != 0).to(x.dtype).reshape(
+                t.shape[0], *([1] * (nd - 1)))
+            return mean_pred + nonzero * sigma * z
+        return self._loop(shape, noise, step_noise, step)
+
+    def _predict_eps_from_xstart(self, x_t, t, pred_xstart):
+        nd = x_t.dim()
+        return ((self._extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t
+                 - pred_xstart)
+                / self._extract(self.sqrt_recipm1_alphas_cumprod, t, nd))
 
     # -- training -----------------------------------------------------------
     def _vb_terms_bpd(self, frozen_out, x_start, x_t, t):

@@ -109,3 +109,16 @@ class SimpleMLPAdaLN(nn.Module):
         for i in range(self.num_res_blocks):
             x = getattr(self, f"res_{i}")(x, y)
         return self.final_layer(x, y)
+
+    def forward_with_cfg(self, x, t, c, cfg_scale):
+        """Classifier-free guidance: the batch is [cond; uncond] halves of
+        the same latents (the first half of x is read for both), c the
+        conditions of each half. The guided epsilon uncond + s·(cond −
+        uncond) goes to both halves; the variance half passes through."""
+        half = x[: x.shape[0] // 2]
+        out = self(torch.cat([half, half], dim=0), t, c)
+        eps, rest = out[:, :self.in_channels], out[:, self.in_channels:]
+        cond_eps, uncond_eps = eps.chunk(2, dim=0)
+        half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
+        return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest],
+                         dim=1)

@@ -1,14 +1,16 @@
-"""Text generation with the KV cache: prefill, then a loop of decode steps.
+"""Generation: text with the KV cache (prefill, then a loop of decode
+steps), and images from the hidden states of a generated span.
 
-The counterpart of the text part of `setok_tpu/models/generate.py`. Where
-the JAX package runs the decode loop as one compiled scan, the port runs a
-Python loop of `Setokim.decode_step`, with the same semantics: rows that
-emitted EOS are frozen to the pad token from the next step on, and the
-hidden states align with the tokens as the JAX scan's do. Sampling at
-`temperature > 0` draws from an explicit `torch.Generator` (the JAX
-package's `jax.random` bits are not reproduced). Rendering generated image
-spans needs the diffusion head, which is not ported (ROADMAP.md, Queue A):
-`generate` raises where it finds one.
+The counterpart of `setok_tpu/models/generate.py`. Where the JAX package
+runs the decode loop as one compiled scan, the port runs a Python loop of
+`Setokim.decode_step`, with the same semantics: rows that emitted EOS are
+frozen to the pad token from the next step on, and the hidden states align
+with the tokens as the JAX scan's do. `generate_image` runs the MaskGIT/MAR
+loop over a span's hidden states and renders the concept tokens;
+`generate` renders every non-empty `<im_start> .. <im_end>` span it finds.
+Every draw comes from an explicit `torch.Generator` (the JAX package's
+`jax.random` bits are not reproduced; the tests replay them through
+`ImageDraws`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from setok_tpu_torch.models.setokim import Setokim
+from setok_tpu_torch.models.setokim import ImageDraws, Setokim
 
 
 class GenerateOutput(NamedTuple):
@@ -120,15 +122,33 @@ def truncate_at_stop(ids: np.ndarray, stopping) -> np.ndarray:
     return ids
 
 
+def generate_image(model: Setokim, hidden_span: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   num_iter: int = 16, cfg_scale: float = 1.0,
+                   temperature: float = 1.0, *,
+                   draws: Optional[ImageDraws] = None) -> torch.Tensor:
+    """Hidden states of a generation span (B, T, H) → the rendered image
+    (B, H_img, W_img, 3): `sample_image_tokens`, then `render_image`. The
+    draws come from `generator`, or replayed from `draws`."""
+    tokens = model.sample_image_tokens(hidden_span, generator, num_iter,
+                                       cfg_scale, temperature, draws=draws)
+    return model.render_image(tokens).image
+
+
 def generate(model: Setokim, input_ids, images, max_new_tokens: int = 64,
              generator: Optional[torch.Generator] = None,
              temperature: float = 0.0, eos_id: int = 2,
              im_start_id: Optional[int] = None,
-             im_end_id: Optional[int] = None, stopping=None):
-    """Text generation → (tokens (B, T) numpy, per-row lists of images).
-    A keyword stop truncates each row on the host afterwards. An image
-    span between `im_start_id` and `im_end_id` raises: rendering it needs
-    the diffusion head (ROADMAP.md, Queue A)."""
+             im_end_id: Optional[int] = None, num_iter: int = 16,
+             cfg_scale: float = 1.0, stopping=None):
+    """Text and the images the model chose to emit → (tokens (B, T) numpy,
+    per-row lists of (H, W, 3) numpy images). A keyword stop truncates
+    each row on the host afterwards. Each non-empty span between
+    `im_start_id` and `im_end_id` renders through `generate_image`, the
+    spans in order, each drawing from `generator` (a generator seeded 0 on
+    the model's device when none is given)."""
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
     out = generate_text(model, input_ids, images, max_new_tokens, generator,
                         temperature=temperature, eos_id=eos_id)
     ids = out.tokens.cpu().numpy()
@@ -137,10 +157,11 @@ def generate(model: Setokim, input_ids, images, max_new_tokens: int = 64,
                         for row in ids])
     images_out: List[List[np.ndarray]] = [[] for _ in range(ids.shape[0])]
     if im_start_id is not None and im_end_id is not None:
-        for row in ids:
-            if any(e > s for s, e in find_image_spans(row, im_start_id,
-                                                      im_end_id)):
-                raise NotImplementedError(
-                    "rendering a generated image span needs the diffusion "
-                    "head: ROADMAP.md, Queue A (serving features)")
+        for bi, row in enumerate(ids):
+            for s, e in find_image_spans(row, im_start_id, im_end_id):
+                if e <= s:
+                    continue
+                img = generate_image(model, out.hidden[bi:bi + 1, s:e],
+                                     generator, num_iter, cfg_scale)
+                images_out[bi].append(img[0].cpu().numpy())
     return ids, images_out

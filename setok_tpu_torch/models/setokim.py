@@ -24,21 +24,28 @@ projector as constants.
 
 The cache is written in place (models/llama.py); `cache_valid` is returned
 as a new tensor, as the JAX package returns it. The serving entry points
-run under `torch.inference_mode()`. Not ported here: `sample_image_tokens`
-(ROADMAP.md, Queue A, image rendering).
+run under `torch.inference_mode()`.
+
+Image generation: `sample_image_tokens` is the MaskGIT/MAR loop (a cosine
+mask schedule over a random order per row; each iteration samples every
+token with the diffusion head conditioned on mm_out_projector(hidden) and
+keeps those it unmasks), and `render_image` renders the concept tokens
+with the float detokenizer. Its draws (the orders, and each iteration's
+sampler draws) come in an `ImageDraws`, from `draw_image` or replayed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from setok_tpu_torch.config import SetokimConfig
 from setok_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from setok_tpu_torch.losses.diffloss import DiffLoss
+from setok_tpu_torch.losses.diffloss import DiffLoss, SampleDraws
 from setok_tpu_torch.models.detokenizer import SetokDeTokenizer
 from setok_tpu_torch.models.llama import (KVCache, LlamaForCausalLM,
                                           init_cache, make_attention_mask)
@@ -64,6 +71,15 @@ class DiffusionDraws(NamedTuple):
     rate: torch.Tensor
     t: torch.Tensor
     noise: torch.Tensor
+
+
+class ImageDraws(NamedTuple):
+    """The draws of one `sample_image_tokens` over (B, T) tokens: `orders`
+    (B, T), a permutation of 0..T-1 per row (the order in which tokens are
+    unmasked), and `iteration(k)`, the `SampleDraws` of iteration k's
+    sampler over all B·T rows (2·B·T under guidance)."""
+    orders: torch.Tensor
+    iteration: Callable[[int], SampleDraws]
 
 
 class ForwardDraws(NamedTuple):
@@ -146,6 +162,11 @@ class Setokim(nn.Module):
         """Concept tokens of (N, H, W, 3) images (SeTok encode)."""
         with torch.no_grad():
             return self.vision_tower(images, generator=generator)
+
+    def detokenize(self, tokens, token_valid=None):
+        """Concept tokens → pixels through the frozen vision generator."""
+        with torch.no_grad():
+            return self.vision_generator(tokens, token_valid)
 
     def encode_images(self, images, generator=None):
         """images (N, H, W, 3) → (N, k_max, llama hidden), valid (N, k_max).
@@ -352,3 +373,75 @@ class Setokim(nn.Module):
                                          positions, cache)
         return (self.llama.logits(hidden)[:, 0], hidden[:, 0], cache,
                 cache_valid)
+
+    # ------------------------------------------------------------------
+    def draw_image(self, batch_size: int, seq_len: int, cfg_scale: float,
+                   generator: Optional[torch.Generator]) -> ImageDraws:
+        """The draws of one `sample_image_tokens` from `generator`: the
+        orders now, each iteration's sampler draws when it runs."""
+        dev = self.device
+        orders = torch.argsort(torch.rand((batch_size, seq_len),
+                                          generator=generator, device=dev),
+                               dim=1)
+        use_cfg = cfg_scale != 1.0
+        n = batch_size * seq_len * (2 if use_cfg else 1)
+        return ImageDraws(orders, lambda k: self.diffloss.draw_sample(
+            n, use_cfg, generator, dev))
+
+    @torch.inference_mode()
+    def sample_image_tokens(self, cond, generator=None, num_iter: int = 16,
+                            cfg_scale: float = 1.0, temperature: float = 1.0,
+                            *, draws: Optional[ImageDraws] = None):
+        """MaskGIT/MAR decoding of concept tokens: cond (B, T, H_llm) hidden
+        states of a generation span → (B, T, token_feat_dim).
+
+        Iteration k keeps masked the first floor(T·cos(π/2·(k+1)/num_iter))
+        tokens of each row's order (at least 1, at most one fewer than are
+        masked), and the last iteration unmasks the rest. Each iteration
+        samples all B·T tokens and writes those it unmasks. Under guidance
+        the scale follows Muse's linear schedule, read from row 0's mask
+        length. Without `draws`, they are drawn from `generator`."""
+        b, seq_len, _ = cond.shape
+        if draws is None:
+            draws = self.draw_image(b, seq_len, cfg_scale, generator)
+        use_cfg = cfg_scale != 1.0
+        flat_z = self.mm_out_projector(cond).reshape(b * seq_len, -1)
+        if use_cfg:
+            flat_z = torch.cat([flat_z, torch.zeros_like(flat_z)], dim=0)
+        c_dim = self.cfg.diffloss.target_channels
+        tokens = torch.zeros((b, seq_len, c_dim), device=cond.device)
+        mask = torch.ones((b, seq_len), dtype=torch.bool, device=cond.device)
+        for step in range(num_iter):
+            mask_next, to_pred, mask_len = mask_schedule(
+                mask, draws.orders, step, num_iter)
+            mask = mask_next
+            cfg_iter = 1.0
+            if use_cfg:
+                cfg_iter = 1.0 + (cfg_scale - 1.0) * (
+                    seq_len - mask_len[0]) / seq_len
+            sampled = self.diffloss.sample(flat_z, temperature, cfg_iter,
+                                           use_cfg, draws.iteration(step))
+            sampled = sampled[: b * seq_len].reshape(b, seq_len, c_dim)
+            tokens = torch.where(to_pred[..., None], sampled, tokens)
+        return tokens
+
+    @torch.inference_mode()
+    def render_image(self, concept_tokens, token_valid=None):
+        """Concept tokens → pixels through the float detokenizer."""
+        return self.vision_generator(concept_tokens, token_valid)
+
+
+def mask_schedule(mask: torch.Tensor, orders: torch.Tensor, step: int,
+                  num_iter: int):
+    """One iteration of the MaskGIT cosine schedule → (the mask after it,
+    the tokens it unmasks, the float32 (B,) mask lengths). The cosine and
+    the floor are float32 on the host, so every device takes the same
+    lengths."""
+    seq_len = mask.shape[1]
+    ratio = np.cos(np.float32(math.pi / 2.0 * (step + 1) / num_iter))
+    floor = float(np.floor(np.float32(seq_len) * ratio))
+    mask_len = (mask.sum(dim=-1).to(torch.float32) - 1.0).clamp(
+        max=floor).clamp(min=1.0)
+    mask_next = mask_by_order(mask_len.to(torch.int64), orders)
+    to_pred = mask if step >= num_iter - 1 else mask ^ mask_next
+    return mask_next, to_pred, mask_len

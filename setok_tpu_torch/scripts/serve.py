@@ -1,6 +1,7 @@
 """Serving CLI: the continuous-batching engine over Setokim, on the card.
 
     python -m setok_tpu_torch.scripts.serve [--tiny] [--bits 8|4] [--kv-bits 8]
+                                            [--decode-block K]
     python -m setok_tpu_torch.scripts.serve --cpu --tiny
 
 Reads prompts (one per line from --prompts-file, or a built-in demo set),
@@ -10,7 +11,7 @@ weights are random, from a seed: `--tiny` runs the test configuration,
 otherwise the full-width `base_setokim()` (Vicuna-7B trunk, ViT-B/16
 SeTok). `--bits 8|4` quantises the trunk as the JAX CLI does (int4: group
 `--quant-group` where the widths allow, clip search 8), layer by layer on
-the device.
+the device. `--decode-block K` runs K decode steps per host round trip.
 
 The flags are the JAX CLI's (`scripts/serve.py`) that this port runs; its
 others are refused with a message naming their ROADMAP.md entry. There,
@@ -36,18 +37,16 @@ from setok_tpu_torch.utils.init import init_setokim_random_
 # the JAX CLI's flags that this port does not run
 REFUSED = {
     "checkpoint": "loading a checkpoint: ROADMAP.md, Queue A (checkpoints)",
-    "decode_block": "decode_block > 1: ROADMAP.md, Queue A (serving "
-                    "features)",
     "spec_len": "speculative decoding: ROADMAP.md, Queue A (serving "
                 "features)",
     "spec_ngram": "speculative decoding: ROADMAP.md, Queue A (serving "
                   "features)",
     "tensor_parallel": "multi-card serving: ROADMAP.md, Queue A (serving "
-                       "features)",
-    "prefill_chunk": "chunked prefill: ROADMAP.md, Queue A (serving "
-                     "features)",
-    "system_prompt": "prefix caching: ROADMAP.md, Queue A (serving "
-                     "features)",
+                       "features; after the parallel item)",
+    "prefill_chunk": "chunked prefill and the prefix cache: ROADMAP.md, "
+                     "Queue A (serving features)",
+    "system_prompt": "chunked prefill and the prefix cache: ROADMAP.md, "
+                     "Queue A (serving features)",
 }
 
 DEMO_PROMPTS = ["Describe the image.", "What color is the sky?",
@@ -69,6 +68,8 @@ def parse_args(argv=None):
                    help="nucleus sampling at temperature>0 (1.0 = off)")
     p.add_argument("--presence-penalty", type=float, default=0.0)
     p.add_argument("--frequency-penalty", type=float, default=0.0)
+    p.add_argument("--decode-block", type=int, default=1,
+                   help="decode steps per host round trip")
     p.add_argument("--bits", type=int, default=16, choices=[16, 8, 4],
                    help="8/4 = int8/packed-int4-at-rest trunk")
     p.add_argument("--quant-group", type=int, default=128,
@@ -114,6 +115,7 @@ def main(argv=None) -> None:
                       temperature=args.temperature, top_p=args.top_p,
                       presence_penalty=args.presence_penalty,
                       frequency_penalty=args.frequency_penalty,
+                      decode_block=args.decode_block,
                       cache_dtype=(torch.int8 if args.kv_bits == 8
                                    else torch.bfloat16),
                       eos_id=getattr(tok, "eos_token_id", 2),

@@ -94,9 +94,7 @@ def test_stops_cancel_and_capacity(model8):
 
 
 def test_engine_refuses_what_is_not_ported(model8):
-    for kw in ({"decode_block": 2}, {"spec_len": 2}, {"prefill_chunk": 8},
-               {"per_request_sampling": True}, {"im_start_id": 5},
-               {"mesh": object()}):
+    for kw in ({"spec_len": 2}, {"prefill_chunk": 8}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServeEngine(model8, max_batch=1, prompt_len=8, max_len=16, **kw)
 
