@@ -52,7 +52,10 @@ the last line:
                 peak memory;
   serve_kernels quant_matmul (w8) and quant4_matmul (w4, per channel and
                 group 128) at the seven Vicuna-7B trunk linears, decode
-                M=4 and prefill M=512 rows, and the int8-cache decode
+                M=4 and prefill M=512 rows (and, untimed but for their
+                time by events, the serving features' M=20, a verify
+                dispatch, and M=256, four 64-token chunks), and the
+                int8-cache decode
                 attention at B=4, S=512 with holes in the key mask and in
                 the serving layout (bf16 q, the tail of the cache masked:
                 the tiles it skipped against the wholly masked ones), and
@@ -90,6 +93,29 @@ the last line:
                 non-empty span rendered at retirement), and the render cut to 2 iterations of 10
                 steps on a fixed span and fixed draws, card against CPU
                 (tokens and image within FWD_REL_TOL);
+  serve_features  on the same bits-8 model: speculative decoding (4
+                drafts a row by prompt lookup of n-grams up to 3) and
+                single steps in turns (1, spec, spec, 1): tokens/s,
+                dispatches, drafts accepted per dispatch, a profiled
+                dispatch's busy share, the launches of rows 8 and 11 per
+                verify dispatch (224 calls, 0); greedy streams equal to
+                single steps or first differing at a near-tie (the
+                single-step logits' top-2 gap <= 2e-3 of their largest);
+                a sampled run (temperature 0.8, top-p 0.9) that emits only
+                ids of the vocabulary; chunked prefill (C = 64: the
+                serving requests, and a 300-token prompt past the bucket
+                admitted whole in 5 chunks); the prefix cache (system
+                prompts of 64 and 40 tokens, 4 requests each) beside plain
+                chunked admission: TTFT, admission step ms, the elements
+                of a slot that differ from the whole prompt's chunked
+                admission (0 for the 64-token prefix);
+  serve_calibrated  after serve at bits 4: the float trunk at full width
+                (float32, from the seed), E[x²] of every trunk linear's
+                input over one prefill of the serving prompts, the trunk
+                quantised (group 128, clip search 8) with and without
+                them: each linear's weighted error (calibrated no worse),
+                the prefill logits of both against the float model's, and
+                the serving requests at bits 4 on the calibrated weights;
   serve_parity  the same with the trunk cut to 2 layers, through the
                 kernels and through the plain versions on the card: logits
                 at every step and greedy tokens;
@@ -178,6 +204,8 @@ from setok_tpu_torch.diffusion.gaussian import create_diffusion
 from setok_tpu_torch.losses.diffloss import SampleDraws
 from setok_tpu_torch.losses.gan import discriminator_loss
 from setok_tpu_torch.models.llama import (TRUNK_LINEARS, make_attention_mask,
+                                          quantize_linear,
+                                          quantize_trunk_weights,
                                           valid_quant_group)
 from setok_tpu_torch.models.setok import SeTok, expected_calls
 from setok_tpu_torch.models.generate import (find_image_spans,
@@ -188,7 +216,7 @@ from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
 from setok_tpu_torch.scripts import train_setok
 from setok_tpu_torch.scripts.train_setokim import synthetic_batch
-from setok_tpu_torch.serve import ServeEngine
+from setok_tpu_torch.serve import ServeEngine, collect_row_weights
 from setok_tpu_torch.train.stage1 import Stage1Trainer
 from setok_tpu_torch.train.stage2 import Stage2Trainer, warmup_cosine
 from setok_tpu_torch.utils.init import init_random_, init_setokim_random_
@@ -1182,6 +1210,15 @@ def phase_throughput_unfused() -> None:
 # serving: Setokim over the Vicuna-7B trunk
 
 SERVE_BATCH, PROMPT_LEN, MAX_LEN, NEW_TOKENS = 4, 128, 512, 32
+# the serving features: drafts a row and the n-gram of the prompt lookup,
+# the prefill chunk, the system prompts' lengths (one a whole chunk, one
+# not) and the long prompt past the 128-token bucket
+SPEC_LEN, SPEC_NGRAM, CHUNK = 4, 3, 64
+SYSTEM_LENS = (64, 40)
+LONG_PROMPT = 300
+# rows 8 and 9 held to their plain versions (untimed) at the features'
+# shapes: a verify dispatch's B·(1 + spec_len) rows and a chunk's 4·C
+FEATURE_M = (SERVE_BATCH * (1 + SPEC_LEN), SERVE_BATCH * CHUNK)
 QUANT_TOL = 1e-5            # exact int products, the same float epilogue
 CACHE_ATTN_TOL = 2e-3       # sums in another order (as the attentions)
 SERVE_PARITY_TOL = 2e-3     # prefill logits, kernels vs plain versions
@@ -1271,7 +1308,8 @@ def phase_serve_kernels() -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     group = valid_quant_group(cfg, 128)
     formats = ("w8", "w4", f"w4g{group}")
-    totals = {}
+    totals, feature_checks = {}, {}
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 1)
     errs = {"quant_matmul": 0.0, "quant4_matmul": 0.0}
     for lin, (k, n) in trunk_shapes(cfg).items():
         w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
@@ -1280,8 +1318,11 @@ def phase_serve_kernels() -> dict:
                    formats[2]: quantize_weight_int4(w, group, 8)}
         unpacked = torch.cat(unpack_nibbles(weights["w4"].packed), dim=1)
         del w
-        for m in (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN):
-            x = torch.randn(m, k, generator=gen, device=dev)
+        for m in (SERVE_BATCH, *FEATURE_M, SERVE_BATCH * PROMPT_LEN):
+            # the features' inputs from a generator of their own: the
+            # timed shapes' inputs stay those of earlier runs
+            x = torch.randn(m, k, generator=fgen if m in FEATURE_M else gen,
+                            device=dev)
             for fmt, wq in weights.items():
                 name = "quant_matmul" if fmt == "w8" else "quant4_matmul"
                 kernel = qm.quant_matmul if fmt == "w8" else qm.quant4_matmul
@@ -1298,6 +1339,18 @@ def phase_serve_kernels() -> dict:
                       f"{case['elements_differing']} elements differ from "
                       "the plain version")
                 errs[name] = max(errs[name], case["max_abs"])
+                if m in FEATURE_M:
+                    feat = feature_checks.setdefault((name, fmt, m), {
+                        "phase": "serve_kernels", "kernel": name,
+                        "format": fmt, "M": m, "linears": 0,
+                        "elements_differing": 0, "max_abs": 0.0,
+                        "max_rel": 0.0, "ms": 0.0})
+                    feat["linears"] += 1
+                    feat["elements_differing"] += case["elements_differing"]
+                    feat["max_abs"] = max(feat["max_abs"], case["max_abs"])
+                    feat["max_rel"] = max(feat["max_rel"], case["max_rel"])
+                    feat["ms"] += time_ms(lambda: kernel(x, wq))
+                    continue
                 lib = library_int_mm(x, wq.values if fmt == "w8"
                                      else unpacked)
                 bits = 8 if fmt == "w8" else 4
@@ -1332,6 +1385,10 @@ def phase_serve_kernels() -> dict:
         emit({"phase": "serve_kernels", "format": fmt, "M": m,
               "one_layer_seven_linears": tot,
               "bound_ms": 1e3 * max(tot["t_bytes"], tot["t_ops"])})
+    # the serving features' shapes: per format and M, the seven linears of
+    # one layer (ms their summed times by events)
+    for feat in feature_checks.values():
+        emit(feat)
 
     entries = {}
     for name, fmt, replaces in (
@@ -1369,6 +1426,11 @@ def phase_serve_kernels() -> dict:
             "plain_ms", "kernels")}
         prefill[fmt]["bound_ms"] = 1e3 * max(tot["t_bytes"], tot["t_ops"])
     entries["quant4_matmul"]["prefill_M512"] = prefill
+    for name in ("quant_matmul", "quant4_matmul"):
+        entries[name]["feature_shapes"] = [
+            {key: f[key] for key in ("format", "M", "elements_differing",
+                                     "max_rel", "ms")}
+            for (n, _, _), f in feature_checks.items() if n == name]
     entries["quant4_matmul"]["ptxas"] = {
         "gemv w4g M<=4 f32": ptxas_of("quant_matmul", "gemv_kernel",
                                       "Li2ELi4EfE"),
@@ -1544,15 +1606,17 @@ def trunk_bytes(model: Setokim) -> int:
 
 
 def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None,
-               submit_kw=None, **engine_kw):
+               submit_kw=None, prefixes=(), **engine_kw):
     """The requests through a ServeEngine (`engine_kw` beside the serving
-    configuration; `submit_kw` a dict of submit arguments per request);
-    per step its wall time, its prefill calls and the launch counts it
-    added. Renders left at the end are harvested before the check."""
+    configuration; `submit_kw` a dict of submit arguments per request;
+    `prefixes` registered before the clock starts); per step its wall
+    time, its admissions (single-shot image or text, chunked, prefixed),
+    whether it ran a verify, and the launch counts it added. Renders left
+    at the end are harvested before the check."""
     eng = ServeEngine(model, max_batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
                       max_len=MAX_LEN, eos_id=-1, pad_id=0,
                       cache_dtype=torch.int8, **engine_kw)
-    prefills = {"image": 0, "text": 0}
+    prefills = {"image": 0, "text": 0, "chunked": 0, "prefixed": 0}
 
     def counted(kind, fn):
         def call(*args):
@@ -1562,6 +1626,11 @@ def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None,
 
     eng._prefill_impl = counted("image", eng._prefill_impl)
     eng._prefill_text_impl = counted("text", eng._prefill_text_impl)
+    eng._prefill_text_chunked = counted("chunked", eng._prefill_text_chunked)
+    eng._prefill_text_prefixed = counted("prefixed",
+                                         eng._prefill_text_prefixed)
+    for ids in prefixes:
+        eng.register_prefix(ids)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [eng.submit(ids, image=img, max_new_tokens=new_tokens,
@@ -1569,7 +1638,7 @@ def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None,
                for i, (ids, img) in enumerate(reqs)]
     steps, profile = [], None
     while True:
-        before = (serve_counts(), sum(prefills.values()))
+        before = (serve_counts(), sum(prefills.values()), eng._n_verify)
         t = time.perf_counter()
         if profile_step is not None and len(steps) == profile_step:
             profile = device_time_breakdown(eng.step)
@@ -1583,6 +1652,7 @@ def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None,
             "s": dt, "prefills": sum(prefills.values()) - before[1],
             "decode": after["cache_attention"]
             > before[0]["cache_attention"],
+            "verify": eng._n_verify > before[2],
             "quant_calls": sum(after["quant_matmul"].values())
             - sum(before[0]["quant_matmul"].values()),
             "quant_launches": sum(after["quant_matmul_launches"].values())
@@ -1594,6 +1664,12 @@ def run_engine(model: Setokim, reqs, new_tokens: int, profile_step=None,
     eng._harvest_renders()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the counting wrappers hold the engine's bound methods: without them
+    # the engine (its cache, and the model it holds) goes when its last
+    # reference does, not at the next cyclic collection
+    for name in ("_prefill_impl", "_prefill_text_impl",
+                 "_prefill_text_chunked", "_prefill_text_prefixed"):
+        delattr(eng, name)
     check(all(r.done for r in handles), "a request did not finish")
     return eng, handles, steps, prefills, wall, profile
 
@@ -1928,6 +2004,395 @@ def phase_generate(cfg, model: Setokim) -> dict:
         "quant_matmul"], "cache_launches": block_counts["cache_attention"],
         "dispatches": runs[1]["decode_dispatches"],
         "decode_block": GEN_BLOCK}
+
+
+# ----------------------------------------------------------------------------
+# the serving features: chunked prefill, the prefix cache, speculative
+# decoding, calibrated int4
+
+FEATURE_TIE_REL = SERVE_PARITY_TOL    # a divergence's top-2 gap, the bar of
+#                                       the serving logits
+SPEC_SAMPLED = {"temperature": 0.8, "top_p": 0.9}
+
+
+def dispatch_summary(handles, steps, wall, profile) -> dict:
+    """tokens/s of a run, its dispatches (decode steps or verifies) and
+    the median ms of those without an admission, and its profiled
+    dispatch."""
+    pure = [st for st in steps if (st["decode"] or st["verify"])
+            and not st["prefills"]]
+    ntok = sum(len(r.tokens) for r in handles)
+    return {"tokens": ntok, "wall_s": wall, "tokens_per_s": ntok / wall,
+            "steps": len(steps),
+            "dispatches": sum(st["decode"] or st["verify"] for st in steps),
+            "pure_dispatch_ms_median": statistics.median(
+                1e3 * st["s"] for st in pure),
+            "ttft_mean_ms": 1e3 * statistics.mean(r.ttft for r in handles),
+            "profiled_dispatch": profile, "busy_share": profile["busy_share"],
+            "device_ms_per_dispatch": profile["device_ms"]}
+
+
+def single_step_logits(model: Setokim, ids, image, tokens, at: int):
+    """The logits from which a single-step run chose tokens[at]: the
+    request alone, prefilled single-shot (the serving layout, or the whole
+    prompt in whole chunks past it), then `at` decode steps (the cache
+    kernel) fed its tokens."""
+    dev = model.device
+    row = np.zeros((1, max(PROMPT_LEN, -(-len(ids) // CHUNK) * CHUNK)),
+                   np.int64)
+    row[0, :len(ids)] = ids
+    row = torch.from_numpy(row).to(dev)
+    if image is None:
+        logits, _, cache, valid, _ = model.prefill_text(
+            row, MAX_LEN, cache_dtype=torch.int8)
+    else:
+        logits, _, cache, valid, _ = model.prefill(
+            row, torch.from_numpy(image)[None].to(dev), MAX_LEN,
+            cache_dtype=torch.int8)
+    pos = valid.to(torch.int32).sum(dim=1)
+    cache = cache._replace(length=torch.full((1,), cache.length,
+                                             dtype=torch.int32, device=dev))
+    for tok in tokens[:at]:
+        logits, _, cache, valid = model.decode_step(
+            torch.tensor([[tok]], device=dev), cache, valid, pos)
+        pos = pos + 1
+    return logits[0]
+
+
+def stream_divergences(model: Setokim, reqs, got, want) -> list:
+    """Where a stream first differs from the single-step one: its index
+    and the single-step logits' top-2 gap there, relative to their largest
+    |logit|."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        at = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                  min(len(g), len(w)))
+        logits = single_step_logits(model, *reqs[i], w, at).double()
+        top = torch.topk(logits, 2).values
+        out.append({"request": i, "token": at, "top2_gap_rel": float(
+            (top[0] - top[1]) / logits.abs().max())})
+    return out
+
+
+def system_prompts(cfg) -> list:
+    rs = np.random.RandomState(SEED + 21)
+    vocab = cfg.llama.vocab_size
+    return [np.concatenate([[1], rs.randint(10, vocab, n - 1)]).astype(
+        np.int64) for n in SYSTEM_LENS]
+
+
+def prefixed_requests(cfg, systems) -> list:
+    """Four text requests after each system prompt, suffixes of 16 to 96
+    tokens."""
+    rs = np.random.RandomState(SEED + 22)
+    vocab = cfg.llama.vocab_size
+    return [(np.concatenate([sys_ids, rs.randint(10, vocab, rs.randint(
+        16, 97))]).astype(np.int64), None)
+        for sys_ids in systems for _ in range(SERVE_BATCH)]
+
+
+def admission_summary(handles, steps, prefills, wall) -> dict:
+    adm = [1e3 * st["s"] for st in steps if st["prefills"]]
+    return {"wall_s": wall, "prefills": prefills,
+            "ttft_mean_ms": 1e3 * statistics.mean(r.ttft for r in handles),
+            "admission_step_ms": adm,
+            "tokens_per_s": sum(len(r.tokens) for r in handles) / wall}
+
+
+def slot_state(eng: ServeEngine, slot: int) -> dict:
+    c = eng._cache
+    valid = eng._cache_valid[slot]
+    return {"k": c.k[:, slot][:, valid], "v": c.v[:, slot][:, valid],
+            "k_scale": c.k_scale[:, slot][:, valid],
+            "v_scale": c.v_scale[:, slot][:, valid], "valid": valid,
+            "length": c.length[slot], "pos": eng._pos[slot],
+            "tok": eng._cur_tok[slot]}
+
+
+def prefixed_cache_diff(model: Setokim, sys_ids, suffix) -> int:
+    """Elements of a slot (K, V and scales at its valid columns, validity,
+    length, position, first token) that differ between a prefixed
+    admission and a chunked admission of the whole prompt."""
+    prompt = np.concatenate([sys_ids, suffix])
+    states = []
+    for register in (False, True):
+        eng = ServeEngine(model, max_batch=1, prompt_len=PROMPT_LEN,
+                          max_len=MAX_LEN, eos_id=-1, pad_id=0,
+                          cache_dtype=torch.int8, prefill_chunk=CHUNK)
+        with torch.inference_mode():
+            if register:
+                eng.register_prefix(sys_ids)
+            eng.submit(prompt, max_new_tokens=2)
+            eng._admit()
+        states.append(slot_state(eng, 0))
+        del eng
+    a, b = states
+    return sum(int((a[k] != b[k]).sum()) if a[k].shape == b[k].shape
+               else a[k].numel() + b[k].numel() for k in a)
+
+
+def phase_serve_features(cfg, model: Setokim) -> dict:
+    """The serving features at full width on the bits-8 model of
+    phase_serve: chunked prefill (C = CHUNK, a LONG_PROMPT-token prompt
+    past the bucket), the prefix cache (system prompts of SYSTEM_LENS
+    tokens) beside plain chunked admission, speculative decoding
+    (SPEC_LEN drafts, n-grams up to SPEC_NGRAM) in turns with single steps,
+    and a sampled speculative run. Returns the launches of rows 8, 11 and
+    1 in these runs."""
+    t0 = time.perf_counter()
+    layers = cfg.llama.num_layers
+    per_call = len(TRUNK_LINEARS) * layers
+    vocab = cfg.llama.vocab_size
+    reqs = serve_requests(cfg, SEED + 8)
+    launches = {}
+
+    # speculative decoding in turns with single steps: 1, spec, spec, 1
+    runs, streams, spec_counts = [], [], None
+    for spec in (0, SPEC_LEN, SPEC_LEN, 0):
+        kw = {"spec_len": spec, "spec_ngram": SPEC_NGRAM} if spec else {}
+        reset_counts()
+        eng, handles, steps, _, wall, _ = run_engine(model, reqs, NEW_TOKENS,
+                                                     **kw)
+        counts = all_launches()
+        profile = run_engine(model, reqs[:SERVE_BATCH], 12,
+                             profile_step=3 if spec == 0 else 1,
+                             **kw)[-1]
+        summary = dispatch_summary(handles, steps, wall, profile)
+        summary["spec_len"] = spec
+        streams.append([r.tokens for r in handles])
+        check(all(len(r.tokens) == NEW_TOKENS for r in handles),
+              f"spec_len {spec}: a request stopped early")
+        if spec:
+            st = eng.stats()
+            verify = [x for x in steps if x["verify"] and not x["prefills"]]
+            summary.update(
+                verify_dispatches=st["verify_dispatches"],
+                drafts_accepted=st["drafts_accepted"],
+                accepted_per_dispatch=st["drafts_accepted"]
+                / st["verify_dispatches"],
+                accepted_per_row_dispatch=st["drafts_accepted"]
+                / st["verify_rows"],
+                tokens_per_dispatch=sum(len(r.tokens) for r in handles)
+                / st["verify_dispatches"],
+                launches_per_verify_dispatch={
+                    "quant_matmul_calls": sorted(
+                        {x["quant_calls"] for x in verify}),
+                    "quant_matmul": sorted(
+                        {x["quant_launches"] for x in verify}),
+                    "int8_cache_decode_attention": sorted(
+                        {x["cache_launches"] for x in verify})})
+            check(bool(verify) and all(
+                x["quant_calls"] == per_call and x["cache_launches"] == 0
+                for x in verify),
+                f"a verify dispatch did not make {per_call} quant_matmul "
+                "calls and no cache-attention launch")
+            if spec_counts is None:
+                spec_counts = counts
+        runs.append(summary)
+    single = streams[0]
+    divergences = [d for tokens in streams[1:] for d in stream_divergences(
+        model, reqs, tokens, single)]
+    launches["spec_run"] = {k: v for k, v in spec_counts.items() if v}
+    launches["per_verify_dispatch"] = runs[1][
+        "launches_per_verify_dispatch"]
+
+    # sampled speculative decoding
+    eng, sampled, *_ = run_engine(model, reqs, NEW_TOKENS, spec_len=SPEC_LEN,
+                                  spec_ngram=SPEC_NGRAM, **SPEC_SAMPLED)
+    st = eng.stats()
+    sampled_ok = all(len(r.tokens) == NEW_TOKENS
+                     and all(0 <= t < vocab for t in r.tokens)
+                     for r in sampled)
+    sampled_res = {**SPEC_SAMPLED, "in_vocab_and_full": sampled_ok,
+                   "accepted_per_dispatch": st["drafts_accepted"]
+                   / st["verify_dispatches"],
+                   "rows_that_differ_from_greedy": sum(
+                       r.tokens != g for r, g in zip(sampled, single))}
+
+    # chunked prefill: the serving requests, and a long prompt alone
+    rs = np.random.RandomState(SEED + 23)
+    long_req = [(np.concatenate([[1], rs.randint(10, vocab, LONG_PROMPT - 1)])
+                 .astype(np.int64), None)]
+    reset_counts()
+    _, chunked, steps, prefills, wall, _ = run_engine(
+        model, reqs, NEW_TOKENS, prefill_chunk=CHUNK)
+    chunk_counts = all_launches()
+    chunk_div = stream_divergences(model, reqs,
+                                   [r.tokens for r in chunked], single)
+    chunked_res = admission_summary(chunked, steps, prefills, wall)
+    _, long_h, long_steps, *_ = run_engine(model, long_req, NEW_TOKENS,
+                                           prefill_chunk=CHUNK)
+    n_chunks = -(-LONG_PROMPT // CHUNK)
+    chunked_res["long_prompt"] = {
+        "tokens": LONG_PROMPT, "chunks": n_chunks,
+        "admission_quant_calls": long_steps[0]["quant_calls"],
+        "ttft_ms": 1e3 * long_h[0].ttft}
+    check(long_steps[0]["quant_calls"] == (n_chunks + 1) * per_call,
+          f"the {LONG_PROMPT}-token prompt did not admit whole in "
+          f"{n_chunks} chunks: {long_steps[0]['quant_calls']} calls")
+    decode = [x for x in steps if x["decode"] and not x["prefills"]]
+    check(bool(decode) and all(x["cache_launches"] == layers
+                               for x in decode),
+          "a chunked run's decode step did not launch the cache kernel "
+          "once a layer")
+    launches["chunked_run"] = {k: v for k, v in chunk_counts.items() if v}
+
+    # the prefix cache beside plain chunked admission
+    systems = system_prompts(cfg)
+    preqs = prefixed_requests(cfg, systems)
+    _, plain_h, psteps, pprefills, pwall, _ = run_engine(
+        model, preqs, NEW_TOKENS, prefill_chunk=CHUNK)
+    reset_counts()
+    _, pref_h, fsteps, fprefills, fwall, _ = run_engine(
+        model, preqs, NEW_TOKENS, prefixes=systems, prefill_chunk=CHUNK)
+    pref_counts = all_launches()
+    check(fprefills["prefixed"] >= 2 and not fprefills["chunked"],
+          f"the prefixed run's admissions: {fprefills}")
+    pref_div = stream_divergences(model, preqs, [r.tokens for r in pref_h],
+                                  [r.tokens for r in plain_h])
+    cache_diff = {n: prefixed_cache_diff(model, sys_ids, preqs[
+        SERVE_BATCH * i][0][len(sys_ids):])
+        for i, (n, sys_ids) in enumerate(zip(SYSTEM_LENS, systems))}
+    launches["prefixed_run"] = {k: v for k, v in pref_counts.items() if v}
+
+    res = {"phase": "serve_features", "config": "base_setokim", "bits": 8,
+           "kv_cache": "int8", "cache_kernel": True,
+           "requests": len(reqs), "new_tokens_each": NEW_TOKENS,
+           "speculative_in_turns": runs,
+           "speculative_divergences": divergences,
+           "speculative_sampled": sampled_res,
+           "chunked": {"chunk": CHUNK, **chunked_res,
+                       "divergences": chunk_div},
+           "prefixed": {"system_lens": list(SYSTEM_LENS),
+                        "plain_chunked": admission_summary(
+                            plain_h, psteps, pprefills, pwall),
+                        "prefixed": admission_summary(
+                            pref_h, fsteps, fprefills, fwall),
+                        "divergences": pref_div,
+                        "cache_elements_differing_vs_whole_prompt":
+                            cache_diff},
+           "launches": launches,
+           "near_tie_bar": FEATURE_TIE_REL,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    for label, divs in (("speculative", divergences), ("chunked", chunk_div),
+                        ("prefixed", pref_div)):
+        check(all(d["top2_gap_rel"] <= FEATURE_TIE_REL for d in divs),
+              f"{label} greedy streams differ beyond a near-tie: {divs}")
+    check(sampled_ok, "the sampled speculative run emitted an id outside "
+          "the vocabulary or stopped early")
+    check(cache_diff[SYSTEM_LENS[0]] == 0,
+          f"the {SYSTEM_LENS[0]}-token prefix's admission differs from the "
+          f"whole prompt's in {cache_diff[SYSTEM_LENS[0]]} elements")
+    return launches
+
+
+def weighted_error(w: torch.Tensor, p: torch.Tensor, s: torch.Tensor,
+                   d: torch.Tensor) -> float:
+    """sum_k d_k · sum_n (w - ŵ)² of a (out, in) weight and its int4
+    buffers, in float64."""
+    q = torch.cat(unpack_nibbles(p), dim=1).double()
+    deq = q * s.double().t().repeat_interleave(q.shape[1] // s.shape[0],
+                                               dim=1)
+    return float((((w.double() - deq) ** 2) * d.double()).sum())
+
+
+def phase_serve_calibrated(cfg) -> dict:
+    """Calibrated int4 at full width: the float trunk (float32, from the
+    seed), E[x²] of every trunk linear's input over a prefill of the
+    serving prompts, the trunk quantised (group 128, clip search 8) with
+    and without those row weights; each linear's weighted error, the
+    prefill logits of both against the float model's, then the serving
+    requests at bits 4 on the calibrated weights."""
+    t0 = time.perf_counter()
+    group = valid_quant_group(cfg.llama, 128)
+    fmodel = init_setokim_random_(Setokim(cfg, target_token_id=3,
+                                          cache_kernel=True), SEED)
+    dev = fmodel.device
+    reqs = serve_requests(cfg, SEED + 8)
+    batches = []
+    for kind, batch in (("image", reqs[:SERVE_BATCH]),
+                        ("text", reqs[SERVE_BATCH:])):
+        ids = np.zeros((len(batch), PROMPT_LEN), np.int64)
+        for i, (p, _) in enumerate(batch):
+            ids[i, :len(p)] = p
+        images = (None if kind == "text" else torch.from_numpy(
+            np.stack([im for _, im in batch])).to(dev))
+        batches.append((torch.from_numpy(ids).to(dev), images))
+
+    def prefill_logits(model):
+        return [(model.prefill_text(ids, MAX_LEN, cache_dtype=torch.int8)
+                 if im is None else model.prefill(
+                     ids, im, MAX_LEN, cache_dtype=torch.int8))[0]
+                for ids, im in batches]
+
+    t = time.perf_counter()
+    want = []
+    rw = collect_row_weights(fmodel, lambda: want.extend(
+        prefill_logits(fmodel)))
+    calib_s = time.perf_counter() - t
+    state = fmodel.state_dict()
+    t = time.perf_counter()
+    cal = quantize_trunk_weights(state, bits=4, group_size=group,
+                                 clip_search=8, row_weights=rw)
+    quant_s = time.perf_counter() - t
+    errs, worse = {"calibrated": 0.0, "uncalibrated": 0.0}, []
+    for path, d in rw.items():
+        key = ".".join(path)
+        w = state[key + ".weight"]
+        d = torch.from_numpy(d).to(dev)
+        plain = quantize_linear(w, 4, group, 8)
+        e_cal = weighted_error(w, cal[key + ".p"], cal[key + ".s"], d)
+        e_plain = weighted_error(w, plain["p"], plain["s"], d)
+        errs["calibrated"] += e_cal
+        errs["uncalibrated"] += e_plain
+        if e_cal > e_plain * (1 + 1e-6):
+            worse.append((key, e_cal, e_plain))
+    q4 = Setokim(cfg, target_token_id=3, weight_bits=4, quant_group=group,
+                 cache_kernel=True)
+    logit_err = {}
+    for label, quant in (("uncalibrated", None), ("calibrated", cal)):
+        if quant is None:
+            quant = quantize_trunk_weights(state, bits=4, group_size=group,
+                                           clip_search=8)
+        q4.load_state_dict(quant)
+        del quant
+        got = prefill_logits(q4)
+        logit_err[label] = {kind: max_rel(g, w) for kind, g, w in zip(
+            ("image", "text"), got, want)}
+    del state, cal, fmodel
+    torch.cuda.empty_cache()
+    reset_counts()
+    _, handles, steps, prefills, wall, _ = run_engine(q4, reqs, NEW_TOKENS)
+    counts = all_launches()
+    res = {"phase": "serve_calibrated", "config": "base_setokim", "bits": 4,
+           "group": group, "clip_search": 8,
+           "calibration": "one prefill of the 8 serving prompts (4 with an "
+                          "image), float32 trunk",
+           "linears": len(rw), "calibration_s": calib_s,
+           "quantise_s": quant_s,
+           "weighted_error_sum": errs,
+           "linears_worse_than_uncalibrated": worse,
+           "prefill_logits_max_rel_vs_float": logit_err,
+           "serving": {"tokens_per_s": sum(len(r.tokens) for r in handles)
+                       / wall, "wall_s": wall, "prefills": prefills,
+                       "launches": {k: v for k, v in counts.items() if v}},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    check(len(rw) == len(TRUNK_LINEARS) * cfg.llama.num_layers,
+          f"calibration hooked {len(rw)} linears")
+    check(not worse, f"calibrated linears with a larger weighted error: "
+          f"{worse}")
+    check(all(len(r.tokens) == NEW_TOKENS for r in handles),
+          "calibrated int4: a request stopped early")
+    check(counts["quant4_matmul"] > 0 and not counts["quant_matmul"],
+          "calibrated int4 did not serve through quant4_matmul alone")
+    del q4
+    torch.cuda.empty_cache()
+    return {"launches": counts["quant4_matmul"]}
 
 
 @contextmanager
@@ -2832,8 +3297,19 @@ def main() -> int:
         if bits == 8:
             counts, model8 = phase_serve(setokim, bits, keep=True)
             gen = phase_generate(setokim, model8)
+            feats = phase_serve_features(setokim, model8)
             del model8
             torch.cuda.empty_cache()
+            # the serving features' launches: rows 8, 11 and 1
+            for row in ("quant_matmul", "int8_cache_decode_attention"):
+                serve_entries[row]["serve_features_launches"] = {
+                    run: feats[run].get(row, 0) for run in (
+                        "spec_run", "chunked_run", "prefixed_run")}
+            serve_entries["quant_matmul"]["serve_features_launches"][
+                "per_verify_dispatch"] = feats["per_verify_dispatch"]
+            entry["serve_features_launches"] = {
+                run: feats[run].get("dpc_density_parent", 0) for run in (
+                    "spec_run", "chunked_run", "prefixed_run")}
             serve_entries[name]["generate_launches"] = {
                 "decode_block": gen["decode_block"],
                 "dispatches": gen["dispatches"],
@@ -2844,6 +3320,8 @@ def main() -> int:
                                         "launches": gen["cache_launches"]}
         else:
             counts = phase_serve(setokim, bits)
+            serve_entries[name]["calibrated_launches"] = \
+                phase_serve_calibrated(setokim)["launches"]
         serve_entries[name]["launches"] = counts["launches"]
         serve_entries[name]["calls"] = counts["calls"]
         if bits == 8:

@@ -82,6 +82,35 @@ def int8_cache_decode_attention_plain(q, k_cache, k_scale, v_cache, v_scale,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def int8_cache_attention_exact(q, k_cache, k_scale, v_cache, v_scale,
+                               mask, sm_scale: float):
+    """The attention of T queries a row over the int8 cache, in the plain
+    version's steps (each sum and the exp in float64, rounded once): q
+    (B, T, H, D), mask (B, T, S) → (B, T, H, D) float32. The route of an
+    int8 cache without the decode kernel, and of every T > 1 forward (a
+    prefill, a chunk, a verify): the results of exact sums do not depend
+    on how many queries share a call or where the cache's holes lie, so a
+    verify's positions get the single steps' attention to the bit."""
+    b, t, h, d = q.shape
+    _, s, kvh, _ = k_cache.shape
+    g = h // kvh
+    # (B, KVH, G·T, D): the G query heads of a kv head, each at T positions
+    qg = q.float().permute(0, 2, 1, 3).reshape(b, kvh, g * t, d).double()
+    k = k_cache.double().permute(0, 2, 1, 3)                # (B, KVH, S, D)
+    v = v_cache.double().permute(0, 2, 1, 3)
+    sc = torch.matmul(qg, k.transpose(-1, -2)).float()      # (B, KVH, GT, S)
+    sc = sc * (k_scale.permute(0, 2, 1) * sm_scale)[:, :, None, :]
+    valid = mask[:, None, None].expand(b, kvh, g, t, s).reshape(
+        b, kvh, g * t, s)
+    sc = torch.where(valid, sc, NEG_INF)
+    sc = sc - sc.amax(-1, keepdim=True)
+    p = torch.exp(sc.double()).float()
+    p = p / p.double().sum(-1, keepdim=True).float()
+    pv = p * v_scale.permute(0, 2, 1)[:, :, None, :]
+    out = torch.matmul(pv.double(), v).float()              # (B, KVH, GT, D)
+    return out.reshape(b, h, t, d).permute(0, 2, 1, 3)
+
+
 def masked_tiles(key_valid: torch.Tensor, kv_heads: int) -> int:
     """The key tiles the kernel skips: per batch row that has a valid key,
     its tiles of TILE keys with none valid, once per kv head."""

@@ -58,13 +58,18 @@ def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
 
 
 def quantize_weight_int4(w: torch.Tensor, group_size: Optional[int] = None,
-                         clip_search: int = 0) -> Quant4Weight:
+                         clip_search: int = 0,
+                         row_weight=None) -> Quant4Weight:
     """Symmetric int4 ([-7, 7]) of a (out, in) weight, packed.
 
     `group_size=None`: one scale per output channel; `G`: one per G input
     rows. `clip_search=R` tries R clip ratios in [1.0, 0.5]·absmax and keeps,
     per scale, the one of least squared reconstruction error, in the JAX
-    package's order, so that the bytes and scales are the same."""
+    package's order, so that the bytes and scales are the same.
+    `row_weight` (in,), the calibration's E[x_k²] per input row
+    (serve/calibrate.py), weights each row's squared error in that search,
+    so that it minimises the output's error rather than the weight's; the
+    weighted error is summed in float32, as the JAX package sums it."""
     wt = w.float().t()                                   # (K, N), as JAX
     k = wt.shape[0]
     if k % 2:
@@ -77,12 +82,16 @@ def quantize_weight_int4(w: torch.Tensor, group_size: Optional[int] = None,
         wg = wt.reshape(k // group_size, group_size, -1)
     scale = _div(wg.abs().amax(dim=1).clamp_min(1e-8), 7.0)       # (g, N)
     if clip_search:
+        dw = None if row_weight is None else torch.as_tensor(
+            row_weight, dtype=torch.float32, device=wg.device).reshape(
+            wg.shape[0], wg.shape[1], 1)
         best_err = torch.full_like(scale, float("inf"))
         best_scale = scale
         for r in np.linspace(1.0, 0.5, clip_search):
             s = scale * float(r)
             q = torch.round(wg / s[:, None, :]).clamp(-7, 7)
-            err = ((wg - q * s[:, None, :]) ** 2).sum(dim=1)
+            sq = (wg - q * s[:, None, :]) ** 2
+            err = (sq if dw is None else dw * sq).sum(dim=1)
             best_scale = torch.where(err < best_err, s, best_scale)
             best_err = torch.minimum(err, best_err)
         scale = best_scale

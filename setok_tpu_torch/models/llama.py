@@ -2,7 +2,8 @@
 
 The counterpart of `setok_tpu/models/llama.py`, with the flax module names
 (`embed_tokens`, `model.layer_{i}.attn.q_proj`, ...) so that
-`utils/from_flax.py` is a rename: RMSNorm with float32 statistics, rotary
+`utils/from_flax.py` is a rename: RMSNorm with float32 statistics (without
+autograd, the mean of squares summed in float64 and rounded once), rotary
 embeddings in the HF rotate-half convention, GQA attention with a boolean
 mask (holes inside the sequence allowed), SwiGLU MLP.
 
@@ -16,17 +17,20 @@ into the cache's tensors in place and returns them with the new length:
 `KVCache.length` is a Python int (one write column for every row) or a (B,)
 int32 tensor (serving: each row appends at its own column, clamped to the
 last columns as the JAX scatter is). An int8 cache stores per-token,
-per-head scales `max(absmax, 1e-8)/127` beside the data; its decode reads
-dequantise before the attention, or, with `cache_kernel=True`, run
-`int8_cache_decode_attention` (kernels/cache_attention.py) where the JAX
-package would.
+per-head scales `max(absmax, 1e-8)/127` beside the data. A decode step
+(one query a row) with `cache_kernel=True` runs `int8_cache_decode_attention`
+(kernels/cache_attention.py) where the JAX package would; every other read
+of an int8 cache (a prefill, a chunk, a verify, or a decode without the
+kernel) takes the dequantised route in that kernel's arithmetic
+(`int8_cache_attention_exact`: float64 sums rounded once), so that the
+attention of a position does not depend on how many share the forward.
 
 Without a cache (the training forward), `use_flash` routes the attention
 through the flash-attention kernels (`kernels/flash_attention.py`, forward
 and backward), and `remat` recomputes each block in the backward pass
 (`torch.utils.checkpoint`), as the JAX package's `nn.remat` does. Not ported
-here: `ring_mesh` (sequence-parallel training) and calibration
-`row_weights` for int4; each raises `NotImplementedError`.
+here: `ring_mesh` (sequence-parallel training), which raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -52,8 +56,6 @@ NEG_INF = -1e30
 NOT_PORTED = {
     "ring_mesh": "sequence-parallel training: ROADMAP.md, Queue A "
                  "(parallel)",
-    "row_weights": "calibrated int4 scale search: ROADMAP.md, Queue A "
-                   "(serving features)",
 }
 
 TRUNK_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj",
@@ -77,7 +79,18 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         x32 = x.float()
-        var = (x32 * x32).mean(-1, keepdim=True)
+        if torch.is_grad_enabled():
+            var = (x32 * x32).mean(-1, keepdim=True)
+        else:
+            # serving: the mean of squares summed in float64 and rounded
+            # once, the same whatever order the reduction takes, which on
+            # the card depends on how many rows share the call (a verify's
+            # positions get the single steps' statistics, and so their int8
+            # activation steps). Training, which needs no such agreement,
+            # keeps the float32 pass and saves no float64 copy for the
+            # backward.
+            x64 = x32.double()
+            var = (x64 * x64).mean(-1, keepdim=True).float()
         y = x32 * torch.rsqrt(var + self.eps)
         return (y * self.weight.float()).to(self.compute_dtype)
 
@@ -214,10 +227,12 @@ class LlamaAttention(nn.Module):
                     1.0 / math.sqrt(hd))
                 return self.o_proj(out.to(self.dtype).reshape(b, l, h * hd))
             if quant:
-                k = ck.to(self.dtype) * cks[..., None].to(self.dtype)
-                v = cv.to(self.dtype) * cvs[..., None].to(self.dtype)
-            else:
-                k, v = ck.to(self.dtype), cv.to(self.dtype)
+                # the dequantised route, in the decode kernel's exact
+                # arithmetic: a verify or a chunk attends as single steps
+                out = ca.int8_cache_attention_exact(
+                    q, ck, cks, cv, cvs, mask[:, 0], 1.0 / math.sqrt(hd))
+                return self.o_proj(out.to(self.dtype).reshape(b, l, h * hd))
+            k, v = ck.to(self.dtype), cv.to(self.dtype)
 
         groups = h // kvh
         if groups > 1:
@@ -402,15 +417,18 @@ def valid_quant_group(cfg: LlamaConfig, group_size: int) -> int:
 
 
 def quantize_linear(weight: torch.Tensor, bits: int, group_size: int = 0,
-                    clip_search: int = 0) -> Dict[str, torch.Tensor]:
+                    clip_search: int = 0,
+                    row_weight=None) -> Dict[str, torch.Tensor]:
     """A float (out, in) weight → the buffers of `QuantDense` (bits 8:
-    `q`, `s`) or `Quant4Dense` (bits 4: `p`, `s`)."""
+    `q`, `s`) or `Quant4Dense` (bits 4: `p`, `s`; `row_weight` the
+    calibration's (in,) E[x²] for the clip search)."""
     if bits == 8:
         qw = quantize_weight(weight)
         return {"q": qw.values, "s": qw.scales[None]}
     if bits == 4:
         qw = quantize_weight_int4(weight, group_size=group_size or None,
-                                  clip_search=clip_search)
+                                  clip_search=clip_search,
+                                  row_weight=row_weight)
         return {"p": qw.packed, "s": qw.scales}
     raise ValueError(f"bits must be 8 or 4, got {bits}")
 
@@ -421,15 +439,20 @@ def quantize_trunk_weights(state: Dict[str, torch.Tensor], bits: int = 8,
     """A state dict of a `weight_bits=16` model (or of any model holding
     one) → the `weight_bits=bits` layout: each trunk linear's `weight`
     becomes its quantised buffers. Embeddings, norms and the LM head stay
-    float."""
-    refuse(row_weights=row_weights)
+    float. `row_weights` ({module path: (in,) E[x²]}, from
+    `serve/calibrate.collect_row_weights`) weights the int4 clip search of
+    each linear found in it by its state-dict path
+    (`serve/calibrate.lookup_row_weight`); bits 8 ignores them."""
+    from setok_tpu_torch.serve.calibrate import lookup_row_weight
     out = {}
     for key, value in state.items():
         *mod, leaf = key.split(".")
         if leaf == "weight" and mod and mod[-1] in TRUNK_LINEARS \
                 and value.dim() == 2:
+            rw = (lookup_row_weight(row_weights, tuple(mod))
+                  if row_weights and bits == 4 else None)
             for name, t in quantize_linear(value, bits, group_size,
-                                           clip_search).items():
+                                           clip_search, rw).items():
                 out[".".join([*mod, name])] = t
         else:
             out[key] = value

@@ -3,7 +3,9 @@
 The counterpart of `setok_tpu/models/setokim.py`: `tokenize`,
 `encode_images`, the static multimodal splice (`prepare_multimodal`), the
 training forward (`forward`: CE in the hole layout plus the diffusion
-branch), `prefill`, `prefill_text` and `decode_step`, with the same
+branch), `prefill`, `prefill_text`, `decode_step`, and the serving
+features' `prefill_text_chunk` (chunked prefill, the prefix cache) and
+`verify_step` (speculative decoding), with the same
 sub-module names (`llama`, `vision_tower`, `mm_in_projector`,
 `vision_generator`, `mm_out_projector`, `diffloss`) as the flax tree.
 
@@ -356,23 +358,56 @@ class Setokim(nn.Module):
         cache_valid). With a per-row (B,) `cache.length`, a row whose
         column lies past the cache marks nothing (the JAX scatter's
         `mode="drop"`), while its K/V write clamps to the last column."""
-        b = token_ids.shape[0]
-        s = cache_valid.shape[1]
-        cache_valid = cache_valid.clone()
-        if isinstance(cache.length, torch.Tensor):
-            rows = torch.arange(b, device=cache_valid.device)
-            cols = cache.length.clamp(max=s - 1)
-            cache_valid[rows, cols] = cache_valid[rows, cols] | (
-                cache.length < s)
-        else:
-            cache_valid[:, min(max(cache.length, 0), s - 1)] = True
-        valid = torch.ones((b, 1), dtype=torch.bool, device=token_ids.device)
+        valid = torch.ones(token_ids.shape, dtype=torch.bool,
+                           device=token_ids.device)
+        cache_valid = mark_columns(cache_valid, cache.length, valid)
         positions = next_position[:, None]
         mask = make_attention_mask(valid, positions, cache_valid=cache_valid)
         hidden, cache = self.llama.model(self.llama.embed(token_ids), mask,
                                          positions, cache)
         return (self.llama.logits(hidden)[:, 0], hidden[:, 0], cache,
                 cache_valid)
+
+    @torch.inference_mode()
+    def prefill_text_chunk(self, token_ids, cache: KVCache, cache_valid,
+                           pos_offset):
+        """One chunk of a chunked text-only prefill: token_ids (B, C) →
+        (logits (B, C, V), hidden, cache, cache_valid).
+
+        Prompts are left-aligned, so feeding them in chunks of C gives the
+        single-shot `prefill_text`'s cache: the chunk is appended at
+        [cache.length, cache.length + C) with its pads marked invalid, and
+        positions continue from `pos_offset` (B,), the count of valid
+        tokens in the earlier chunks."""
+        chunk_valid = token_ids != self.pad_token_id
+        cache_valid = mark_columns(cache_valid, cache.length, chunk_valid)
+        positions = (pos_offset[:, None]
+                     + torch.cumsum(chunk_valid.to(torch.int32), dim=1)
+                     - 1).clamp_min(0)
+        mask = make_attention_mask(chunk_valid, positions,
+                                   cache_valid=cache_valid)
+        hidden, cache = self.llama.model(self.llama.embed(token_ids), mask,
+                                         positions, cache)
+        return self.llama.logits(hidden), hidden, cache, cache_valid
+
+    @torch.inference_mode()
+    def verify_step(self, token_ids, cache: KVCache, cache_valid,
+                    next_position):
+        """The speculative verify: token_ids (B, T) = [current token, T - 1
+        drafts] → (logits (B, T, V), hidden (B, T, H), cache, cache_valid),
+        every position scored in one forward (causal within the chunk,
+        appended at [length, length + T), positions next_position + 0..T-1).
+        The caller rewinds `length` and the validity of the rejected
+        drafts (serve/engine.py)."""
+        valid = torch.ones(token_ids.shape, dtype=torch.bool,
+                           device=token_ids.device)
+        cache_valid = mark_columns(cache_valid, cache.length, valid)
+        positions = next_position[:, None] + torch.arange(
+            token_ids.shape[1], device=token_ids.device, dtype=torch.int32)
+        mask = make_attention_mask(valid, positions, cache_valid=cache_valid)
+        hidden, cache = self.llama.model(self.llama.embed(token_ids), mask,
+                                         positions, cache)
+        return self.llama.logits(hidden), hidden, cache, cache_valid
 
     # ------------------------------------------------------------------
     def draw_image(self, batch_size: int, seq_len: int, cfg_scale: float,
@@ -429,6 +464,28 @@ class Setokim(nn.Module):
     def render_image(self, concept_tokens, token_valid=None):
         """Concept tokens → pixels through the float detokenizer."""
         return self.vision_generator(concept_tokens, token_valid)
+
+
+def mark_columns(cache_valid: torch.Tensor, start,
+                 values: torch.Tensor) -> torch.Tensor:
+    """A copy of the (B, S) validity with `values` (B, T) written at
+    columns [start, start + T). `start` an int: the block clamps to fit,
+    as `dynamic_update_slice` does (and as the K/V write does). `start` a
+    (B,) tensor: each column past S is dropped on its own (the JAX
+    scatter's `mode="drop"`), while the K/V write clamps the whole block
+    to S - T; the writes go to a buffer T columns wider, cut after."""
+    b, s = cache_valid.shape
+    t = values.shape[1]
+    if not isinstance(start, torch.Tensor):
+        s0 = min(max(int(start), 0), s - t)
+        out = cache_valid.clone()
+        out[:, s0:s0 + t] = values
+        return out
+    wide = torch.cat([cache_valid, cache_valid.new_zeros((b, t))], dim=1)
+    cols = (start[:, None].long()
+            + torch.arange(t, device=start.device)).clamp(max=s + t - 1)
+    wide[torch.arange(b, device=start.device)[:, None], cols] = values
+    return wide[:, :s].contiguous()
 
 
 def mask_schedule(mask: torch.Tensor, orders: torch.Tensor, step: int,

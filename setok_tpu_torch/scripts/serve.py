@@ -1,7 +1,9 @@
 """Serving CLI: the continuous-batching engine over Setokim, on the card.
 
     python -m setok_tpu_torch.scripts.serve [--tiny] [--bits 8|4] [--kv-bits 8]
-                                            [--decode-block K]
+                                            [--decode-block K | --spec-len D]
+                                            [--prefill-chunk C
+                                             [--system-prompt TEXT]]
     python -m setok_tpu_torch.scripts.serve --cpu --tiny
 
 Reads prompts (one per line from --prompts-file, or a built-in demo set),
@@ -11,7 +13,12 @@ weights are random, from a seed: `--tiny` runs the test configuration,
 otherwise the full-width `base_setokim()` (Vicuna-7B trunk, ViT-B/16
 SeTok). `--bits 8|4` quantises the trunk as the JAX CLI does (int4: group
 `--quant-group` where the widths allow, clip search 8), layer by layer on
-the device. `--decode-block K` runs K decode steps per host round trip.
+the device. `--decode-block K` runs K decode steps per host round trip;
+`--spec-len D` drafts D tokens a row by prompt lookup (n-grams up to
+`--spec-ngram`) and verifies them in one forward; `--prefill-chunk C`
+admits text prompts in chunks of C tokens, up to the cache's width; and
+`--system-prompt` prepends a text to every prompt (without a second BOS)
+and registers it as a cached prefix, which needs `--prefill-chunk`.
 
 The flags are the JAX CLI's (`scripts/serve.py`) that this port runs; its
 others are refused with a message naming their ROADMAP.md entry. There,
@@ -37,16 +44,8 @@ from setok_tpu_torch.utils.init import init_setokim_random_
 # the JAX CLI's flags that this port does not run
 REFUSED = {
     "checkpoint": "loading a checkpoint: ROADMAP.md, Queue A (checkpoints)",
-    "spec_len": "speculative decoding: ROADMAP.md, Queue A (serving "
-                "features)",
-    "spec_ngram": "speculative decoding: ROADMAP.md, Queue A (serving "
-                  "features)",
     "tensor_parallel": "multi-card serving: ROADMAP.md, Queue A (serving "
                        "features; after the parallel item)",
-    "prefill_chunk": "chunked prefill and the prefix cache: ROADMAP.md, "
-                     "Queue A (serving features)",
-    "system_prompt": "chunked prefill and the prefix cache: ROADMAP.md, "
-                     "Queue A (serving features)",
 }
 
 DEMO_PROMPTS = ["Describe the image.", "What color is the sky?",
@@ -70,6 +69,17 @@ def parse_args(argv=None):
     p.add_argument("--frequency-penalty", type=float, default=0.0)
     p.add_argument("--decode-block", type=int, default=1,
                    help="decode steps per host round trip")
+    p.add_argument("--spec-len", type=int, default=0,
+                   help="speculative decoding: drafts a row by prompt "
+                        "lookup, verified in one forward (exclusive with "
+                        "--decode-block > 1)")
+    p.add_argument("--spec-ngram", type=int, default=3)
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="admit text prompts in chunks of C tokens, up to "
+                        "the cache width")
+    p.add_argument("--system-prompt", default=None,
+                   help="text prepended to every prompt and registered as "
+                        "a cached prefix (needs --prefill-chunk)")
     p.add_argument("--bits", type=int, default=16, choices=[16, 8, 4],
                    help="8/4 = int8/packed-int4-at-rest trunk")
     p.add_argument("--quant-group", type=int, default=128,
@@ -87,6 +97,8 @@ def parse_args(argv=None):
     for name, why in REFUSED.items():
         if getattr(args, name) is not None:
             p.error(f"--{name.replace('_', '-')} is not ported: {why}")
+    if args.system_prompt and args.prefill_chunk <= 0:
+        p.error("--system-prompt requires --prefill-chunk")
     return args
 
 
@@ -107,8 +119,20 @@ def main(argv=None) -> None:
             prompts = [ln.strip() for ln in f if ln.strip()]
     else:
         prompts = DEMO_PROMPTS
-    enc = [np.asarray(tok.encode(t), np.int64)[:args.prompt_len]
-           for t in prompts]
+    sys_ids = np.asarray([], np.int64)
+    if args.system_prompt:
+        sys_ids = np.asarray(tok.encode(args.system_prompt), np.int64)
+
+    def encode(text):
+        ids = np.asarray(tok.encode(text), np.int64)
+        if len(sys_ids):
+            bos = getattr(tok, "bos_token_id", None)
+            if bos is not None and len(ids) and ids[0] == bos:
+                ids = ids[1:]             # BOS only at the prefix's head
+            ids = np.concatenate([sys_ids, ids])
+        return ids[:max(args.prompt_len, len(sys_ids) + 8)]
+
+    enc = [encode(t) for t in prompts]
 
     eng = ServeEngine(model, max_batch=args.max_batch,
                       prompt_len=args.prompt_len, max_len=args.max_len,
@@ -116,10 +140,15 @@ def main(argv=None) -> None:
                       presence_penalty=args.presence_penalty,
                       frequency_penalty=args.frequency_penalty,
                       decode_block=args.decode_block,
+                      spec_len=args.spec_len, spec_ngram=args.spec_ngram,
+                      prefill_chunk=args.prefill_chunk,
                       cache_dtype=(torch.int8 if args.kv_bits == 8
                                    else torch.bfloat16),
                       eos_id=getattr(tok, "eos_token_id", 2),
                       pad_id=getattr(tok, "pad_token_id", 0))
+    if len(sys_ids):
+        eng.register_prefix(sys_ids)
+        print(f"registered {len(sys_ids)}-token system-prompt prefix")
     t0 = time.perf_counter()
     reqs = [eng.submit(e, max_new_tokens=args.max_new_tokens) for e in enc]
     pending = set(range(len(reqs)))

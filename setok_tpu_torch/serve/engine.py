@@ -26,7 +26,29 @@ The counterpart of the core of `setok_tpu/serve/engine.py`:
     admission). Greedy streams are those of K = 1;
   * rendering at retirement (`im_start_id`, `im_end_id`): each non-empty
     span of a retired request's tokens renders through
-    `models/generate.generate_image` from the hidden states of its tokens.
+    `models/generate.generate_image` from the hidden states of its tokens;
+  * `prefill_chunk = C`: text-only prompts admit in chunks of C tokens
+    through `Setokim.prefill_text_chunk`, up to the cache's width (the
+    last `_chunk_cap()` tokens) rather than the `prompt_len` bucket; each
+    row's first token comes from the chunk that holds its last prompt
+    token. Image admissions stay single-shot;
+  * the prefix cache (`register_prefix`, `max_prefixes`): the K/V slab of
+    a shared prefix (a system prompt) is computed once; an admission whose
+    prompt extends a registered prefix starts from a fresh copy of the
+    slab (the cache is written in place, so the slab itself is never
+    handed out) and chunk-prefills only its suffix, appended at the slab's
+    padded width with positions continuing from the prefix's length. When
+    that length is a multiple of C the cache is the one chunk-prefilling
+    the whole prompt gives; otherwise the pad holes are masked;
+  * `spec_len = D`: speculative decoding. Each row drafts D tokens by
+    prompt lookup (`serve/speculative.py`); one `Setokim.verify_step`
+    scores the (B, 1 + D) chunk; greedy rows accept the drafts that match
+    the argmax chain, and at temperature > 0 `speculative_sample` decides
+    on the nucleus-filtered softmax. A row's length and position advance
+    by the tokens it emits (accepted + 1), the validity of the rest is
+    cleared, and the host applies the stops over each row's accepted
+    prefix. Drafts outside [0, vocab) (a prompt's image sentinels) become
+    `pad_id` before the verify.
 
 The JAX engine prefills, and renders, on a worker thread and splices the
 results in at a later step. Here `step()` prefills its admissions
@@ -39,10 +61,8 @@ drawing from the engine's generator; as in the JAX engine the slot frees at
 `_retire`, and the request's `done` flips only when its images are
 harvested (`stats()["renders_in_flight"]` counts those waiting).
 
-Not ported here, each raising `NotImplementedError` with its ROADMAP.md
-entry: chunked prefill and prefix caching (`prefill_chunk`,
-`register_prefix`), speculative decoding (`spec_len`) and multi-card
-serving (`mesh`).
+Not ported here: multi-card serving (`mesh`), which raises
+`NotImplementedError` with its ROADMAP.md entry.
 """
 
 from __future__ import annotations
@@ -50,21 +70,21 @@ from __future__ import annotations
 import dataclasses
 import queue
 import time
-from typing import Any, Dict, List, Optional
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from setok_tpu_torch.models.generate import (_top_p_filter, find_image_spans,
                                              generate_image, sample)
-from setok_tpu_torch.models.llama import KVCache
-from setok_tpu_torch.models.setokim import Setokim
+from setok_tpu_torch.models.llama import KVCache, init_cache
+from setok_tpu_torch.models.setokim import Setokim, mark_columns
+from setok_tpu_torch.serve.speculative import (clean_drafts,
+                                               draft_prompt_lookup,
+                                               draw_spec, speculative_sample)
 
-SERVING_FEATURES = {
-    "spec_len": "speculative decoding: ROADMAP.md, Queue A (serving "
-                "features)",
-    "prefill_chunk": "chunked prefill and the prefix cache: ROADMAP.md, "
-                     "Queue A (serving features)",
+NOT_PORTED = {
     "mesh": "multi-card serving: ROADMAP.md, Queue A (serving features; "
             "after the parallel item)",
 }
@@ -143,22 +163,43 @@ class ServeEngine:
     num_iter: int = 16                     # MaskGIT iterations per image
     cfg_scale: float = 1.0
     decode_block: int = 1                  # decode steps per host trip
+    # speculative decoding: drafts per row and dispatch (prompt lookup of
+    # n-grams up to spec_ngram); exclusive with decode_block > 1, the
+    # penalties and per_request_sampling
     spec_len: int = 0
+    spec_ngram: int = 3
+    # chunked text-only prefill: admit prompts in chunks of C tokens (0 =
+    # single-shot); the prefix cache needs it
     prefill_chunk: int = 0
+    max_prefixes: int = 8                  # registered prefixes (LRU)
     cache_dtype: Any = torch.bfloat16
     mesh: Any = None
 
     def __post_init__(self):
-        for name, bad in (("spec_len", self.spec_len != 0),
-                          ("prefill_chunk", self.prefill_chunk != 0),
-                          ("mesh", self.mesh is not None)):
-            if bad:
-                raise NotImplementedError(
-                    f"{name} is not ported: {SERVING_FEATURES[name]}")
-        if self.decode_block < 1:
-            raise ValueError("decode_block must be >= 1")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"mesh is not ported: {NOT_PORTED['mesh']}")
         if self.prompt_len >= self.max_len:
             raise ValueError("prompt_len must leave decode room in max_len")
+        if self.decode_block < 1:
+            raise ValueError("decode_block must be >= 1")
+        if self.prefill_chunk < 0:
+            raise ValueError("prefill_chunk must be >= 0")
+        if self.spec_len < 0:
+            raise ValueError("spec_len must be >= 0")
+        if self.spec_len > 0:
+            if self.decode_block > 1:
+                raise ValueError("spec_len and decode_block>1 are exclusive "
+                                 "amortizations — pick one")
+            if self.presence_penalty or self.frequency_penalty:
+                raise ValueError("presence/frequency penalties are not "
+                                 "supported with speculative decoding "
+                                 "(verification would need within-chunk "
+                                 "count updates)")
+            if self.per_request_sampling:
+                raise ValueError("per_request_sampling is not supported "
+                                 "with speculative decoding (mixed rows "
+                                 "cannot share one rejection chunk)")
         b, s = self.max_batch, self.max_len
         cfg = self.model.cfg.llama
         dev = self.model.device
@@ -198,8 +239,14 @@ class ServeEngine:
         # retired requests whose spans wait to render: (request, (T, H)
         # hidden states, spans)
         self._renders: List[Any] = []
+        # registered prefixes: tuple(ids) → (slab cache (layers, 1, S),
+        # validity (1, S), prefix length, padded width); order = recency
+        self._prefixes: "OrderedDict[Tuple[int, ...], Tuple]" = OrderedDict()
         self._n_done = 0
         self._n_tokens = 0
+        # speculative decoding: verify dispatches, the rows active in them
+        # and the drafts they accepted
+        self._n_verify = self._n_verify_rows = self._n_accepted = 0
 
     # ------------------------------------------------------------------
     def _sample(self, logits, counts, samp=None):
@@ -240,12 +287,132 @@ class ServeEngine:
             ids, self.max_len, cache_dtype=self.cache_dtype)
         return self._first(ids, logits, cache, cache_valid, samp)
 
-    def _first(self, ids, logits, cache, cache_valid, samp):
-        next_pos = cache_valid.to(torch.int32).sum(dim=1)
+    def _first(self, ids, logits, cache, cache_valid, samp, next_pos=None,
+               prefix=()):
+        """The first token of each admitted row, and the admission's
+        results. `next_pos` defaults to the count of valid columns;
+        `prefix`, the ids of a cached prefix, adds to the prompt counts."""
+        if next_pos is None:
+            next_pos = cache_valid.to(torch.int32).sum(dim=1)
         counts = self._prompt_counts(ids, logits.shape[-1])
+        pref = [t for t in prefix if t >= 0 and t != self.pad_id]
+        if pref:
+            counts += torch.from_numpy(np.bincount(
+                pref, minlength=counts.shape[1]).astype(np.int32)).to(
+                counts.device)
         first = self._sample(logits, counts, samp)
         counts[torch.arange(ids.shape[0], device=ids.device), first] += 1
         return cache, cache_valid, next_pos, first, counts
+
+    # ------------------------------------------------------------------
+    # chunked prefill and the prefix cache
+    def _chunk_cap(self) -> int:
+        """Whole-chunk prompt capacity of a chunked admission: the cache
+        width less one decode column, rounded down to whole chunks."""
+        c = self.prefill_chunk
+        return ((self.max_len - 2) // c) * c
+
+    def _run_chunks(self, ids, lens, cache, cache_valid, pos_base: int = 0):
+        """The (n, W) left-aligned ids (W a multiple of C; `lens` their
+        true lengths on the host) through `prefill_text_chunk`, chunk by
+        chunk, appended to `cache` → (each row's logits at its last token,
+        cache, cache_valid)."""
+        c = self.prefill_chunk
+        dev = ids.device
+        lens = np.asarray(lens)
+        rows = torch.arange(ids.shape[0], device=dev)
+        at = torch.from_numpy((lens - 1) % c).to(dev)
+        first_logits = None
+        for ci in range(ids.shape[1] // c):
+            # valid tokens are contiguous from 0: min(len, ci·C) precede
+            pos_off = torch.from_numpy((pos_base + np.minimum(
+                lens, ci * c)).astype(np.int32)).to(dev)
+            logits, _, cache, cache_valid = self.model.prefill_text_chunk(
+                ids[:, ci * c:(ci + 1) * c], cache, cache_valid, pos_off)
+            sel = logits[rows, at]
+            last = torch.from_numpy((lens - 1) // c == ci).to(dev)
+            first_logits = sel if first_logits is None else torch.where(
+                last[:, None], sel, first_logits)
+        return first_logits, cache, cache_valid
+
+    def _prefill_text_chunked(self, ids, lens, samp=None):
+        """A chunked text-only admission into a new cache; the contract of
+        `_prefill_text_impl`."""
+        n = ids.shape[0]
+        cache = init_cache(self.model.cfg.llama, n, self.max_len,
+                           dtype=self.cache_dtype, device=ids.device)
+        cache_valid = torch.zeros((n, self.max_len), dtype=torch.bool,
+                                  device=ids.device)
+        logits, cache, cache_valid = self._run_chunks(ids, lens, cache,
+                                                      cache_valid)
+        next_pos = torch.as_tensor(lens, dtype=torch.int32, device=ids.device)
+        return self._first(ids, logits, cache, cache_valid, samp, next_pos)
+
+    @torch.inference_mode()
+    def register_prefix(self, prefix_ids) -> None:
+        """Compute and keep the K/V slab of a shared prompt prefix. Later
+        text-only admissions whose prompt extends it (and whose suffix fits
+        the chunk capacity left) start from a copy of the slab and prefill
+        only their suffix. Needs `prefill_chunk > 0`; past `max_prefixes`
+        the least recently used prefix goes (an admission refreshes it)."""
+        if self.prefill_chunk <= 0:
+            raise ValueError("register_prefix requires prefill_chunk > 0")
+        ids = np.asarray(prefix_ids, np.int64)
+        c = self.prefill_chunk
+        pw = max(c, ((len(ids) + c - 1) // c) * c)
+        if pw > self._chunk_cap() - c:
+            raise ValueError("prefix leaves no room for a suffix chunk "
+                             f"({pw} padded vs cap {self._chunk_cap()})")
+        dev = self.model.device
+        padded = np.full((1, pw), self.pad_id, np.int64)
+        padded[0, :len(ids)] = ids
+        cache = init_cache(self.model.cfg.llama, 1, self.max_len,
+                           dtype=self.cache_dtype, device=dev)
+        cache_valid = torch.zeros((1, self.max_len), dtype=torch.bool,
+                                  device=dev)
+        _, cache, cache_valid = self._run_chunks(
+            torch.from_numpy(padded).to(dev), [len(ids)], cache, cache_valid)
+        key = tuple(int(x) for x in ids)
+        self._prefixes[key] = (cache, cache_valid, len(ids), pw)
+        self._prefixes.move_to_end(key)
+        while len(self._prefixes) > self.max_prefixes:
+            self._prefixes.popitem(last=False)
+
+    def _match_prefix(self, prompt_ids) -> Optional[Tuple[int, ...]]:
+        """The longest registered prefix this prompt strictly extends (a
+        suffix token gives the first token's logits) whose suffix fits the
+        capacity left after its slab; else None (the plain chunked
+        admission, which keeps the prompt's last tokens)."""
+        if self.prefill_chunk <= 0 or not self._prefixes:
+            return None
+        prompt = tuple(int(x) for x in prompt_ids)
+        best = None
+        for key, (_, _, _, pw) in self._prefixes.items():
+            if (len(key) < len(prompt) and prompt[:len(key)] == key
+                    and len(prompt) - len(key) <= self._chunk_cap() - pw
+                    and (best is None or len(key) > len(best))):
+                best = key
+        return best
+
+    def _prefill_text_prefixed(self, suffix_ids, lens, pkey, samp=None):
+        """A prefix-cached admission: n fresh copies of the slab, then the
+        suffix's chunks, appended at the slab's padded width with positions
+        continuing from the prefix's length."""
+        pcache, pvalid, plen, pw = self._prefixes[pkey]
+        n = suffix_ids.shape[0]
+
+        def rep(t):                        # a copy, at n == 1 too
+            return None if t is None else t.repeat(1, n, *[1] * (t.dim() - 2))
+
+        cache = KVCache(k=rep(pcache.k), v=rep(pcache.v), length=pw,
+                        k_scale=rep(pcache.k_scale),
+                        v_scale=rep(pcache.v_scale))
+        logits, cache, cache_valid = self._run_chunks(
+            suffix_ids, lens, cache, pvalid.repeat(n, 1), pos_base=plen)
+        next_pos = torch.as_tensor(plen + np.asarray(lens), dtype=torch.int32,
+                                   device=suffix_ids.device)
+        return self._first(suffix_ids, logits, cache, cache_valid, samp,
+                           next_pos, prefix=pkey)
 
     def _insert_impl(self, slot: int, row: int, row_cache: KVCache,
                      row_valid, row_pos, row_tok, row_counts) -> None:
@@ -302,6 +469,46 @@ class ServeEngine:
                       & (self._pos < self.max_len - 1))
         return torch.stack(record)
 
+    def _spec_step_impl(self, drafts: torch.Tensor,
+                        active: torch.Tensor) -> torch.Tensor:
+        """One speculative dispatch: verify the (B, 1 + D) chunks of the
+        current tokens and their drafts, accept the longest valid prefix of
+        each row's drafts, rewind the rest. A row emits acc + 1 tokens (0
+        when inactive): its length and position advance by that, the
+        validity of its other new columns is cleared (their K/V is
+        overwritten by later appends), and its next token is out_tok[acc].
+        → the (B, 1 + D, 2 + H) float32 record: each position's token, the
+        row's emitted count, and the hidden state of the token it fed."""
+        b, d = drafts.shape
+        t = d + 1
+        dev = drafts.device
+        old_len = self._cache.length
+        logits, hidden, cache, cache_valid = self.model.verify_step(
+            torch.cat([self._cur_tok[:, None], drafts], dim=1), self._cache,
+            self._cache_valid, self._pos)
+        if self.temperature == 0.0:
+            out_tok = logits.argmax(-1)
+            match = drafts == out_tok[:, :-1]
+            acc = torch.cumprod(match.to(torch.int64), dim=1).sum(dim=1)
+        else:
+            scaled = logits.float() / self.temperature
+            if self.top_p < 1.0:
+                scaled = _top_p_filter(scaled, self.top_p)
+            out_tok, acc = speculative_sample(
+                torch.softmax(scaled, dim=-1), drafts,
+                draw_spec(b, d, logits.shape[-1], self._gen, dev))
+        emit = torch.where(active, acc + 1, 0).to(torch.int32)
+        keep = torch.arange(t, device=dev)[None, :] < emit[:, None]
+        self._cache_valid = mark_columns(cache_valid, old_len, keep)
+        nxt = torch.gather(out_tok, 1, acc[:, None])[:, 0]
+        self._cur_tok = torch.where(active, nxt, self.pad_id)
+        self._cache = cache._replace(length=old_len + emit)
+        self._pos = self._pos + emit
+        # exact in float32: token ids and counts < 2^24
+        return torch.cat([out_tok.float()[..., None],
+                          emit.float()[:, None, None].expand(b, t, 1),
+                          hidden.float()], dim=2)
+
     # ------------------------------------------------------------------
     def submit(self, prompt_ids, image=None, max_new_tokens: int = 64,
                stopping=None, on_token=None, temperature=None, top_p=None,
@@ -336,7 +543,9 @@ class ServeEngine:
 
     def _admit(self) -> None:
         """Prefill queued requests into free slots. Consecutive queued
-        requests of one kind (image / text-only) prefill as one batch."""
+        requests of one kind (image / text-only, and for text the same
+        registered prefix or none) prefill as one batch: single-shot at
+        `prompt_len`, in chunks, or after a copy of a prefix's slab."""
         free = [s for s in range(self.max_batch)
                 if not self._active[s] and self._slots[s] is None]
         dev = self.model.device
@@ -349,6 +558,8 @@ class ServeEngine:
                 self._finish(reqs[0])
                 continue
             has_image = reqs[0].image is not None
+            pkey = (None if has_image
+                    else self._match_prefix(reqs[0].prompt_ids))
             while len(reqs) < len(free) and not self._queue.empty():
                 nxt = self._queue.queue[0]   # peek: the same kind only
                 if nxt.cancelled:
@@ -359,17 +570,41 @@ class ServeEngine:
                     continue
                 if (nxt.image is not None) != has_image:
                     break
+                if (not has_image
+                        and self._match_prefix(nxt.prompt_ids) != pkey):
+                    break
                 try:
                     reqs.append(self._queue.get_nowait())
                 except queue.Empty:
                     break
             slots = [free.pop(0) for _ in reqs]
+            samp = self._samp_of(reqs)
+            if pkey is not None or (self.prefill_chunk > 0 and not has_image):
+                if pkey is not None:
+                    self._prefixes.move_to_end(pkey)        # LRU refresh
+                    prompts = [r.prompt_ids[len(pkey):] for r in reqs]
+                else:
+                    # the last cap tokens: the cache's width less one
+                    # decode column, in whole chunks
+                    prompts = [r.prompt_ids[-self._chunk_cap():]
+                               for r in reqs]
+                c = self.prefill_chunk
+                lens = [len(p) for p in prompts]
+                width = max(c, ((max(lens) + c - 1) // c) * c)
+                ids = np.full((len(reqs), width), self.pad_id, np.int64)
+                for i, p in enumerate(prompts):
+                    ids[i, :len(p)] = p
+                ids_t = torch.from_numpy(ids).to(dev)
+                result = (self._prefill_text_chunked(ids_t, lens, samp)
+                          if pkey is None else self._prefill_text_prefixed(
+                              ids_t, lens, pkey, samp))
+                self._harvest(reqs, slots, result)
+                continue
             ids = np.full((len(reqs), self.prompt_len), self.pad_id, np.int64)
             for i, r in enumerate(reqs):
                 p = r.prompt_ids[-self.prompt_len:]
                 ids[i, :len(p)] = p
             ids_t = torch.from_numpy(ids).to(dev)
-            samp = self._samp_of(reqs)
             if has_image:
                 images = torch.from_numpy(np.stack(
                     [np.asarray(r.image, np.float32) for r in reqs])).to(dev)
@@ -449,27 +684,35 @@ class ServeEngine:
                 "queued": self._queue.qsize(),
                 "renders_in_flight": len(self._renders),
                 "requests_done": self._n_done,
-                "tokens_emitted": self._n_tokens}
+                "tokens_emitted": self._n_tokens,
+                "prefixes": len(self._prefixes),
+                "verify_dispatches": self._n_verify,
+                "verify_rows": self._n_verify_rows,
+                "drafts_accepted": self._n_accepted}
 
     @torch.inference_mode()
     def step(self) -> int:
-        """Render what waits, admit, then run one dispatch of
-        `decode_block` decode steps; returns the active count."""
+        """Render what waits, admit, then run one dispatch: `decode_block`
+        decode steps, or one speculative verify; returns the active
+        count."""
         self._harvest_renders()
         self._admit()
         for slot in range(self.max_batch):
             req = self._slots[slot]
             if self._active[slot] and req is not None and req.cancelled:
                 self._retire(slot)
-        # capacity: a dispatch writes up to decode_block cache entries per
-        # row at its offset; a row without room retires before it (a
-        # write past max_len would clamp back over valid entries)
+        # capacity: a dispatch writes up to `need` cache entries per row at
+        # its offset; a row without room retires before it (a write past
+        # max_len would clamp back over valid entries)
+        need = 1 + self.spec_len if self.spec_len else self.decode_block
         for slot in range(self.max_batch):
-            if (self._active[slot] and self._len_host[slot]
-                    + self.decode_block > self.max_len):
+            if (self._active[slot]
+                    and self._len_host[slot] + need > self.max_len):
                 self._retire(slot)
         if not self._active.any():
             return 0
+        if self.spec_len > 0:
+            return self._step_spec()
         record = self._step_impl(
             torch.from_numpy(self._active).to(self.model.device))
         record = record.cpu().numpy()          # the block's one copy
@@ -490,6 +733,47 @@ class ServeEngine:
                 if (tok == self.eos_id
                         or len(req.tokens) >= req.max_new_tokens
                         or pos[t, slot] >= self.max_len - 1
+                        or (req.stopping is not None
+                            and req.stopping.should_stop(req.tokens))):
+                    self._retire(slot)
+                    break
+        return int(self._active.sum())
+
+    def _step_spec(self) -> int:
+        """Draft by prompt lookup, verify in one dispatch, and apply the
+        EOS, budget and keyword stops over each row's accepted prefix (the
+        cache's capacity is `step()`'s guard)."""
+        d = self.spec_len
+        drafts = np.full((self.max_batch, d), self.pad_id, np.int64)
+        for slot in range(self.max_batch):
+            req = self._slots[slot]
+            if req is None or not self._active[slot]:
+                continue
+            ctx = ([int(x) for x in req.prompt_ids[-self.prompt_len:]]
+                   + req.tokens)
+            drafts[slot] = draft_prompt_lookup(ctx, d, self.spec_ngram,
+                                               self.pad_id)
+        drafts = clean_drafts(drafts, self.model.cfg.llama.vocab_size,
+                              self.pad_id)
+        dev = self.model.device
+        record = self._spec_step_impl(
+            torch.from_numpy(drafts).to(dev),
+            torch.from_numpy(self._active).to(dev)).cpu().numpy()
+        self._n_verify += 1
+        for slot in range(self.max_batch):
+            req = self._slots[slot]
+            if req is None or not self._active[slot]:
+                continue
+            emit = int(record[slot, 0, 1])
+            self._n_verify_rows += 1
+            self._n_accepted += emit - 1
+            for i in range(emit):
+                req._hiddens.append(record[slot, i, 2:])
+                tok = int(record[slot, i, 0])
+                self._emit(req, tok)
+                self._len_host[slot] += 1
+                if (tok == self.eos_id
+                        or len(req.tokens) >= req.max_new_tokens
                         or (req.stopping is not None
                             and req.stopping.should_stop(req.tokens))):
                     self._retire(slot)

@@ -35,6 +35,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "setok_tpu_torch.utils.metrics",
             "setok_tpu_torch.utils.synthetic",
             "setok_tpu_torch.scripts.train_setok"} <= set(modules)
+    # the serving features
+    assert {"setok_tpu_torch.serve.speculative",
+            "setok_tpu_torch.serve.calibrate"} <= set(modules)
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, "setok_tpu_torch", *modules,
          "chip_smoke", "chip_kernel_times"],

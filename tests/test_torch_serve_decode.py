@@ -16,7 +16,9 @@ package's engine, on `tiny_setokim()` with the same flax weights:
     rows equal to JAX's `_sample_rows` on the same penalised logits, and
     overrides without the flag raise;
   * the port's `scripts/demo.py --tiny --cpu` and `scripts/serve.py --tiny
-    --cpu --decode-block 4` run, and the flags still not ported refuse.
+    --cpu --decode-block 4` run, `scripts/serve.py` runs `--spec-len`,
+    `--spec-ngram`, `--prefill-chunk` and `--system-prompt`, and the flags
+    still not ported refuse.
 """
 
 import numpy as np
@@ -267,11 +269,32 @@ def test_serve_cli_takes_decode_block(capsys):
 
 
 @pytest.mark.parametrize("script,flag", [
-    (cli, ["--spec-len", "2"]), (cli, ["--spec-ngram", "3"]),
-    (cli, ["--prefill-chunk", "8"]), (cli, ["--system-prompt", "x"]),
     (cli, ["--tensor-parallel", "2"]), (cli, ["--checkpoint", "x"]),
     (demo, ["--checkpoint", "x"]), (demo, ["--image", "x.png"])])
 def test_flags_not_ported_refuse(script, flag, capsys):
     with pytest.raises(SystemExit):
         script.parse_args(flag)
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,expect", [
+    (["--spec-len", "4"], "'verify_dispatches': "),
+    (["--spec-len", "2", "--spec-ngram", "1"], "'verify_dispatches': "),
+    (["--prefill-chunk", "8"], "'prefixes': 0"),
+    (["--prefill-chunk", "8", "--system-prompt",
+      "You are a terse assistant"], "registered 6-token system-prompt")])
+def test_serve_cli_runs_serving_flags(flags, expect, capsys):
+    """The serving features' flags through the CLI on the CPU (the flags
+    the port refused before it ran them)."""
+    cli.main(["--cpu", "--tiny", "--max-new-tokens", "5", "--prompt-len",
+              "16", "--max-len", "48", *flags])
+    out = capsys.readouterr().out
+    assert "4 requests, 20 tokens" in out and expect in out
+    if "--spec-len" in flags:
+        assert "'verify_dispatches': 0" not in out
+
+
+def test_system_prompt_needs_prefill_chunk(capsys):
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--system-prompt", "x"])
+    assert "--prefill-chunk" in capsys.readouterr().err

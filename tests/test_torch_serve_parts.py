@@ -94,9 +94,9 @@ def test_stops_cancel_and_capacity(model8):
 
 
 def test_engine_refuses_what_is_not_ported(model8):
-    for kw in ({"spec_len": 2}, {"prefill_chunk": 8}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServeEngine(model8, max_batch=1, prompt_len=8, max_len=16, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ServeEngine(model8, max_batch=1, prompt_len=8, max_len=16,
+                    mesh=object())
 
 
 def test_cli_serves_on_the_cpu(capsys):
@@ -109,6 +109,6 @@ def test_cli_serves_on_the_cpu(capsys):
 
 def test_cli_refuses_flags_it_does_not_run():
     with pytest.raises(SystemExit):
-        cli.parse_args(["--spec-len", "2"])
+        cli.parse_args(["--tensor-parallel", "2"])
     with pytest.raises(SystemExit):
         cli.parse_args(["--checkpoint", "x"])
