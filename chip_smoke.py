@@ -167,6 +167,34 @@ the last line:
                 terms (no update), and the gradients of the pixel head and
                 the inner Block.
 
+  param_dtype   (after throughput_unfused) so400m as bench.py builds it
+                (bf16 compute, B=8) with bf16 parameters beside float32
+                ones on the same seed weights, float and int8: img/s by
+                the slope in turns (f32, bf16, bf16, f32 parameters), peak
+                memory, parameter bytes, a profiled forward each (the
+                casts' device ms), the int8 calls per forward against
+                expected_calls; the so400m cut (ViT 4 / decoder 2) with
+                bf16 parameters card against CPU, float32 compute at 1e-4
+                and int8 at 5e-2 with identical clusters;
+  builder       (after serve_parity) base_setokim()'s width, the trunk cut
+                to 2 layers, LoRA r 128: its stage-2 checkpoint saved and
+                loaded by models/builder.load_pretrained_model at bits 8
+                (the serving requests' greedy streams identical to an
+                engine over the same merged weights quantised in memory;
+                rows 8 and 11 launched), at bits 4 (row 9 against its
+                plain version) and at bits 16 (scripts/eval_vqa.py's loop
+                over 8 synthetic records, its summary printed);
+  checkpoint    (last) stage-1 at full width as train_setok (B=24): two
+                updates, a CheckpointRunner save, a third; a fresh
+                trainer restored from step 2 takes the third (metrics
+                within 1e-3, whether the parameters are bit-identical, the
+                ops PyTorch names non-deterministic); the save's blocking
+                ms, write s and bytes, the files restore_lazy read; then
+                scripts/eval_recon.py's evaluation of that checkpoint over
+                64 structured synthetic images at fp32, bf16 and quant8
+                with FID (PSNR, SSIM, clusters, FID, img/s, the clustering
+                and int8 kernels counted).
+
 Then the kernels summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no JAX: it imports setok_tpu_torch only.
 """
@@ -174,11 +202,15 @@ Then the kernels summary line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import ExitStack, contextmanager, nullcontext
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -195,7 +227,7 @@ from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
 from setok_tpu_torch.kernels import fused_mlp as fm
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.kernels import quant_matmul as qm
-from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
+from setok_tpu_torch.kernels.quant import (Quant4Weight, quant4_matmul_plain,
                                            quant_matmul_plain, quant_rows,
                                            quantize_weight,
                                            quantize_weight_int4,
@@ -207,6 +239,7 @@ from setok_tpu_torch.models.llama import (TRUNK_LINEARS, make_attention_mask,
                                           quantize_linear,
                                           quantize_trunk_weights,
                                           valid_quant_group)
+from setok_tpu_torch.models.builder import load_pretrained_model
 from setok_tpu_torch.models.setok import SeTok, expected_calls
 from setok_tpu_torch.models.generate import (find_image_spans,
                                              generate_image, generate_text)
@@ -214,11 +247,12 @@ from setok_tpu_torch.models.setokim import ImageDraws, Setokim, splice_layout
 from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
 from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
-from setok_tpu_torch.scripts import train_setok
+from setok_tpu_torch.scripts import eval_recon, eval_vqa, train_setok
 from setok_tpu_torch.scripts.train_setokim import synthetic_batch
 from setok_tpu_torch.serve import ServeEngine, collect_row_weights
 from setok_tpu_torch.train.stage1 import Stage1Trainer
 from setok_tpu_torch.train.stage2 import Stage2Trainer, warmup_cosine
+from setok_tpu_torch.utils import checkpoint as ckpt
 from setok_tpu_torch.utils.init import init_random_, init_setokim_random_
 from setok_tpu_torch.utils.profiling import device_time_breakdown
 
@@ -3247,6 +3281,390 @@ def phase_train_setok_parity() -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------------
+# bf16 parameter storage, checkpoints, the model builder and the eval CLIs
+
+CHIP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+CKPT_METRIC_TOL = 1e-3         # a resumed update's metrics vs uninterrupted
+EVAL_IMAGES, EVAL_BATCH = 64, 8
+BUILDER_LORA_R, BUILDER_LORA_ALPHA = 128, 256.0
+VQA_RECORDS = 8
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def cast_ms(fn) -> dict:
+    """One profiled fn(): device ms of the dtype casts (PyTorch's copy
+    kernels, read by their full names: `direct_copy_kernel_cuda`, and
+    `bfloat16_copy_kernel_cuda` for float32 → bf16), by kernel and in all,
+    of all elementwise kernels, and in all; then fn()'s device split by
+    kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU and "copy_kernel" in e.key:
+            name = "bfloat16_copy" if "bfloat16_copy" in e.key else (
+                "direct_copy" if "direct_copy" in e.key else e.key[:60])
+            kinds[name] = kinds.get(name, 0.0) + float(
+                getattr(e, "self_device_time_total", 0.0)) / 1e3
+    by = device_time_breakdown(fn)
+    return {"casts_ms": sum(kinds.values()), "casts_by_kernel_ms": kinds,
+            "elementwise_ms": by["by_category_ms"].get("elementwise", 0.0),
+            "device_ms": by["device_ms"], "busy_share": by["busy_share"],
+            "by_category_ms": by["by_category_ms"]}
+
+
+def forward_memory(model, images) -> dict:
+    """A forward's peak device memory above what was allocated before it
+    (the model's parameters and whatever else is resident), in GB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model(images)
+    torch.cuda.synchronize()
+    return {"forward_peak_above_resident_gb":
+            (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "resident_gb": base / 1e9}
+
+
+def phase_param_dtype() -> dict:
+    """so400m as bench.py builds it (bf16 compute, B=8), bf16 parameters
+    beside float32 ones on the same seed weights (the bf16 model's are the
+    float32 draw rounded), float and int8: img/s by the slope in turns
+    (f32, bf16, bf16, f32 parameters), peak memory, parameter bytes, one
+    profiled forward each (the casts' ms), the int8 calls per forward
+    against expected_calls; then the so400m cut (ViT depth 4, decoder 2)
+    with bf16 parameters card against CPU, float32 compute at FWD_REL_TOL
+    and int8 at FWD_INT8_TOL. Returns the int8 run's counts."""
+    t0 = time.perf_counter()
+    tok_cfg, det_cfg = unfused_configs()["so400m"]
+    size = tok_cfg.vit.image_size
+    images = torch.rand(SO400M_BATCH, size, size, 3, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(SEED)) * 2 - 1
+    runs, counts = {}, None
+    for form, quant8 in (("bfloat16", False), ("int8", True)):
+        models = {pd: init_setokim_random_(SeTok(
+            tok_cfg, det_cfg, dtype=torch.bfloat16, quant8=quant8,
+            param_dtype=getattr(torch, pd)), SEED)
+            for pd in ("float32", "bfloat16")}
+        rates = {pd: [] for pd in models}
+        for pd in ("float32", "bfloat16", "bfloat16", "float32"):
+            rates[pd].append(images_per_sec(models[pd], images, 2, 8)
+                             ["images_per_sec"])
+        if quant8:
+            reset_counts()
+            models["bfloat16"](images)
+            torch.cuda.synchronize()
+            calls, launches = int8_counts()
+            counts = {"calls": calls, "launches": launches}
+            expect_calls("param_dtype so400m", counts, tok_cfg, det_cfg)
+        res = {"phase": "param_dtype", "config": "so400m (bench.py)",
+               "form": form, "compute_dtype": "bfloat16",
+               "batch": SO400M_BATCH, "images_per_sec_turns": rates,
+               "images_per_sec": {pd: statistics.mean(r)
+                                  for pd, r in rates.items()},
+               "memory": {pd: forward_memory(m, images)
+                          for pd, m in models.items()},
+               "param_bytes": {pd: param_bytes(m)
+                               for pd, m in models.items()},
+               "profile": {pd: cast_ms(lambda m=m: m(images))
+                           for pd, m in models.items()}}
+        if counts is not None and quant8:
+            res.update(calls=counts["calls"], launches=counts["launches"])
+        emit(res)
+        check(all(r > 0 for rs in rates.values() for r in rs),
+              "param_dtype: a throughput slope is not positive")
+        runs[form] = res
+        del models
+        torch.cuda.empty_cache()
+
+    cut_tok, cut_det = so400m_cut(tok_cfg, det_cfg)
+    for name, quant8, tol in (("float32", False, FWD_REL_TOL),
+                              ("int8", True, FWD_INT8_TOL)):
+        cpu = init_random_(SeTok(cut_tok, cut_det, device="cpu",
+                                 quant8=quant8,
+                                 param_dtype=torch.bfloat16), SEED)
+        gpu = SeTok(cut_tok, cut_det, quant8=quant8,
+                    param_dtype=torch.bfloat16)
+        gpu.load_state_dict(cpu.state_dict())
+        check(all(p.dtype == torch.bfloat16 for p in gpu.parameters()),
+              "param_dtype: a parameter is not bf16")
+        got = staged_forward(cpu, gpu, SEED + 4, tol, "param_dtype_forward",
+                             batch=2, config=f"so400m, ViT depth 4, "
+                             f"decoder 2, bf16 parameters, {name}")
+        if quant8:
+            expect_calls("param_dtype cut", got, cut_tok, cut_det)
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    emit({"phase": "param_dtype_seconds", "seconds":
+          time.perf_counter() - t0})
+    return counts
+
+
+def phase_checkpoint() -> dict:
+    """Stage-1 at full width as train_setok runs it (B=24): two updates, a
+    CheckpointRunner save, a third update; a fresh trainer restored from
+    step 2 takes the third update: its metrics within CKPT_METRIC_TOL of
+    the uninterrupted run's, whether its parameters are bit-identical, and
+    the ops that PyTorch names as non-deterministic on that update. The
+    save's blocking ms, write s and bytes; the files `restore_lazy` read.
+    Then eval_recon's evaluation of that checkpoint's SeTok over 64
+    structured synthetic images at fp32, bf16 and quant8 with FID, the
+    clustering and int8 kernels counted. Returns the counts per precision."""
+    t0 = time.perf_counter()
+    shutil.rmtree(CHIP_DIR, ignore_errors=True)
+    ckpt_dir = str(CHIP_DIR / "stage1" / "checkpoints")
+    args = setok_train_args()
+    tr, stream = train_setok.build(args)
+    batches = [on_card(next(stream)) for _ in range(3)]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    for b in batches[:2]:
+        tr.train_step(b, gen)
+    torch.cuda.synchronize()
+    runner = ckpt.CheckpointRunner(ckpt_dir)
+    t = time.perf_counter()
+    runner.save(2, tr.state_dict({"dropout": gen}))
+    save_ms = 1e3 * (time.perf_counter() - t)
+    want = {k: float(v) for k, v in tr.train_step(batches[2], gen).items()}
+    runner.wait()
+    saved = dict(runner.last_save)
+    runner.close()
+    want_params = [p.detach().clone() for m in tr.parts().values()
+                   for p in m.parameters()]
+    del tr
+    torch.cuda.empty_cache()
+
+    gen2 = torch.Generator(device="cuda")
+    tr, _ = train_setok.build(args)            # a fresh trainer, restored
+    tr.load_state_dict(ckpt.restore_checkpoint(ckpt_dir, map_location="cuda"),
+                       {"dropout": gen2})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            got = {k: float(v)
+                   for k, v in tr.train_step(batches[2], gen2).items()}
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught
+                     if "deterministic" in str(w.message)})
+    got_params = [p.detach() for m in tr.parts().values()
+                  for p in m.parameters()]
+    identical = all(torch.equal(a, b) for a, b in zip(got_params,
+                                                      want_params))
+    differing = sum(not torch.equal(a, b)
+                    for a, b in zip(got_params, want_params))
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-6) for k in want}
+    del tr, want_params, got_params
+    torch.cuda.empty_cache()
+
+    read = []
+    real_load = ckpt._load
+
+    def recording(path, map_location):
+        read.append(os.path.basename(path))
+        return real_load(path, map_location)
+
+    with mock.patch.object(ckpt, "_load", recording):
+        lazy = ckpt.restore_lazy(ckpt_dir, ckpt.root_predicate("params"))
+    res = {"phase": "checkpoint", "config": "base_tokenizer/base_detokenizer "
+           "(scripts/train_setok.sh), B=24", "step_saved": 2,
+           "save_blocking_ms": save_ms,
+           "runner_blocking_s": saved["blocking_s"],
+           "write_s": saved["write_s"], "bytes": saved["bytes"],
+           "files": sorted(os.listdir(os.path.join(ckpt_dir, "2"))),
+           "metrics_uninterrupted": want, "metrics_resumed": got,
+           "metric_max_rel": max(rel.values()),
+           "metric_worst": max(rel, key=rel.get),
+           "params_bit_identical": identical,
+           "params_differing": differing,
+           "nondeterministic_ops": nondet,
+           "restore_lazy_read": read,
+           "restore_lazy_leaves": len(lazy["params"]),
+           "phase_seconds": time.perf_counter() - t0}
+    emit(res)
+    check(res["metric_max_rel"] <= CKPT_METRIC_TOL,
+          f"checkpoint: resumed {res['metric_worst']} "
+          f"{got[res['metric_worst']]} vs {want[res['metric_worst']]}")
+    check(read == ["params.pt"],
+          f"checkpoint: restore_lazy read {read}")
+
+    counts = {}
+    for precision in ("fp32", "bf16", "quant8"):
+        eargs = eval_recon.parse_args([
+            "--synthetic", str(EVAL_IMAGES), "--synthetic-structured",
+            "--fid", "--batch-size", str(EVAL_BATCH), "--stage1-dir",
+            str(CHIP_DIR / "stage1"), "--precision", precision,
+            "--min-cluster-num", str(args.min_cluster_num),
+            "--k-max", str(args.k_max)])
+        model = eval_recon.build_model(eargs)
+        images = eval_recon.eval_images(eargs,
+                                        model.tokenizer.cfg.vit.image_size)
+        eval_recon.evaluate(model, images[:EVAL_BATCH], EVAL_BATCH, False)
+        x = torch.from_numpy(images).cuda()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            for i in range(0, EVAL_IMAGES, EVAL_BATCH):
+                model(x[i:i + EVAL_BATCH])
+        torch.cuda.synchronize()
+        forward_rate = EVAL_IMAGES / (time.perf_counter() - t)
+        reset_counts()
+        t = time.perf_counter()
+        out = eval_recon.evaluate(model, images, EVAL_BATCH, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        calls, launches = int8_counts()
+        launches["dpc_density_parent"] = cluster_dpc.LAUNCHES
+        counts[precision] = {"calls": calls, "launches": launches}
+        # one tokenize per forward, and one per FID batch of each set
+        tokenizes = 3 * EVAL_IMAGES // EVAL_BATCH
+        emit({"phase": "checkpoint_eval", "precision": precision,
+              "images": EVAL_IMAGES, "batch": EVAL_BATCH, **out,
+              "eval_s": wall, "images_per_s_with_metrics":
+                  EVAL_IMAGES / wall, "forward_images_per_s": forward_rate,
+              "tokenize_calls": tokenizes, "calls": calls,
+              "launches": launches})
+        check(all(np.isfinite(out[k]) for k in ("psnr", "ssim",
+                                                 "fid_vitfeat")),
+              f"checkpoint_eval {precision}: a metric is not finite")
+        check(launches["dpc_density_parent"]
+              == tokenizes * cluster_dpc.LAUNCHES_PER_CALL,
+              f"checkpoint_eval {precision}: clustering launches "
+              f"{launches['dpc_density_parent']}")
+        int8_rows = sum(calls[k] for k in INT8_KERNELS)
+        check((int8_rows > 0) == (precision == "quant8"),
+              f"checkpoint_eval {precision}: int8 calls {calls}")
+        del model
+        torch.cuda.empty_cache()
+    shutil.rmtree(CHIP_DIR, ignore_errors=True)
+    emit({"phase": "checkpoint_seconds", "seconds":
+          time.perf_counter() - t0})
+    return counts
+
+
+def lora_setokim(cfg):
+    """A stage-2 trainer of `cfg` with LoRA r 128 on the card, random
+    weights from the seed and its adapters' B drawn off 0, so that the
+    merge matters."""
+    tr = Stage2Trainer(cfg, target_token_id=3, lora_enable=True,
+                       lora_r=BUILDER_LORA_R, lora_alpha=BUILDER_LORA_ALPHA)
+    init_setokim_random_(tr.model, SEED)
+    tr.init_state(seed=SEED + 1)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    with torch.no_grad():
+        for _, b in tr.lora.values():
+            b.normal_(0.0, 1e-3, generator=g)
+    return tr
+
+
+def streams(handles) -> list:
+    return [list(r.tokens) for r in handles]
+
+
+def phase_builder(cfg) -> dict:
+    """base_setokim()'s width with the trunk cut to 2 layers and LoRA r
+    128: its stage-2 checkpoint saved, `load_pretrained_model(bits=8)`
+    serves the serving requests with greedy streams identical to an
+    engine over the same merged weights quantised in memory, rows 8 and
+    11 launched; one bits=4 load with row 9 held to its plain version; the
+    eval_vqa loop over 8 synthetic records on the bits-16 load."""
+    t0 = time.perf_counter()
+    small = cfgs.replace(cfg, llama=cfgs.replace(cfg.llama, num_layers=2))
+    run_dir = CHIP_DIR / "stage2"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    tr = lora_setokim(small)
+    ckpt.save_checkpoint(str(run_dir / "checkpoints"), 1, tr.state_dict())
+    merged = quantize_trunk_weights(tr.merged_params(), bits=8)
+    del tr
+    torch.cuda.empty_cache()
+    reqs = serve_requests(small, SEED + 11)
+
+    ref = Setokim(small, target_token_id=3, weight_bits=8, cache_kernel=True)
+    ref.load_state_dict(merged)
+    del merged
+    _, want, *_ = run_engine(ref, reqs, NEW_TOKENS)
+    del ref
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    model = load_pretrained_model(
+        str(run_dir), small, lora_r=BUILDER_LORA_R,
+        lora_alpha=BUILDER_LORA_ALPHA, bits=8, cache_kernel=True)
+    load_s = time.perf_counter() - t
+    reset_counts()
+    _, got, _, _, wall, _ = run_engine(model, reqs, NEW_TOKENS)
+    counts = serve_counts()
+    del model
+    torch.cuda.empty_cache()
+    same = streams(got) == streams(want)
+    launches = {"quant_matmul": counts["quant_matmul_launches"]
+                ["quant_matmul"],
+                "int8_cache_decode_attention": counts["cache_attention"],
+                "dpc_density_parent": counts["cluster"]}
+
+    model4 = load_pretrained_model(str(run_dir), small,
+                                   lora_r=BUILDER_LORA_R,
+                                   lora_alpha=BUILDER_LORA_ALPHA, bits=4)
+    lin = model4.llama.model.layer_0.mlp.down_proj
+    x = torch.randn(SERVE_BATCH * CHUNK, lin.p.shape[1] * 2, device="cuda",
+                    generator=torch.Generator(device="cuda")
+                    .manual_seed(SEED)).to(torch.bfloat16)
+    reset_counts()
+    got4 = lin(x)
+    torch.cuda.synchronize()
+    q4_launches = qm.LAUNCHES["quant4_matmul"]
+    want4 = quant4_matmul_plain(x, Quant4Weight(lin.p, lin.s),
+                                out_dtype=lin.compute_dtype)
+    q4 = check_close("quant4_matmul", "builder bits-4 down_proj", got4,
+                     want4, QUANT_TOL)
+    del model4
+    torch.cuda.empty_cache()
+
+    model16 = load_pretrained_model(str(run_dir), small,
+                                    lora_r=BUILDER_LORA_R,
+                                    lora_alpha=BUILDER_LORA_ALPHA)
+    records = eval_vqa.synthetic_records(
+        VQA_RECORDS, small.tokenizer.vit.image_size)
+    t = time.perf_counter()
+    results = eval_vqa.run(model16, records, VQA_RECORDS, 16)
+    vqa_s = time.perf_counter() - t
+    summary = {"n": len(results), "accuracy": float(np.mean(
+        [r["accuracy"] for r in results]))}
+    del model16
+    torch.cuda.empty_cache()
+    res = {"phase": "builder", "config": "base_setokim, trunk cut to 2 "
+           "layers, LoRA r 128", "load_s_bits8": load_s,
+           "requests": len(reqs), "new_tokens_each": NEW_TOKENS,
+           "serve_wall_s": wall, "streams_identical": same,
+           "launches": launches, "bits4_check": q4,
+           "bits4_launches": q4_launches, "vqa_summary": summary,
+           "vqa_s": vqa_s, "vqa_predictions": [r["prediction"]
+                                               for r in results[:2]],
+           "phase_seconds": time.perf_counter() - t0}
+    emit(res)
+    print(json.dumps(summary), flush=True)
+    check(same, "builder: the loaded model's greedy streams differ from "
+          "the in-memory merge's")
+    check(launches["quant_matmul"] > 0
+          and launches["int8_cache_decode_attention"] > 0,
+          f"builder: rows 8 and 11 launches {launches}")
+    check(q4_launches > 0, "builder: bits 4 launched no quant4_matmul")
+    check(len(results) == VQA_RECORDS, "builder: eval_vqa lost a record")
+    shutil.rmtree(CHIP_DIR, ignore_errors=True)
+    return {"launches": launches, "bits4_launches": q4_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3290,6 +3708,7 @@ def main() -> int:
         e["launches"] = run["launches"][name]
         e["calls"] = run["calls"][name]
     phase_throughput_unfused()
+    pd_counts = phase_param_dtype()
 
     serve_entries = phase_serve_kernels()
     setokim = cfgs.base_setokim()
@@ -3335,6 +3754,16 @@ def main() -> int:
                 counts["cache_launches"]
     for bits in (8, 4):
         phase_serve_parity(setokim, bits)
+    built = phase_builder(setokim)
+    for row in ("quant_matmul", "int8_cache_decode_attention"):
+        serve_entries[row]["builder_launches"] = built["launches"][row]
+    serve_entries["quant4_matmul"]["builder_launches"] = \
+        built["bits4_launches"]
+    serve_entries["quant_matmul"]["param_dtype_launches"] = \
+        pd_counts["launches"]["quant_matmul"]
+    for name in ("fused_bert_attention_int8", "mlp_postnorm_int8"):
+        int8_entries[name]["param_dtype_launches"] = \
+            pd_counts["launches"][name]
 
     flash_entries = phase_flash_kernels(setokim)
     launches = phase_train(setokim)
@@ -3345,6 +3774,12 @@ def main() -> int:
     entry["train_setok_launches_per_update"] = \
         entry["train_setok_launches"] / SETOK_TRAIN_UPDATES
     phase_train_setok_parity()
+    evals = phase_checkpoint()
+    entry["checkpoint_eval_launches"] = {
+        p: c["launches"]["dpc_density_parent"] for p, c in evals.items()}
+    for name, e in int8_entries.items():
+        e["checkpoint_eval_quant8_launches"] = \
+            evals["quant8"]["launches"][name]
 
     emit({"kernels": [entry, *int8_entries.values(),
                       *unfused_entries.values(), *serve_entries.values(),

@@ -1,1 +1,1 @@
-"""Text tokenizers for the serving path."""
+"""Data: text tokenizers, image preprocessing, the VQA metric."""

@@ -55,24 +55,25 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
 
 class SetokDeTokenizer(nn.Module):
     def __init__(self, cfg: DetokenizerConfig, *, quant8: bool = False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
-        self.mask_tokens = nn.Parameter(
-            torch.zeros(1, cfg.num_mask_tokens, cfg.hidden_dim, device=device))
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.mask_tokens = nn.Parameter(torch.zeros(
+            1, cfg.num_mask_tokens, cfg.hidden_dim, dtype=param_dtype,
+            device=device))
         nn.init.normal_(self.mask_tokens, std=cfg.initializer_range)
-        self.mapper_fc_in = Dense(cfg.token_feat_dim, cfg.hidden_dim,
-                                  dtype=dtype, device=device)
+        self.mapper_fc_in = Dense(cfg.token_feat_dim, cfg.hidden_dim, **kw)
         self.mapper = QFormer(cfg.hidden_dim, num_layers=cfg.mapper_layers,
                               num_heads=cfg.mapper_heads,
                               cross_attention_freq=cfg.cross_attention_freq,
                               dropout=cfg.proj_drop,
                               attn_dropout=cfg.attn_drop, quant8=quant8,
-                              dtype=dtype, device=device)
+                              **kw)
         self.decoder_fc_in = Dense(cfg.hidden_dim, cfg.decoder_embed_dim,
-                                   dtype=dtype, device=device)
+                                   **kw)
         self.register_buffer("pos", posenc_2d_flat(
             cfg.grid, cfg.grid, cfg.decoder_embed_dim, dtype=torch.float64,
             device=device), persistent=False)
@@ -81,12 +82,10 @@ class SetokDeTokenizer(nn.Module):
                 cfg.decoder_embed_dim, cfg.decoder_nheads,
                 mlp_ratio=cfg.mlp_ratio, norm_eps=1e-5,
                 proj_drop=cfg.proj_drop, attn_drop=cfg.attn_drop,
-                quant8=quant8, dtype=dtype, device=device))
-        self.decoder_norm = LayerNorm(cfg.decoder_embed_dim, eps=1e-5,
-                                      dtype=dtype, device=device)
+                quant8=quant8, **kw))
+        self.decoder_norm = LayerNorm(cfg.decoder_embed_dim, eps=1e-5, **kw)
         self.pixel_head = Dense(cfg.decoder_embed_dim,
-                                cfg.patch_size ** 2 * 3, dtype=dtype,
-                                device=device)
+                                cfg.patch_size ** 2 * 3, **kw)
 
     def forward(self, tokens: torch.Tensor,
                 token_valid: Optional[torch.Tensor] = None,

@@ -34,7 +34,7 @@ from torch import nn
 from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.ops.blocks import (Dense, LayerNorm, dropout,
-                                        masked_softmax)
+                                        masked_softmax, param_f32)
 from setok_tpu_torch.utils.device import resolve_device
 
 BERT_LN_EPS = 1e-12
@@ -45,16 +45,17 @@ class BertSelfAttentionCore(nn.Module):
     residual. `kv` defaults to `x`; `kv_mask` is (B, M), True = attend."""
 
     def __init__(self, dim: int, num_heads: int, *, dropout: float = 0.0,
-                 quant8: bool = False, dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
         self.quant8 = quant8
         self.dtype = dtype
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         for name in ("query", "key", "value", "out"):
-            self.add_module(name, Dense(dim, dim, dtype=dtype, device=device))
-        self.out_norm = LayerNorm(dim, eps=BERT_LN_EPS, dtype=dtype,
-                                  device=device)
+            self.add_module(name, Dense(dim, dim, **kw))
+        self.out_norm = LayerNorm(dim, eps=BERT_LN_EPS, **kw)
 
     def forward(self, x, kv=None, kv_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
@@ -67,11 +68,13 @@ class BertSelfAttentionCore(nn.Module):
             x = x.float()
             kv = x if kv is None else kv.float()
             return fba.fused_bert_attention_int8(
-                x, kv, self.query.int8(), self.query.bias, self.key.int8(),
-                self.key.bias, self.value.int8(), self.value.bias,
-                self.out.int8(), self.out.bias, self.out_norm.weight,
-                self.out_norm.bias, self.num_heads, kv_mask=kv_mask,
-                eps=self.out_norm.eps)
+                x, kv, self.query.int8(), param_f32(self.query, "bias"),
+                self.key.int8(), param_f32(self.key, "bias"),
+                self.value.int8(), param_f32(self.value, "bias"),
+                self.out.int8(), param_f32(self.out, "bias"),
+                param_f32(self.out_norm, "weight"),
+                param_f32(self.out_norm, "bias"), self.num_heads,
+                kv_mask=kv_mask, eps=self.out_norm.eps)
         kv = x if kv is None else kv
         hd = c // self.num_heads
 
@@ -92,20 +95,20 @@ class QFormerLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_hidden: int,
                  has_cross_attention: bool, *, dropout: float = 0.0,
                  attn_dropout: float = 0.0, quant8: bool = False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.quant8 = quant8
         self.dropout = dropout
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.self_attn = BertSelfAttentionCore(
-            dim, num_heads, dropout=attn_dropout, quant8=quant8, dtype=dtype,
-            device=device)
+            dim, num_heads, dropout=attn_dropout, quant8=quant8, **kw)
         self.cross_attn = (BertSelfAttentionCore(
-            dim, num_heads, dropout=attn_dropout, quant8=quant8, dtype=dtype,
-            device=device) if has_cross_attention else None)
-        self.ffn_in = Dense(dim, mlp_hidden, dtype=dtype, device=device)
-        self.ffn_out = Dense(mlp_hidden, dim, dtype=dtype, device=device)
-        self.ffn_norm = LayerNorm(dim, eps=BERT_LN_EPS, dtype=dtype,
-                                  device=device)
+            dim, num_heads, dropout=attn_dropout, quant8=quant8, **kw)
+            if has_cross_attention else None)
+        self.ffn_in = Dense(dim, mlp_hidden, **kw)
+        self.ffn_out = Dense(mlp_hidden, dim, **kw)
+        self.ffn_norm = LayerNorm(dim, eps=BERT_LN_EPS, **kw)
 
     def forward(self, h, enc, enc_mask=None,
                 generator: Optional[torch.Generator] = None):
@@ -118,9 +121,10 @@ class QFormerLayer(nn.Module):
             if generator is not None:
                 raise ValueError("quant8 is inference only: no dropout")
             return fs.mlp_postnorm_int8(
-                h.float(), self.ffn_in.int8(), self.ffn_in.bias,
-                self.ffn_out.int8(), self.ffn_out.bias, self.ffn_norm.weight,
-                self.ffn_norm.bias, ln_eps=self.ffn_norm.eps)
+                h.float(), self.ffn_in.int8(), param_f32(self.ffn_in, "bias"),
+                self.ffn_out.int8(), param_f32(self.ffn_out, "bias"),
+                param_f32(self.ffn_norm, "weight"),
+                param_f32(self.ffn_norm, "bias"), ln_eps=self.ffn_norm.eps)
         y = self.ffn_out(F.gelu(self.ffn_in(h)))       # HF 'gelu' = exact erf
         return self.ffn_norm(dropout(y, self.dropout, generator) + h)
 
@@ -132,20 +136,21 @@ class QFormer(nn.Module):
     def __init__(self, dim: int, *, num_layers: int, num_heads: int,
                  mlp_ratio: float = 4.0, cross_attention_freq: int = 2,
                  dropout: float = 0.1, attn_dropout: float = 0.1,
-                 quant8: bool = False, dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
         self.num_layers = num_layers
         self.dropout = dropout
         self.dtype = dtype
-        self.embed_norm = LayerNorm(dim, eps=BERT_LN_EPS, dtype=dtype,
-                                    device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.embed_norm = LayerNorm(dim, eps=BERT_LN_EPS, **kw)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", QFormerLayer(
                 dim, num_heads, int(dim * mlp_ratio),
                 has_cross_attention=(i % cross_attention_freq == 0),
                 dropout=dropout, attn_dropout=attn_dropout, quant8=quant8,
-                dtype=dtype, device=device))
+                **kw))
 
     def forward(self, query_embeds, encoder_hidden_states,
                 encoder_attention_mask: Optional[torch.Tensor] = None,

@@ -4,7 +4,8 @@ The counterpart of `setok_tpu/models/setok.py`. `tokenize` and `detokenize`
 are the training entry points: they build a graph (the tokenizer's
 clustering and frozen backbone excepted) and take a `torch.Generator` for
 the dropout. `forward` is the inference entry: the whole encode→decode
-under `torch.inference_mode()`, deterministic. Parameters are float32;
+under `torch.inference_mode()`, deterministic. Parameters live in
+`param_dtype` (float32 by default; bf16 as `bench.py` stores so400m's);
 `dtype=torch.bfloat16` follows the JAX package's mixed policy (activations
 cast per op, softmax, LayerNorm statistics and clustering in float32).
 `quant8=True` is the int8 inference form that the JAX package's `bench.py`
@@ -42,13 +43,14 @@ class SeTok(nn.Module):
     """`tokenizer` then `detokenizer`; call either alone for one half."""
 
     def __init__(self, tok_cfg: TokenizerConfig, det_cfg: DetokenizerConfig,
-                 dtype=torch.float32, device=None, quant8: bool = False):
+                 dtype=torch.float32, device=None, quant8: bool = False,
+                 param_dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
-        self.tokenizer = SetokTokenizer(tok_cfg, quant8=quant8, dtype=dtype,
-                                        device=device)
-        self.detokenizer = SetokDeTokenizer(det_cfg, quant8=quant8,
-                                            dtype=dtype, device=device)
+        kw = dict(quant8=quant8, dtype=dtype, param_dtype=param_dtype,
+                  device=device)
+        self.tokenizer = SetokTokenizer(tok_cfg, **kw)
+        self.detokenizer = SetokDeTokenizer(det_cfg, **kw)
 
     def tokenize(self, images: torch.Tensor,
                  generator: Optional[torch.Generator] = None

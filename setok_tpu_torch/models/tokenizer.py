@@ -53,9 +53,11 @@ class TokenizerOutput(NamedTuple):
 
 class SetokTokenizer(nn.Module):
     def __init__(self, cfg: TokenizerConfig, *, freeze_backbone: bool = True,
-                 quant8: bool = False, dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.cfg = cfg
         self.freeze_backbone = freeze_backbone
         merged = cfg.vit.merge_layer is not None
@@ -63,15 +65,14 @@ class SetokTokenizer(nn.Module):
                               and not cfg.vit.merge_pool_init)
         self.image_feature_encoder = ViT(cfg.vit, quant8=quant8,
                                          freeze_pre_merge=self._split_freeze,
-                                         dtype=dtype, device=device)
+                                         **kw)
         # the merge's LayerNorm (flax's default eps) pins the scale of the
         # features that the clustering and the tokens see
-        self.merge_out_norm = (LayerNorm(cfg.vit.width, eps=1e-6, dtype=dtype,
-                                         device=device) if merged else None)
+        self.merge_out_norm = (LayerNorm(cfg.vit.width, eps=1e-6, **kw)
+                               if merged else None)
         # an explicit projection when the ViT width differs from hidden_dim
         self.feat_proj = (None if cfg.vit.width == cfg.hidden_dim else
-                          Dense(cfg.vit.width, cfg.hidden_dim, dtype=dtype,
-                                device=device))
+                          Dense(cfg.vit.width, cfg.hidden_dim, **kw))
         grid = cfg.vit.grid // 2 if merged else cfg.vit.grid
         self.register_buffer("pos", posenc_2d_flat(
             grid, grid, cfg.hidden_dim, dtype=torch.float64, device=device),
@@ -81,10 +82,8 @@ class SetokTokenizer(nn.Module):
             self.add_module(name, Block(
                 cfg.hidden_dim, cfg.nheads, cfg.dim_feedforward, depth=depth,
                 norm_eps=1e-5, proj_drop=cfg.proj_drop,
-                attn_drop=cfg.attn_drop, quant8=quant8, dtype=dtype,
-                device=device))
-        self.out = Dense(cfg.hidden_dim, cfg.token_feat_dim, dtype=dtype,
-                         device=device)
+                attn_drop=cfg.attn_drop, quant8=quant8, **kw))
+        self.out = Dense(cfg.hidden_dim, cfg.token_feat_dim, **kw)
 
     def frozen_parameters(self) -> list:
         """The backbone's parameters that no gradient reaches: under

@@ -43,15 +43,17 @@ class ViTEncoderBlock(nn.Module):
     """Pre-norm ViT encoder block (SigLIP layout)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, *,
-                 quant8: bool = False, dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.quant8 = quant8
-        self.norm1 = LayerNorm(dim, eps=VIT_LN_EPS, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.norm1 = LayerNorm(dim, eps=VIT_LN_EPS, **kw)
         self.attn = Attention(dim, num_heads, qkv_bias=True, quant8=quant8,
-                              dtype=dtype, device=device)
-        self.norm2 = LayerNorm(dim, eps=VIT_LN_EPS, dtype=dtype, device=device)
+                              **kw)
+        self.norm2 = LayerNorm(dim, eps=VIT_LN_EPS, **kw)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_exact=False,
-                       quant8=quant8, dtype=dtype, device=device)
+                       quant8=quant8, **kw)
 
     def forward(self, x):
         if self.quant8 and fused_int8_fits(self.attn, self.mlp, x):
@@ -69,7 +71,7 @@ class ViT(nn.Module):
 
     def __init__(self, cfg: ViTConfig, *, quant8: bool = False,
                  freeze_pre_merge: bool = False, dtype=torch.float32,
-                 device=None):
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         if cfg.use_class_token:
             raise NotImplementedError(
@@ -80,17 +82,17 @@ class ViT(nn.Module):
         self.dtype = dtype
         self.freeze_pre_merge = freeze_pre_merge
         p, c = cfg.patch_size, cfg.width
-        self.patch_embed = Dense(p * p * 3, c, dtype=dtype, device=device)
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, cfg.num_patches, c, device=device))
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.patch_embed = Dense(p * p * 3, c, **kw)
+        self.pos_embed = nn.Parameter(torch.zeros(
+            1, cfg.num_patches, c, dtype=param_dtype, device=device))
         nn.init.normal_(self.pos_embed, std=0.02)
         for i in range(cfg.depth):
             self.add_module(f"block_{i}", ViTEncoderBlock(
-                c, cfg.num_heads, cfg.mlp_ratio, quant8=quant8, dtype=dtype,
-                device=device))
+                c, cfg.num_heads, cfg.mlp_ratio, quant8=quant8, **kw))
         self.merge_proj = None
         if cfg.merge_layer is not None:
-            self.merge_proj = Dense(4 * c, c, dtype=dtype, device=device)
+            self.merge_proj = Dense(4 * c, c, **kw)
             self.init_fixed_()
 
     @torch.no_grad()

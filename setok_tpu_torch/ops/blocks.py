@@ -8,9 +8,16 @@ as the flax tree so that `utils/from_flax.py` is a plain rename:
     row becomes a uniform average, as in the JAX package;
   * `Block` builds `depth` attention sub-layers that share ONE `norm1`, as
     the reference SeTok block does;
-  * parameters are float32; `dtype` is the compute type: each op casts its
-    inputs to it (bf16 is the mixed policy of the JAX package), and the
-    softmax and LayerNorm statistics run in float32.
+  * parameters live in `param_dtype` (float32 by default, bf16 as
+    `bench.py` stores so400m); `dtype` is the compute type: each op casts
+    its inputs to it (bf16 is the mixed policy of the JAX package), and the
+    softmax and LayerNorm statistics run in float32. A `Dense` casts its
+    weight to `dtype` at each use, as flax's does (with bf16 parameters
+    and bf16 compute, no cast at all). Where a parameter vector meets a
+    kernel or a float32 statistic (the LayerNorms, the int8 kernels'
+    biases and LayerNorm vectors), it is read as float32 through
+    `param_f32`, a copy cached per weight version, as `Dense.int8` caches
+    the int8 weight; the JAX package casts at each call.
 
 Attention is written as matmul → softmax → matmul on purpose: PyTorch's
 fused attention is a library kernel, and its fully-masked-row result differs.
@@ -69,6 +76,26 @@ NEG_INF = -1e30
 DENSE_INT8_MAX = 8 * 1024 * 1024
 
 
+def param_f32(module: nn.Module, name: str) -> Optional[torch.Tensor]:
+    """The parameter `name` of `module` as float32: the parameter itself
+    when it is float32, its differentiable cast while a graph is built
+    through it, else a float32 copy cached until the parameter changes (its
+    storage or its version). Widening bf16 to float32 is exact."""
+    p = getattr(module, name)
+    if p is None or p.dtype == torch.float32:
+        return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.float()
+    key = (p.data_ptr(), p._version)
+    cache = module.__dict__.setdefault("_f32", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        # a plain tensor even when first read under inference_mode
+        with torch.inference_mode(False), torch.no_grad():
+            hit = cache[name] = (key, p.detach().float())
+    return hit[1]
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax `nn.Dropout`: keep with probability 1 - rate, kept values
@@ -80,7 +107,8 @@ def dropout(x: torch.Tensor, rate: float,
 
 
 class Dense(nn.Linear):
-    """`nn.Linear` that computes in `dtype` (float32 parameters), with an
+    """`nn.Linear` that computes in `dtype` (parameters in `param_dtype`:
+    the weight is cast to `dtype` at each use, as flax's Dense does), with an
     optional LoRA adapter (`lora`: the (A (in, r), B (r, out), alpha/r)
     that `train.lora.apply_lora` attaches; kept out of the module's
     parameters and state dict).
@@ -91,8 +119,10 @@ class Dense(nn.Linear):
     that type; above it, the float forward."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, quant8: bool = False, dtype=torch.float32, device=None):
-        super().__init__(in_features, out_features, bias=bias, device=device)
+                 *, quant8: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device,
+                         dtype=param_dtype)
         self.quant8 = quant8
         self.compute_dtype = dtype
         self.__dict__["lora"] = None
@@ -169,17 +199,19 @@ class Quant4Dense(nn.Module):
 
 
 class LayerNorm(nn.LayerNorm):
-    """`nn.LayerNorm` with a required eps; statistics in float32, output in
-    `dtype`."""
+    """`nn.LayerNorm` with a required eps; statistics and the affine step in
+    float32 (flax's order: a bf16 scale and bias widen to float32), output
+    in `dtype`."""
 
     def __init__(self, features: int, *, eps: float, dtype=torch.float32,
-                 device=None):
-        super().__init__(features, eps=eps, device=device)
+                 param_dtype=torch.float32, device=None):
+        super().__init__(features, eps=eps, device=device, dtype=param_dtype)
         self.compute_dtype = dtype
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                         self.bias, self.eps)
+        y = F.layer_norm(x.float(), self.normalized_shape,
+                         param_f32(self, "weight"), param_f32(self, "bias"),
+                         self.eps)
         return y.to(self.compute_dtype)
 
 
@@ -204,22 +236,25 @@ class Mlp(nn.Module):
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None, *,
                  gelu_exact: bool = True, drop: float = 0.0,
-                 quant8: bool = False, dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.approximate = "none" if gelu_exact else "tanh"
         self.drop = drop
         self.quant8 = quant8
         self.fc1 = Dense(in_features, hidden_features, quant8=quant8,
-                         dtype=dtype, device=device)
+                         dtype=dtype, param_dtype=param_dtype, device=device)
         self.fc2 = Dense(hidden_features, out_features or in_features,
-                         quant8=quant8, dtype=dtype, device=device)
+                         quant8=quant8, dtype=dtype, param_dtype=param_dtype,
+                         device=device)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.quant8 and fs.mlp_fits_vmem(x.shape[-1],
                                             self.fc1.out_features):
             return fm.fused_mlp_int8(x.contiguous(), self.fc1.int8(),
-                                     self.fc1.bias, self.fc2.int8(),
-                                     self.fc2.bias)
+                                     param_f32(self.fc1, "bias"),
+                                     self.fc2.int8(),
+                                     param_f32(self.fc2, "bias"))
         x = dropout(F.gelu(self.fc1(x), approximate=self.approximate),
                     self.drop, generator)
         return dropout(self.fc2(x), self.drop, generator)
@@ -227,9 +262,12 @@ class Mlp(nn.Module):
     def sublayer_int8(self, x, norm: LayerNorm):
         """x + MLP(norm(x)), the fused int8 kernel (tanh GELU, as the JAX
         kernel has, whatever `gelu_exact` says)."""
-        return fs.mlp_sublayer_int8(x, norm.weight, norm.bias,
-                                    self.fc1.int8(), self.fc1.bias,
-                                    self.fc2.int8(), self.fc2.bias,
+        return fs.mlp_sublayer_int8(x, param_f32(norm, "weight"),
+                                    param_f32(norm, "bias"),
+                                    self.fc1.int8(),
+                                    param_f32(self.fc1, "bias"),
+                                    self.fc2.int8(),
+                                    param_f32(self.fc2, "bias"),
                                     ln_eps=norm.eps)
 
 
@@ -249,7 +287,8 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, quant8: bool = False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
@@ -258,8 +297,9 @@ class Attention(nn.Module):
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.dtype = dtype
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, quant8=quant8,
-                         dtype=dtype, device=device)
-        self.proj = Dense(dim, dim, quant8=quant8, dtype=dtype, device=device)
+                         dtype=dtype, param_dtype=param_dtype, device=device)
+        self.proj = Dense(dim, dim, quant8=quant8, dtype=dtype,
+                          param_dtype=param_dtype, device=device)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
@@ -268,8 +308,9 @@ class Attention(nn.Module):
                 and fs.attn_fits_vmem(n, c)
                 and (mask is None or mask.dim() == 3)):
             return fai.fused_attention_int8(
-                x.float().contiguous(), self.qkv.int8(), self.qkv.bias,
-                self.proj.int8(), self.proj.bias, self.num_heads, mask,
+                x.float().contiguous(), self.qkv.int8(),
+                param_f32(self.qkv, "bias"), self.proj.int8(),
+                param_f32(self.proj, "bias"), self.num_heads, mask,
                 self.scale)
         qkv = self.qkv(x).reshape(*batch, n, 3, self.num_heads,
                                   c // self.num_heads)
@@ -284,9 +325,12 @@ class Attention(nn.Module):
 
     def sublayer_int8(self, x, norm: LayerNorm, mask=None):
         """x + Attn(norm(x)), the fused int8 kernel."""
-        return fs.attn_sublayer_int8(x, norm.weight, norm.bias,
-                                     self.qkv.int8(), self.qkv.bias,
-                                     self.proj.int8(), self.proj.bias,
+        return fs.attn_sublayer_int8(x, param_f32(norm, "weight"),
+                                     param_f32(norm, "bias"),
+                                     self.qkv.int8(),
+                                     param_f32(self.qkv, "bias"),
+                                     self.proj.int8(),
+                                     param_f32(self.proj, "bias"),
                                      self.num_heads, mask=mask,
                                      sm_scale=self.scale, ln_eps=norm.eps)
 
@@ -311,19 +355,21 @@ class Block(nn.Module):
                  depth: int = 1, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, norm_eps: float,
                  proj_drop: float = 0.0, attn_drop: float = 0.0,
-                 quant8: bool = False, dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.depth = depth
         self.quant8 = quant8
-        self.norm1 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.norm1 = LayerNorm(dim, eps=norm_eps, **kw)
         for i in range(depth):
             self.add_module(f"attn_{i}", Attention(
                 dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale,
                 attn_drop=attn_drop, proj_drop=proj_drop, quant8=quant8,
-                dtype=dtype, device=device))
-        self.norm2 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
+                **kw))
+        self.norm2 = LayerNorm(dim, eps=norm_eps, **kw)
         self.mlp = Mlp(dim, mlp_hidden_dim, drop=proj_drop, quant8=quant8,
-                       dtype=dtype, device=device)
+                       **kw)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
@@ -349,16 +395,18 @@ class ViTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, norm_eps: float,
                  proj_drop: float = 0.0, attn_drop: float = 0.0,
-                 quant8: bool = False, dtype=torch.float32, device=None):
+                 quant8: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.quant8 = quant8
-        self.norm1 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.norm1 = LayerNorm(dim, eps=norm_eps, **kw)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
                               attn_drop=attn_drop, proj_drop=proj_drop,
-                              quant8=quant8, dtype=dtype, device=device)
-        self.norm2 = LayerNorm(dim, eps=norm_eps, dtype=dtype, device=device)
+                              quant8=quant8, **kw)
+        self.norm2 = LayerNorm(dim, eps=norm_eps, **kw)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=proj_drop,
-                       quant8=quant8, dtype=dtype, device=device)
+                       quant8=quant8, **kw)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):

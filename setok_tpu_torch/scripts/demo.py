@@ -2,11 +2,15 @@
 chat about it, and generate an image back.
 
     python -m setok_tpu_torch.scripts.demo [--tiny] [--cpu]
+                                           [--checkpoint DIR] [--image PNG]
 
-The port's counterpart of the JAX package's `scripts/demo.py`, on random
-weights from seed 0: `--tiny` runs the test configuration, otherwise the
-full-width `base_setokim()` (Vicuna-7B trunk, ViT-B/16 SeTok @256) on the
-card, on a random image from the seed. The steps:
+The port's counterpart of the JAX package's `scripts/demo.py`: the model
+of `models/builder.load_pretrained_model(--checkpoint)` (a stage-2 run
+directory of the port; without one, random weights from seed 0), `--tiny`
+the test configuration, otherwise the full-width `base_setokim()`
+(Vicuna-7B trunk, ViT-B/16 SeTok @256) on the card; the image of
+`--image` through `GeneratorImageProcessor`, or a random one from the
+seed. The steps:
 
   1. `Setokim.tokenize` → the image's concept tokens;
   2. `Setokim.detokenize` → the reconstruction and its PSNR;
@@ -15,9 +19,6 @@ card, on a random image from the seed. The steps:
      (4 MaskGIT/MAR iterations through the diffusion head, then the
      render).
 
-`--checkpoint` and `--image` are refused: loading weights and reading
-image files are ROADMAP.md, Queue A item 4 (checkpoint and data); a real
-Setokim checkpoint waits until such files are in the repository.
 """
 
 from __future__ import annotations
@@ -27,20 +28,12 @@ import argparse
 import numpy as np
 import torch
 
-from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.constants import IMAGE_TOKEN_INDEX
+from setok_tpu_torch.models.builder import load_pretrained_model
 from setok_tpu_torch.models.generate import generate_image, generate_text
-from setok_tpu_torch.models.setokim import Setokim
-from setok_tpu_torch.utils.init import init_setokim_random_
 from setok_tpu_torch.utils.metrics import psnr
 
 SEED = 0
-REFUSED = {
-    "checkpoint": "loading a checkpoint: ROADMAP.md, Queue A item 4 "
-                  "(checkpoint and data)",
-    "image": "reading an image file: ROADMAP.md, Queue A item 4 "
-             "(checkpoint and data)",
-}
 
 
 def parse_args(argv=None):
@@ -49,25 +42,28 @@ def parse_args(argv=None):
                    help="the test configuration (default: base_setokim)")
     p.add_argument("--cpu", action="store_true")
     p.add_argument("--max-new-tokens", type=int, default=8)
-    for name in REFUSED:
-        p.add_argument("--" + name, default=None, help=argparse.SUPPRESS)
-    args = p.parse_args(argv)
-    for name, why in REFUSED.items():
-        if getattr(args, name) is not None:
-            p.error(f"--{name} is not ported: {why}")
-    return args
+    p.add_argument("--checkpoint", default="",
+                   help="a stage-2 run directory (models/builder.py)")
+    p.add_argument("--image", default=None, help="an image file")
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    cfg = cfgs.tiny_setokim() if args.tiny else cfgs.base_setokim()
-    model = init_setokim_random_(
-        Setokim(cfg, target_token_id=3, device="cpu" if args.cpu else None),
-        SEED)
+    model = load_pretrained_model(args.checkpoint, tiny=args.tiny,
+                                  device="cpu" if args.cpu else None)
+    cfg = model.cfg
     dev = model.device
     size = cfg.tokenizer.vit.image_size
-    rs = np.random.RandomState(SEED)
-    img = (rs.rand(size, size, 3) * 2 - 1).astype(np.float32)
+    if args.image:
+        from PIL import Image
+
+        from setok_tpu_torch.data.image_processing import \
+            GeneratorImageProcessor
+        img = GeneratorImageProcessor(size=size)(Image.open(args.image))
+    else:
+        rs = np.random.RandomState(SEED)
+        img = (rs.rand(size, size, 3) * 2 - 1).astype(np.float32)
     images = torch.from_numpy(img)[None].to(dev)
 
     tok = model.tokenize(images)

@@ -20,6 +20,10 @@ admits text prompts in chunks of C tokens, up to the cache's width; and
 `--system-prompt` prepends a text to every prompt (without a second BOS)
 and registers it as a cached prefix, which needs `--prefill-chunk`.
 
+`--checkpoint` loads the weights through `models/builder
+.load_pretrained_model` (a stage-2 run directory of the port, its adapters
+merged; `--bits 8|4` quantised after the load), in place of the seed.
+
 The flags are the JAX CLI's (`scripts/serve.py`) that this port runs; its
 others are refused with a message naming their ROADMAP.md entry. There,
 `--tiny` defaults to on, so that the JAX CLI always runs the test
@@ -36,6 +40,7 @@ import torch
 
 from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.data.tokenizer import load_text_tokenizer
+from setok_tpu_torch.models.builder import load_pretrained_model
 from setok_tpu_torch.models.llama import valid_quant_group
 from setok_tpu_torch.models.setokim import Setokim
 from setok_tpu_torch.serve import ServeEngine
@@ -43,7 +48,6 @@ from setok_tpu_torch.utils.init import init_setokim_random_
 
 # the JAX CLI's flags that this port does not run
 REFUSED = {
-    "checkpoint": "loading a checkpoint: ROADMAP.md, Queue A (checkpoints)",
     "tensor_parallel": "multi-card serving: ROADMAP.md, Queue A (serving "
                        "features; after the parallel item)",
 }
@@ -90,6 +94,8 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true",
                    help="the test configuration (default: base_setokim)")
     p.add_argument("--cpu", action="store_true")
+    p.add_argument("--checkpoint", default=None,
+                   help="a stage-2 run directory (models/builder.py)")
     for name in REFUSED:
         p.add_argument("--" + name.replace("_", "-"), default=None,
                        help=argparse.SUPPRESS)
@@ -108,10 +114,16 @@ def main(argv=None) -> None:
     cfg = cfgs.tiny_setokim() if args.tiny else cfgs.base_setokim()
     group = (valid_quant_group(cfg.llama, args.quant_group)
              if args.bits == 4 else 0)
-    model = Setokim(cfg, target_token_id=3, weight_bits=args.bits,
-                    quant_group=group, device=device)
-    init_setokim_random_(model, seed=0,
-                         clip_search=8 if args.bits == 4 else 0)
+    if args.checkpoint:
+        model = load_pretrained_model(args.checkpoint, cfg,
+                                      target_token_id=3, bits=args.bits,
+                                      quant_group=args.quant_group,
+                                      device=device)
+    else:
+        model = Setokim(cfg, target_token_id=3, weight_bits=args.bits,
+                        quant_group=group, device=device)
+        init_setokim_random_(model, seed=0,
+                             clip_search=8 if args.bits == 4 else 0)
     tok = load_text_tokenizer(args.tokenizer,
                               vocab_size=cfg.llama.vocab_size)
     if args.prompts_file:

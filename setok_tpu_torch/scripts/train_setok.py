@@ -20,10 +20,18 @@ Data: `--synthetic N` as the JAX CLI draws it, N structured images
 image with a frozen caption embedding (one table row per image, drawn from
 seed + 1), so that the contrastive task is learnable.
 
+Checkpoints: with `--output-dir`, `<dir>/checkpoints/<step>/` through
+`utils/checkpoint.CheckpointRunner` (background writes after a copy to
+the host, a SIGTERM hook) every `--checkpoint-every` micro-batches and at
+the last; a run finds its newest step there and resumes from it (the
+trainer's parameters, Adam moments, counts, accumulated gradients and the
+dropout generator; the synthetic stream skips the batches already
+taken), unless `--no-resume`. Without `--output-dir` nothing is written
+(the JAX CLI defaults to a directory under /tmp).
+
 The flags are the JAX CLI's (`scripts/train_setok.py`). Those that need
 modules the port lacks raise `NotImplementedError` naming their ROADMAP.md
-entry: real data, checkpoints (`--resume`, `--checkpoint-every`,
-`--output-dir`), LPIPS weights and the compilation cache; the trainer
+entry: real data, LPIPS weights and the compilation cache; the trainer
 refuses 8-bit moments and optimizer offload.
 """
 
@@ -31,6 +39,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
+import os
 import time
 
 import numpy as np
@@ -38,21 +48,21 @@ import torch
 
 from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.train.stage1 import Stage1Trainer
+from setok_tpu_torch.utils.checkpoint import CheckpointRunner
 from setok_tpu_torch.utils.synthetic import structured_images
 
-DATA = "real data: ROADMAP.md, Queue A (checkpoint and data)"
-CKPT = "checkpoints: ROADMAP.md, Queue A (checkpoint and data)"
+DATA = "real data: ROADMAP.md, Queue A item 4 (the data pipeline)"
 # the JAX CLI's flags that this port does not run
 REFUSED = {
     "data_path": DATA, "image_folder": DATA, "tokenizer": DATA,
     "task_type": DATA, "num_workers": DATA, "no_native_preprocess": DATA,
-    "output_dir": CKPT, "resume": CKPT, "checkpoint_every": CKPT,
     "lpips_weights": "LPIPS weights (scripts/port_weights.py): ROADMAP.md, "
                      "Queue A (remaining scripts and utils)",
     "compile_cache": "the compilation cache: ROADMAP.md, Queue A "
                      "(remaining scripts and utils)",
 }
-FLAGS = ("no_native_preprocess", "resume")
+FLAGS = ("no_native_preprocess",)
+logger = logging.getLogger("train_setok")
 
 
 def parse_args(argv=None):
@@ -92,6 +102,12 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (default: the card)")
+    p.add_argument("--output-dir", default=None,
+                   help="checkpoints under <dir>/checkpoints (none without)")
+    p.add_argument("--checkpoint-every", type=int, default=500)
+    p.add_argument("--resume", action="store_true", default=True,
+                   help="resume from the newest checkpoint (the default)")
+    p.add_argument("--no-resume", dest="resume", action="store_false")
     for name in REFUSED:
         if name in FLAGS:
             p.add_argument("--" + name.replace("_", "-"),
@@ -202,7 +218,18 @@ def main(argv=None) -> None:
     trainer, batches = build(args)
     dev = trainer.device
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    for step in range(args.steps):
+    runner, start = None, 0
+    if args.output_dir:
+        runner = CheckpointRunner(os.path.join(args.output_dir,
+                                               "checkpoints"))
+        if args.resume and runner.latest_step() is not None:
+            trainer.load_state_dict(runner.restore(map_location=dev),
+                                    {"dropout": gen})
+            start = trainer.step
+            for _ in range(start):          # the batches already taken
+                next(batches)
+            logger.warning("resumed from step %d", start)
+    for step in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in next(batches).items()}
         t0 = time.perf_counter()
@@ -211,6 +238,17 @@ def main(argv=None) -> None:
         print(json.dumps({"step": step, "updates": trainer.updates,
                           "seconds": time.perf_counter() - t0, **metrics}),
               flush=True)
+        if runner is None:
+            continue
+        if (step + 1) % args.checkpoint_every == 0 or step == args.steps - 1:
+            runner.save(step + 1, trainer.state_dict({"dropout": gen}))
+        if runner.preempted(step):
+            runner.save(step + 1, trainer.state_dict({"dropout": gen}),
+                        force=True)
+            logger.warning("preempted: saved @ %d, exiting", step + 1)
+            break
+    if runner is not None:
+        runner.close()
 
 
 if __name__ == "__main__":

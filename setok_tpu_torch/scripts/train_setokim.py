@@ -19,15 +19,29 @@ length and the whole. The answer and the `<target>` slots carry labels.
 The JAX CLI's own synthetic batch is cut to 48 slots and runs only with
 `--tiny` (ROADMAP.md, Queue C).
 
+Weights: random from `--seed`, then the four `--pretrain-*` `.npz` files
+(the vision tokenizer, the vision detokenizer, the in and out projectors),
+each loaded by path suffix (`utils/porting.load_flat_into`: keys 'a/b/c'
+or flax `keystr`, arrays in the flax layout), as the JAX CLI stages them.
+Checkpoints: with `--output-dir`, `<dir>/checkpoints/<step>/` (the
+'params', 'lora' and 'train' parts, `utils/checkpoint.CheckpointRunner`)
+every `--checkpoint-every` micro-batches and at the last, the directory
+`models/builder.load_pretrained_model` reads; a run resumes from the
+newest step there (the synthetic stream skips the batches already
+taken) unless `--no-resume`. Without `--output-dir` nothing is written
+(the JAX CLI defaults to a directory under /tmp).
+
 The flags are the JAX CLI's (`scripts/train_setokim.py`); its real-data,
-checkpoint, parallel, QLoRA and 8-bit-optimizer flags are refused with a
-message naming their ROADMAP.md entry.
+parallel, QLoRA and 8-bit-optimizer flags are refused with a message
+naming their ROADMAP.md entry.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
+import os
 import time
 
 import numpy as np
@@ -36,25 +50,20 @@ import torch
 from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from setok_tpu_torch.train.stage2 import Stage2Trainer
+from setok_tpu_torch.utils.checkpoint import CheckpointRunner
 from setok_tpu_torch.utils.init import init_setokim_random_
+from setok_tpu_torch.utils.porting import load_flat_into
 
 TARGET_TOKEN_ID = 3
+DATA = "real data: ROADMAP.md, Queue A item 4 (the data pipeline)"
+PRETRAIN = ("vision_tokenizer", "vision_detokenizer", "mm_in_mlp_adapter",
+            "mm_out_mlp_adapter")
+logger = logging.getLogger("train_setokim")
 
 # the JAX CLI's flags that this port does not run
 REFUSED = {
-    "data_path": "real data: ROADMAP.md, Queue A (checkpoint and data)",
-    "dataset_name": "real data: ROADMAP.md, Queue A (checkpoint and data)",
-    "image_folder": "real data: ROADMAP.md, Queue A (checkpoint and data)",
-    "tokenizer": "real data: ROADMAP.md, Queue A (checkpoint and data)",
-    "output_dir": "checkpoints: ROADMAP.md, Queue A (checkpoint and data)",
-    "pretrain_vision_tokenizer": "checkpoints: ROADMAP.md, Queue A "
-                                 "(checkpoint and data)",
-    "pretrain_vision_detokenizer": "checkpoints: ROADMAP.md, Queue A "
-                                   "(checkpoint and data)",
-    "pretrain_mm_in_mlp_adapter": "checkpoints: ROADMAP.md, Queue A "
-                                  "(checkpoint and data)",
-    "pretrain_mm_out_mlp_adapter": "checkpoints: ROADMAP.md, Queue A "
-                                   "(checkpoint and data)",
+    "data_path": DATA, "dataset_name": DATA, "image_folder": DATA,
+    "tokenizer": DATA,
     "tensor_parallel": "multi-card training: ROADMAP.md, Queue A (parallel)",
     "sequence_parallel": "sequence parallelism: ROADMAP.md, Queue A "
                          "(parallel)",
@@ -120,6 +129,16 @@ def parse_args(argv=None):
                    help="the flash-attention kernels in the LLaMA trunk")
     p.add_argument("--optim-bits", type=int, default=32, choices=[32, 8])
     p.add_argument("--bits", type=int, default=16, choices=[16, 8])
+    p.add_argument("--output-dir", default=None,
+                   help="checkpoints under <dir>/checkpoints (none without)")
+    p.add_argument("--checkpoint-every", type=int, default=500)
+    p.add_argument("--resume", action="store_true", default=True,
+                   help="resume from the newest checkpoint (the default)")
+    p.add_argument("--no-resume", dest="resume", action="store_false")
+    for name in PRETRAIN:
+        p.add_argument(f"--pretrain-{name.replace('_', '-')}", default=None,
+                       help="an .npz of flat weights, loaded by path "
+                            "suffix")
     for name in REFUSED:
         p.add_argument("--" + name.replace("_", "-"), default=None,
                        help=argparse.SUPPRESS)
@@ -128,8 +147,7 @@ def parse_args(argv=None):
         if getattr(args, name) is not None:
             p.error(f"--{name.replace('_', '-')} is not ported: {why}")
     if not args.synthetic:
-        p.error("only --synthetic data is ported: ROADMAP.md, Queue A "
-                "(checkpoint and data)")
+        p.error(f"only --synthetic data is ported: {DATA}")
     return args
 
 
@@ -156,11 +174,30 @@ def main(argv=None) -> None:
         use_flash=args.use_flash, optim_bits=args.optim_bits,
         device="cpu" if args.cpu else None)
     init_setokim_random_(trainer.model, args.seed)
+    for name in PRETRAIN:
+        path = getattr(args, f"pretrain_{name}")
+        if path:
+            flat = dict(np.load(path))
+            unmatched = load_flat_into(trainer.model, flat)
+            logger.warning("loaded %s (%d arrays, %d unmatched)", path,
+                           len(flat), len(unmatched))
     trainer.init_state(args.seed + 1)
     dev = trainer.model.device
     rs = np.random.RandomState(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
-    for step in range(args.steps):
+    runner, start = None, 0
+    if args.output_dir:
+        runner = CheckpointRunner(os.path.join(args.output_dir,
+                                               "checkpoints"))
+        if args.resume and runner.latest_step() is not None:
+            trainer.load_state_dict(runner.restore(map_location=dev),
+                                    {"draws": gen})
+            start = trainer.step
+            for _ in range(start):          # the batches already taken
+                synthetic_batch(cfg, args.batch_size, args.model_max_length,
+                                rs)
+            logger.warning("resumed from step %d", start)
+    for step in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
             cfg, args.batch_size, args.model_max_length, rs).items()}
         t0 = time.perf_counter()
@@ -169,6 +206,17 @@ def main(argv=None) -> None:
         print(json.dumps({"step": step, "updates": trainer.updates,
                           "seconds": time.perf_counter() - t0, **metrics}),
               flush=True)
+        if runner is None:
+            continue
+        if (step + 1) % args.checkpoint_every == 0 or step == args.steps - 1:
+            runner.save(step + 1, trainer.state_dict({"draws": gen}))
+        if runner.preempted(step):
+            runner.save(step + 1, trainer.state_dict({"draws": gen}),
+                        force=True)
+            logger.warning("preempted: saved @ %d, exiting", step + 1)
+            break
+    if runner is not None:
+        runner.close()
 
 
 if __name__ == "__main__":

@@ -96,8 +96,9 @@ class Stage1Trainer:
                 raise NotImplementedError(f"{name}: {NOT_PORTED[name]}")
         tc = self.train_cfg
         if tc.param_dtype != "float32":
-            raise ValueError(f"param_dtype {tc.param_dtype}: the port keeps "
-                             "float32 parameters")
+            raise ValueError(f"param_dtype {tc.param_dtype}: the port's "
+                             "trainers keep float32 parameters (ROADMAP.md, "
+                             "Queue A item 1)")
         if tc.weight_decay != 0:
             raise ValueError("weight_decay must be 0: the JAX trainer's "
                              "AdamW would decay the frozen backbone too")
@@ -154,6 +155,62 @@ class Stage1Trainer:
         self.step = 0            # micro-batches
         self.updates = 0         # optimizer updates
         self._acc = None
+
+    def parts(self) -> Dict[str, torch.nn.Module]:
+        """The trainer's modules by the names of the JAX `Stage1State`'s
+        trees: 'setok', 'contrastive'[, 'text_encoder'], 'disc'[,
+        'lpips']."""
+        out = {"setok": self.model, "contrastive": self.contrastive}
+        if self.text_encoder is not None:
+            out["text_encoder"] = self.text_encoder
+        out["disc"] = self.disc
+        if self.lpips is not None:
+            out["lpips"] = self.lpips
+        return out
+
+    def state_dict(self, generators: Optional[Dict[str, torch.Generator]]
+                   = None) -> Dict[str, Any]:
+        """The run's state in two parts (utils/checkpoint writes each to a
+        file of its own): 'params', every module's state by `parts` name
+        ('setok.tokenizer.…', 'disc.…'), and 'train', both optimizers'
+        states (the Adam moments), the micro-batch and update counts, the
+        accumulated gradients and the state of each of `generators` (the
+        caller's, such as the dropout generator of `train_step`). Tensors
+        are the live ones: `to_host` or a checkpoint save copies them."""
+        if self.gen_opt is None:
+            raise RuntimeError("init_state() first")
+        params = {f"{name}.{key}": value
+                  for name, mod in self.parts().items()
+                  for key, value in mod.state_dict().items()}
+        return {"params": params, "train": {
+            "gen_opt": self.gen_opt.state_dict(),
+            "disc_opt": self.disc_opt.state_dict(),
+            "step": self.step, "updates": self.updates,
+            "acc": self._acc,
+            "generators": {k: g.get_state()
+                           for k, g in (generators or {}).items()}}}
+
+    def load_state_dict(self, state: Dict[str, Any],
+                        generators: Optional[Dict[str, torch.Generator]]
+                        = None) -> None:
+        """Restore a `state_dict()` into a trainer built with the same
+        configuration and `init_state()`: parameters, optimizer states,
+        counts, accumulated gradients, and the states of `generators`
+        (each name must be in the state)."""
+        if self.gen_opt is None:
+            raise RuntimeError("init_state() first")
+        params, train = state["params"], state["train"]
+        for name, mod in self.parts().items():
+            own = {k[len(name) + 1:]: v for k, v in params.items()
+                   if k.startswith(name + ".")}
+            mod.load_state_dict(own, strict=True)
+        self.gen_opt.load_state_dict(train["gen_opt"])
+        self.disc_opt.load_state_dict(train["disc_opt"])
+        self.step, self.updates = int(train["step"]), int(train["updates"])
+        self._acc = (None if train["acc"] is None else
+                     [t.to(self.device) for t in train["acc"]])
+        for key, g in (generators or {}).items():
+            g.set_state(train["generators"][key].cpu())
 
     def lr(self) -> float:
         """The generator's learning rate at its next update."""

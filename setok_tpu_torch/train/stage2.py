@@ -134,8 +134,9 @@ class Stage2Trainer:
                 raise NotImplementedError(f"{name}: {NOT_PORTED[name]}")
         tc = self.train_cfg
         if tc.param_dtype != "float32":
-            raise ValueError(f"param_dtype {tc.param_dtype}: the port keeps "
-                             "float32 parameters")
+            raise ValueError(f"param_dtype {tc.param_dtype}: the port's "
+                             "trainers keep float32 parameters (ROADMAP.md, "
+                             "Queue A item 1)")
         self.model = Setokim(self.cfg, self.target_token_id,
                              self.pad_token_id,
                              dtype=getattr(torch, tc.compute_dtype),
@@ -247,6 +248,53 @@ class Stage2Trainer:
         return {"lm_loss": out.lm_loss.detach(),
                 "diff_loss": out.diff_loss.detach(),
                 "total_loss": out.loss.detach()}
+
+    def state_dict(self, generators: Optional[Dict[str, torch.Generator]]
+                   = None) -> Dict[str, Any]:
+        """The run's state in three parts, as the JAX `Stage2State` holds
+        it (utils/checkpoint writes each to a file of its own): 'params'
+        (the model's state dict), 'lora' ({'<module>.a': A, '<module>.b':
+        B}) and 'train' (the optimizer's state with the Adam moments, the
+        micro-batch and update counts, the accumulated gradients and the
+        state of each of `generators`, the caller's). Tensors are the live
+        ones: `to_host` or a checkpoint save copies them."""
+        if self.optimizer is None:
+            raise RuntimeError("init_state() first")
+        lora = {}
+        for name, (a, b) in self.lora.items():
+            lora[f"{name}.a"], lora[f"{name}.b"] = a, b
+        return {"params": self.model.state_dict(), "lora": lora, "train": {
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step, "updates": self.updates, "acc": self._acc,
+            "generators": {k: g.get_state()
+                           for k, g in (generators or {}).items()}}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any],
+                        generators: Optional[Dict[str, torch.Generator]]
+                        = None) -> None:
+        """Restore a `state_dict()` into a trainer built with the same
+        configuration and `init_state()`: parameters, adapters, optimizer
+        state, counts, accumulated gradients, and the states of
+        `generators` (each name must be in the state)."""
+        if self.optimizer is None:
+            raise RuntimeError("init_state() first")
+        self.model.load_state_dict(state["params"], strict=True)
+        lora = state["lora"]
+        if set(lora) != {f"{n}.{f}" for n in self.lora for f in "ab"}:
+            raise KeyError("the checkpoint's adapters differ from the "
+                           "trainer's")
+        for name, (a, b) in self.lora.items():
+            a.copy_(lora[f"{name}.a"])
+            b.copy_(lora[f"{name}.b"])
+        train = state["train"]
+        self.optimizer.load_state_dict(train["optimizer"])
+        self.step, self.updates = int(train["step"]), int(train["updates"])
+        dev = self.model.device
+        self._acc = (None if train["acc"] is None else
+                     [t.to(dev) for t in train["acc"]])
+        for key, g in (generators or {}).items():
+            g.set_state(train["generators"][key].cpu())
 
     def merged_params(self) -> Dict[str, torch.Tensor]:
         """The model's state dict with the adapters merged in."""

@@ -17,10 +17,18 @@ conversions:
     kernels; their scales `s` (1 or groups, out) copy as they are;
   * `pos_embed` and `mask_tokens` copy as they are.
 
-Floating leaves become float32; integer leaves keep their type.
+A bf16 leaf (a numpy array of ml_dtypes' `bfloat16`, as `np.asarray` gives
+a bf16 jax array: a model built with `param_dtype=bfloat16`) stays bf16: its
+2-byte payload is reinterpreted, without importing ml_dtypes. Other
+floating leaves become float32; integer leaves keep their type.
 `load_flax_params` is strict: every flax leaf fills exactly one parameter
 or buffer, and every one of the model's is filled, with the same shape and
-type. `skip` names top-level subtrees the model does not hold; any other
+type (a bf16 leaf into a float32 parameter raises, as the reverse does).
+
+`flax_entries` is the inverse view: each state entry of a model by its
+flax path, in the flax layout (Dense kernels (in, out), HWIO convolutions,
+`scale`, `embedding`), the key map of `utils/checkpoint.save_subtree` and
+`load_subtree`; `to_flax_tree` nests it into a flax variables tree. `skip` names top-level subtrees the model does not hold; any other
 unused leaf raises.
 
 `lora_from_flax` carries the JAX package's LoRA tree ({flax kernel path:
@@ -67,10 +75,29 @@ def flax_state_key(path) -> str:
     return ".".join([*mod, leaf])
 
 
+def is_bf16(value: np.ndarray) -> bool:
+    """A numpy array of bf16 values: ml_dtypes' `bfloat16` (what
+    `np.asarray` of a bf16 jax array holds), named so in its dtype."""
+    return value.dtype.name == "bfloat16"
+
+
+def to_tensor(value: np.ndarray) -> torch.Tensor:
+    """A numpy leaf → a tensor: integers keep their type, bf16 stays bf16
+    (the 2-byte payload reinterpreted), other floats become float32."""
+    value = np.array(value, order="C")     # 0-d leaves stay 0-d
+    if is_bf16(value):
+        return torch.from_numpy(value.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    if np.issubdtype(value.dtype, np.integer):
+        return torch.from_numpy(value.copy())
+    return torch.tensor(value, dtype=torch.float32)
+
+
 def from_flax(params, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
     """A flax tree of arrays (as from `jax.tree.map(np.asarray, params)`)
-    → a state dict: float32 tensors, and int8 ones for quantised weights.
-    Leaves under a top-level subtree named in `skip` are left out."""
+    → a state dict: float32 (or bf16) tensors, and int8 ones for quantised
+    weights. Leaves under a top-level subtree named in `skip` are left
+    out."""
     skip = set(skip)
     state: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
@@ -97,11 +124,86 @@ def from_flax(params, skip: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
         key = flax_state_key(path)
         if key in state:
             raise KeyError(f"two flax leaves map to {key}")
-        value = np.array(value, order="C")     # 0-d leaves stay 0-d
-        state[key] = (torch.from_numpy(value.copy())
-                      if np.issubdtype(value.dtype, np.integer)
-                      else torch.tensor(value, dtype=torch.float32))
+        state[key] = to_tensor(value)
     return state
+
+
+def _flax_leaf(module: nn.Module, leaf: str, value: torch.Tensor,
+               name: str):
+    """(flax leaf name, array in the flax layout) of one state entry of
+    `module`: the inverse of `from_flax`'s conversions."""
+    if leaf == "weight":
+        if isinstance(module, nn.Embedding):
+            return "embedding", value
+        if value.dim() == 1:
+            return "scale", value
+        if value.dim() == 4:
+            return "kernel", value.permute(2, 3, 1, 0)    # OIHW → HWIO
+        if value.dim() == 2:
+            if name.rsplit(".", 1)[-1] == "patch_embed":
+                c, k = value.shape
+                p = int(round((k // 3) ** 0.5))
+                return "kernel", value.t().reshape(p, p, 3, c)
+            return "kernel", value.t()
+        raise ValueError(f"{name}.weight: no flax layout for "
+                         f"{tuple(value.shape)}")
+    if leaf in ("q", "p"):
+        return leaf, value.t()
+    return leaf, value
+
+
+def flax_entries(model: nn.Module) -> Dict[tuple, tuple]:
+    """{flax leaf path (without 'params'): (state-dict key, the tensor in
+    the flax layout, a view)} of every entry of the model's state dict."""
+    mods = dict(model.named_modules())
+    out = {}
+    for key, value in model.state_dict().items():
+        mod_name, _, leaf = key.rpartition(".")
+        flax_leaf, v = _flax_leaf(mods[mod_name], leaf, value.detach(),
+                                  mod_name)
+        path = (tuple(mod_name.split(".")) if mod_name else ()) + (flax_leaf,)
+        out[path] = (key, v)
+    return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host, bf16 widened to float32
+    (exact)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return np.ascontiguousarray(t.cpu().numpy())
+
+
+def to_flax_tree(model: nn.Module) -> dict:
+    """The model's state as a flax variables tree {'params': {...}} of
+    numpy arrays in the flax layouts, bf16 widened to float32: what
+    `model.init` of the JAX package's counterpart returns, with the port's
+    values."""
+    tree: dict = {}
+    for path, (_, value) in flax_entries(model).items():
+        node = tree.setdefault("params", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = to_numpy(value)
+    return tree
+
+
+def from_flax_leaf(leaf: str, value: np.ndarray,
+                   like: torch.Tensor) -> torch.Tensor:
+    """A flax-layout array of the leaf named `leaf` → a tensor in the
+    layout, type and device of the state entry `like`."""
+    t = to_tensor(value)
+    if leaf in ("kernel", "q", "p"):
+        if t.dim() == 4 and like.dim() == 2:           # patchify matmul
+            t = t.reshape(-1, t.shape[-1]).t()
+        elif t.dim() == 4:
+            t = t.permute(3, 2, 0, 1)                  # HWIO → OIHW
+        else:
+            t = t.t()
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"flax shape {tuple(t.shape)} for a state entry of "
+                         f"{tuple(like.shape)}")
+    return t.contiguous().to(device=like.device, dtype=like.dtype)
 
 
 def lora_from_flax(lora, model: nn.Module) -> Dict[str, tuple]:

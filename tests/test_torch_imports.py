@@ -38,6 +38,15 @@ def test_port_and_chip_smoke_import_no_jax():
     # the serving features
     assert {"setok_tpu_torch.serve.speculative",
             "setok_tpu_torch.serve.calibrate"} <= set(modules)
+    # checkpoints, the model builder and the evaluation entry points
+    assert {"setok_tpu_torch.models.builder",
+            "setok_tpu_torch.utils.checkpoint",
+            "setok_tpu_torch.utils.porting",
+            "setok_tpu_torch.scripts.eval_recon",
+            "setok_tpu_torch.scripts.eval_vqa",
+            "setok_tpu_torch.data.image_processing",
+            "setok_tpu_torch.data.native",
+            "setok_tpu_torch.data.vqa_eval"} <= set(modules)
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, "setok_tpu_torch", *modules,
          "chip_smoke", "chip_kernel_times"],

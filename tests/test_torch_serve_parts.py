@@ -111,4 +111,4 @@ def test_cli_refuses_flags_it_does_not_run():
     with pytest.raises(SystemExit):
         cli.parse_args(["--tensor-parallel", "2"])
     with pytest.raises(SystemExit):
-        cli.parse_args(["--checkpoint", "x"])
+        cli.parse_args(["--system-prompt", "x"])      # needs --prefill-chunk

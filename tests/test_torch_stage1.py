@@ -448,8 +448,9 @@ def test_cli_clamps_like_the_jax_cli():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--data-path", "x.json"], ["--resume"], ["--checkpoint-every", "5"],
-    ["--optim-bits", "8"], ["--offload-optimizer"]])
+    ["--data-path", "x.json"], ["--image-folder", "imgs"],
+    ["--lpips-weights", "vgg.npz"], ["--optim-bits", "8"],
+    ["--offload-optimizer"]])
 def test_cli_refuses_unported_flags(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md|not ported"):
         train_setok.main(["--cpu", "--tiny", "--synthetic", "4", *argv])
