@@ -166,6 +166,31 @@ the last line:
                 and on the CPU; the clusters, the metrics of one step's
                 terms (no update), and the gradients of the pixel head and
                 the inner Block.
+  data          (after train_setok_parity) the data pipeline from files
+                that the phase writes from the seed (96 PNGs of 320 x 240,
+                a cc3m-style caption json, a LLaVA-form instruction json,
+                an editing json, a BPE tokenizer trained with `tokenizers`
+                where `transformers` imports, else the word-hash one):
+                stage 1 through train_setok.build --data-path (B=24, full
+                size, 8 loader threads, native resize, the text tower on
+                input_ids_for_contrastive), 3 updates with every count
+                reset just before and read just after (row 1: 2 an
+                update), the ms spent waiting on the stream and the ms of
+                each update, peak memory, the loader alone at 1 and 8
+                threads, one batch stage by stage (decode, resize,
+                tokenize, collate, pinned copy), then in turns the
+                synthetic stream, the files' batches taken before the
+                updates, and the files; stage 2 through
+                train_setokim.build at base_setokim()'s width with the
+                trunk cut to 2 layers (LoRA r 128, flash attention, 4 x
+                2048 slots), 2 updates for each --task-type (instruction,
+                pair, edit): valid and supervised slots, the launches of
+                rows 10 and 1 per update; for the first 3 batches of every
+                run, each leaf the DeviceLoader delivered (copied back as
+                it is consumed) equal to the host's collated batch (0
+                elements may differ), and stage 1's images and contrastive
+                ids equal to the same items rebuilt apart in the loader's
+                order.
 
   param_dtype   (after throughput_unfused) so400m as bench.py builds it
                 (bf16 compute, B=8) with bf16 parameters beside float32
@@ -247,7 +272,8 @@ from setok_tpu_torch.models.setokim import ImageDraws, Setokim, splice_layout
 from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
 from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
-from setok_tpu_torch.scripts import eval_recon, eval_vqa, train_setok
+from setok_tpu_torch.scripts import (eval_recon, eval_vqa, train_setok,
+                                     train_setokim)
 from setok_tpu_torch.scripts.train_setokim import synthetic_batch
 from setok_tpu_torch.serve import ServeEngine, collect_row_weights
 from setok_tpu_torch.train.stage1 import Stage1Trainer
@@ -255,6 +281,7 @@ from setok_tpu_torch.train.stage2 import Stage2Trainer, warmup_cosine
 from setok_tpu_torch.utils import checkpoint as ckpt
 from setok_tpu_torch.utils.init import init_random_, init_setokim_random_
 from setok_tpu_torch.utils.profiling import device_time_breakdown
+from setok_tpu_torch.utils.synthetic import structured_images
 
 SEED = 0
 # H100 SXM data sheet: f32 on the CUDA cores, HBM3 rate
@@ -3282,6 +3309,377 @@ def phase_train_setok_parity() -> None:
 
 
 # ----------------------------------------------------------------------------
+# the data pipeline: files on disk through the training CLIs' loaders
+
+DATA_DIR = Path(__file__).resolve().parent / "build" / "chip_data"
+DATA_IMAGES = 96                # stage 1: four batches of 24 an epoch
+DATA_IMAGE_WH = (320, 240)      # not 256: the resize is real work
+DATA_WORKERS = 8
+DATA_CHECKED = 3                # batches held bit for bit to the host's
+DATA_RECORDS = 16               # stage 2: four batches of 4 a task
+DATA_STAGE2_UPDATES = 2
+DATA_TASKS = ("instruction", "pair", "edit")
+
+
+def write_bpe_tokenizer(path: Path, texts) -> str:
+    """A byte-level BPE over `texts` (BOS prepended, `</s>` special), saved
+    as an HF tokenizer directory; None where `transformers` is missing (the
+    CLIs then take their word-hash tokenizer)."""
+    try:
+        from transformers import PreTrainedTokenizerFast
+    except ImportError:
+        return None
+    from tokenizers import (Tokenizer, decoders, models, pre_tokenizers,
+                            processors, trainers)
+    tok = Tokenizer(models.BPE(unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(texts, trainers.BpeTrainer(
+        vocab_size=600, special_tokens=["<unk>", "<s>", "</s>", "<pad>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    tok.post_processor = processors.TemplateProcessing(
+        single="<s> $A", special_tokens=[("<s>", tok.token_to_id("<s>"))])
+    PreTrainedTokenizerFast(
+        tokenizer_object=tok, bos_token="<s>", eos_token="</s>",
+        unk_token="<unk>", pad_token="<pad>").save_pretrained(str(path))
+    return str(path)
+
+
+def write_data_files(root: Path) -> dict:
+    """DATA_IMAGES PNG images of DATA_IMAGE_WH (structured images from the
+    seed), a cc3m-style caption json over them, a LLaVA-form instruction
+    json (v1 conversations, `<image>` in the first turn), an editing json
+    and a BPE tokenizer trained on their text."""
+    from PIL import Image
+    w, h = DATA_IMAGE_WH
+    images = root / "images"
+    images.mkdir(parents=True)
+    pool = structured_images(DATA_IMAGES, w, seed=SEED + 11)[:, :h]
+    for i, img in enumerate(pool):
+        Image.fromarray(np.round((img + 1) * 127.5).astype(np.uint8)).save(
+            images / f"{i:03d}.png")
+    rs = np.random.RandomState(SEED + 12)
+    words = ("red green blue small large round square striped cat dog "
+             "house tree car boat sky field river road").split()
+
+    def phrase(n):
+        return " ".join(rs.choice(words, n))
+
+    cc3m = [{"image": f"{i:03d}.png", "caption": f"a photo of {phrase(6)}"}
+            for i in range(DATA_IMAGES)]
+    llava = [{"id": i, "image": f"{i:03d}.png", "conversations": [
+        {"from": "human", "value": f"<image>\nWhat is in the {phrase(3)}?"},
+        {"from": "gpt", "value": f"It shows {phrase(12)}."},
+        {"from": "human", "value": f"And the {phrase(2)}?"},
+        {"from": "gpt", "value": phrase(8)}]} for i in range(DATA_RECORDS)]
+    edit = [{"source_image": f"{i:03d}.png",
+             "target_image": f"{i + DATA_RECORDS:03d}.png",
+             "instruction": f"make it {phrase(4)}"}
+            for i in range(DATA_RECORDS)]
+    files = {"images": str(images)}
+    for name, recs in (("cc3m", cc3m), ("llava", llava), ("edit", edit)):
+        files[name] = str(root / f"{name}.json")
+        with open(files[name], "w") as fh:
+            json.dump(recs, fh)
+    texts = ([r["caption"] for r in cc3m]
+             + [c["value"] for r in llava for c in r["conversations"]]
+             + [r["instruction"] for r in edit]
+             + ["USER: ASSISTANT: </s> A chat between a curious human"])
+    files["tokenizer"] = write_bpe_tokenizer(root / "tokenizer", texts)
+    return files
+
+
+def teed(loader) -> list:
+    """Route a DeviceLoader's host batches through a list that keeps the
+    first DATA_CHECKED of them, as the collator built them."""
+    kept, src = [], loader.iterator
+
+    def tee():
+        for b in src:
+            if len(kept) < DATA_CHECKED:
+                kept.append(b)
+            yield b
+    loader.iterator = tee()
+    return kept
+
+
+def delivered_diff(delivered: list, host: list) -> dict:
+    """Elements of each delivered leaf (copied back from the card) that
+    differ from the host's numpy batch, summed over the batches."""
+    check(len(delivered) == len(host) == DATA_CHECKED,
+          f"{len(delivered)} delivered and {len(host)} host batches")
+    diff = {}
+    for got, want in zip(delivered, host):
+        check(set(got) == set(want), f"delivered keys {sorted(got)} vs "
+              f"host {sorted(want)}")
+        for k, v in want.items():
+            g = got[k]
+            check(g.shape == v.shape and g.dtype == torch.from_numpy(v).dtype,
+                  f"{k}: delivered {g.dtype} {tuple(g.shape)} vs host "
+                  f"{v.dtype} {v.shape}")
+            diff[k] = diff.get(k, 0) + int(
+                (g != torch.from_numpy(v)).sum())
+    return diff
+
+
+def run_updates(tr, stream, n: int, gen, snap: int = 0) -> dict:
+    """n updates, each batch from `stream` through the CLIs' `on_device`:
+    per update the ms spent waiting on the stream and the ms of the update
+    (synchronised); the first `snap` delivered batches copied back at once
+    (on the consumer's stream, before the update reads them)."""
+    waits, times, losses, delivered = [], [], [], []
+    for i in range(n):
+        t = time.perf_counter()
+        batch = train_setok.on_device(next(stream), "cuda")
+        waits.append(time.perf_counter() - t)
+        if i < snap:
+            delivered.append({k: v.cpu() for k, v in batch.items()})
+        t = time.perf_counter()
+        metrics = tr.train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    check(all(np.isfinite(v) for row in losses for v in row.values()),
+          "a loss on the data path is not finite")
+    return {"wait_ms": [1e3 * t for t in waits],
+            "ms_per_update": [1e3 * t for t in times],
+            "wait_ms_after_update_1": 1e3 * statistics.mean(waits[1:]),
+            "ms_per_update_after_update_1": 1e3 * statistics.mean(times[1:]),
+            "losses": losses, "delivered": delivered}
+
+
+def loader_stages(ds, batch: int, k_max: int) -> dict:
+    """One batch of `ds` on one thread, stage by stage (ms): PNG decode,
+    the two resizes (native), tokenization and the rest of an item,
+    collation, and the pinned copy to the card."""
+    from setok_tpu_torch.data.collator import Collator
+    idx = range(batch)
+    t = time.perf_counter()
+    imgs = [ds._load_image(ds.records[i]["image"]) for i in idx]
+    decode = time.perf_counter() - t
+    t = time.perf_counter()
+    for img in imgs:
+        ds.image_processor(img), ds.gen_processor(img)
+    resize = time.perf_counter() - t
+    t = time.perf_counter()
+    items = [ds[i] for i in idx]
+    item = time.perf_counter() - t
+    t = time.perf_counter()
+    host = Collator(max_len=train_setok.TEXT_LEN, k_max=k_max)(items)
+    collate = time.perf_counter() - t
+    arrays = [v for v in host.values() if isinstance(v, np.ndarray)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = [torch.from_numpy(v).pin_memory().to("cuda", non_blocking=True)
+           for v in arrays]
+    torch.cuda.synchronize()
+    copy = time.perf_counter() - t
+    del out
+    return {"decode_ms": 1e3 * decode, "resize_ms": 1e3 * resize,
+            "tokenize_and_rest_ms": 1e3 * max(item - decode - resize, 0.0),
+            "collate_ms": 1e3 * collate, "pin_and_copy_ms": 1e3 * copy,
+            "batch_bytes": sum(v.nbytes for v in arrays)}
+
+
+def data_stage1(files: dict) -> dict:
+    """Stage 1 from the files through `train_setok.build`: 3 updates
+    (counts reset just before, read just after; the delivered batches held
+    to the host's), the loader alone (1 and 8 threads) and one batch stage
+    by stage, then in turns the synthetic stream of phase_train_setok, the
+    files' batches taken before the updates, and the files (files,
+    synthetic, preloaded, preloaded, synthetic, files)."""
+    from setok_tpu_torch.data.collator import Collator
+    from setok_tpu_torch.data.loader import BatchLoader
+    argv = ["--data-path", files["cc3m"], "--image-folder", files["images"],
+            "--num-workers", str(DATA_WORKERS)]
+    if files["tokenizer"]:
+        argv += ["--tokenizer", files["tokenizer"]]
+    args = train_setok.parse_args(
+        [*argv, "--steps", str(SETOK_TRAIN_UPDATES), "--disc-start", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    tr, loader = train_setok.build(args)
+    kept = teed(loader)
+    stream = iter(loader)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    first = run_updates(tr, stream, SETOK_TRAIN_UPDATES, gen,
+                        snap=DATA_CHECKED)
+    launches = cluster_dpc.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    diff = delivered_diff(first.pop("delivered"), kept)
+    # the same batches rebuilt apart from the loader: the dataset's items
+    # in the permutation of seed 0, on this thread (the leaves that draw
+    # no prompt from `random`)
+    ds = train_setok.dataset(args)
+    b = args.batch_size
+    k_max = tr.tokenizer_cfg.k_max
+    perm = np.random.default_rng(args.seed).permutation(len(ds))
+    rebuilt = {}
+    for i in range(DATA_CHECKED):
+        host = Collator(max_len=train_setok.TEXT_LEN, k_max=k_max)(
+            [ds[j] for j in perm[i * b:(i + 1) * b]])
+        for k in ("comp_image", "gen_image", "input_ids_for_contrastive"):
+            rebuilt[k] = rebuilt.get(k, 0) + int(np.sum(host[k] != kept[i][k]))
+    stages = loader_stages(ds, b, k_max)
+    alone = {}
+    for workers in (1, DATA_WORKERS):
+        t = time.perf_counter()
+        n_alone = sum(1 for _ in BatchLoader(
+            ds, b, Collator(max_len=train_setok.TEXT_LEN, k_max=k_max),
+            num_workers=workers, seed=args.seed))
+        alone[workers] = n_alone / (time.perf_counter() - t)
+    sargs = setok_train_args()
+    syn_tr, synth = train_setok.build(sargs)
+    sgen = torch.Generator(device="cuda").manual_seed(sargs.seed + 1)
+
+    def preloaded():
+        # the files' batches taken before the updates, the loader's queue
+        # full and its threads idle: the updates without a loader beside
+        held = [next(stream) for _ in range(SETOK_TRAIN_UPDATES)]
+        time.sleep(1.0)
+        return iter(held)
+
+    turns = [("files", first)]
+    for name, trainer, st, g in (("synthetic", syn_tr, synth, sgen),
+                                 ("files_preloaded", tr, None, gen),
+                                 ("files_preloaded", tr, None, gen),
+                                 ("synthetic", syn_tr, synth, sgen),
+                                 ("files", tr, stream, gen)):
+        turns.append((name, run_updates(trainer, st or preloaded(),
+                                        SETOK_TRAIN_UPDATES, g)))
+    stream.close()
+    res = {"images": DATA_IMAGES, "image_wh": list(DATA_IMAGE_WH),
+           "batch": b, "workers": DATA_WORKERS,
+           "tokenizer": "BPE (transformers)" if files["tokenizer"]
+           else "WordTokenizer", "native_preprocess": True,
+           "updates": SETOK_TRAIN_UPDATES,
+           "wait_ms": first["wait_ms"],
+           "ms_per_update": first["ms_per_update"],
+           "ms_per_update_after_update_1":
+               first["ms_per_update_after_update_1"],
+           "images_per_s_after_update_1":
+               1e3 * b / first["ms_per_update_after_update_1"],
+           "peak_memory_gb": peak_gb,
+           "cluster_launches": launches,
+           "delivered_elements_differing": diff,
+           "rebuilt_elements_differing": rebuilt,
+           "loader_alone_batches_per_s": alone[DATA_WORKERS],
+           "loader_alone_batches_per_s_1_worker": alone[1],
+           "loader_alone_batches": n_alone,
+           "one_batch_one_thread": stages,
+           "turns": [{"stream": name, "wait_ms_after_update_1":
+                      r["wait_ms_after_update_1"],
+                      "ms_per_update_after_update_1":
+                          r["ms_per_update_after_update_1"],
+                      "ms_per_update": r["ms_per_update"]}
+                     for name, r in turns],
+           "losses": first["losses"]}
+    check(launches == SETOK_TRAIN_UPDATES * cluster_dpc.LAUNCHES_PER_CALL,
+          f"data: clustering launches {launches} in {SETOK_TRAIN_UPDATES} "
+          f"updates, expected {cluster_dpc.LAUNCHES_PER_CALL} each")
+    check(not any(diff.values()), f"data: delivered batches differ {diff}")
+    check(not any(rebuilt.values()), f"data: rebuilt batches differ {rebuilt}")
+    check(n_alone == DATA_IMAGES // b, f"{n_alone} batches in an epoch")
+    del tr, syn_tr, loader, stream, synth
+    torch.cuda.empty_cache()
+    return res
+
+
+def data_stage2(files: dict) -> dict:
+    """Stage 2 from the files through `train_setokim.build` at
+    base_setokim()'s width with the trunk cut to 2 layers, LoRA r 128,
+    flash attention, 2048 slots: 2 updates for each task type (counts
+    reset just before, read just after; the delivered batches held to the
+    host's)."""
+    small = cfgs.base_setokim()
+    small = cfgs.replace(small, llama=cfgs.replace(small.llama,
+                                                   num_layers=2))
+    common = ["--lora-enable", "--lora-r", "128", "--lora-alpha", "256",
+              "--learning-rate", "2e-4", "--mm-in-projector-lr", "2e-5",
+              "--warmup-steps", "1", "--use-flash", "--model-max-length",
+              str(TRAIN_LEN), "--batch-size", str(TRAIN_BATCH),
+              "--steps", str(DATA_STAGE2_UPDATES),
+              "--num-workers", str(DATA_WORKERS),
+              "--image-folder", files["images"]]
+    if files["tokenizer"]:
+        common += ["--tokenizer", files["tokenizer"]]
+    tasks = {"instruction": ["--dataset-name", "llava", "--data-path",
+                             files["llava"]],
+             "pair": ["--data-path", files["cc3m"]],
+             "edit": ["--data-path", files["edit"]]}
+    want = {"flash_fwd": 2 * 2 * fa.FWD_LAUNCHES_BF16, "flash_dq": 2,
+            "flash_dkv": 2,
+            "dpc_density_parent": 2 * cluster_dpc.LAUNCHES_PER_CALL}
+    out = {}
+    for task in DATA_TASKS:
+        args = train_setokim.parse_args(["--task-type", task, *tasks[task],
+                                         *common])
+        with mock.patch.object(cfgs, "base_setokim", lambda: small):
+            tr, loader = train_setokim.build(args)
+        kept = teed(loader)
+        stream = iter(loader)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+        torch.cuda.synchronize()
+        reset_counts()
+        run = run_updates(tr, stream, DATA_STAGE2_UPDATES, gen,
+                          snap=DATA_STAGE2_UPDATES)
+        torch.cuda.synchronize()
+        launches = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+        delivered = run.pop("delivered")
+        while len(delivered) < DATA_CHECKED:
+            delivered.append({k: v.cpu() for k, v in next(stream).items()})
+        stream.close()
+        diff = delivered_diff(delivered, kept)
+        per_update = {k: v / DATA_STAGE2_UPDATES for k, v in launches.items()}
+        out[task] = {
+            "target_token_id": tr.target_token_id,
+            "valid_slots_per_batch": [int(d["attention_mask"].sum())
+                                      for d in delivered],
+            "supervised_tokens_per_batch": [
+                int((d["labels"] != -100).sum()) for d in delivered],
+            "target_slots_per_batch": [
+                int((d["labels"] == tr.target_token_id).sum())
+                for d in delivered],
+            "wait_ms": run["wait_ms"], "ms_per_update": run["ms_per_update"],
+            "losses": run["losses"], "launches": launches,
+            "delivered_elements_differing": diff}
+        check(per_update == want, f"data {task}: launches per update "
+              f"{per_update}, expected {want}")
+        check(not any(diff.values()),
+              f"data {task}: delivered batches differ {diff}")
+        check(task == "instruction" or all(
+            n > 0 for n in out[task]["target_slots_per_batch"]),
+            f"data {task}: a batch without <target> slots")
+        del tr, loader, stream
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_data() -> dict:
+    """The data pipeline on the card: files written from the seed, read by
+    the training CLIs' own loaders (stage 1 at full size, stage 2 at full
+    width with a 2-layer trunk for each task type). Returns the clustering
+    and flash launches of its runs."""
+    t0 = time.perf_counter()
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    files = write_data_files(DATA_DIR)
+    write_s = time.perf_counter() - t0
+    stage1 = data_stage1(files)
+    stage2 = data_stage2(files)
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    emit({"phase": "data", "write_files_s": write_s,
+          "image_decode": "PNG (PIL)", "stage1": stage1, "stage2": stage2,
+          "phase_seconds": time.perf_counter() - t0})
+    return {"dpc_density_parent": {
+        "stage1": stage1["cluster_launches"],
+        **{t: r["launches"]["dpc_density_parent"]
+           for t, r in stage2.items()}},
+        **{k: {t: r["launches"][k] for t, r in stage2.items()}
+           for k in ("flash_fwd", "flash_dq", "flash_dkv")}}
+
+
+# ----------------------------------------------------------------------------
 # bf16 parameter storage, checkpoints, the model builder and the eval CLIs
 
 CHIP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -3774,6 +4172,10 @@ def main() -> int:
     entry["train_setok_launches_per_update"] = \
         entry["train_setok_launches"] / SETOK_TRAIN_UPDATES
     phase_train_setok_parity()
+    data = phase_data()
+    entry["data_launches"] = data["dpc_density_parent"]
+    for name, e in flash_entries.items():
+        e["data_launches"] = data[name]
     evals = phase_checkpoint()
     entry["checkpoint_eval_launches"] = {
         p: c["launches"]["dpc_density_parent"] for p, c in evals.items()}

@@ -5,6 +5,8 @@
     python -m setok_tpu_torch.scripts.train_setok --cpu --tiny \
         --synthetic 16 --synthetic-structured --steps 3 --batch-size 2 \
         --image-size 32
+    python -m setok_tpu_torch.scripts.train_setok --data-path cc3m.json \
+        --image-folder images --steps 20 --disc-start 0
 
 Trains `Stage1Trainer` (train/stage1.py) with random weights from
 `--seed`: `--tiny` runs the test configuration, otherwise ViT-B/16
@@ -15,7 +17,17 @@ The defaults are `scripts/train_setok.sh`'s: batch 24, lr 1e-3,
 100, `--disc-start` 5000, bf16 compute over float32 parameters. Prints one
 JSON line of metrics per step.
 
-Data: `--synthetic N` as the JAX CLI draws it, N structured images
+Data: `--data-path` (a cc3m-style JSON of {image, caption} records, or a
+directory of them; image paths under `--image-folder`), as the JAX CLI
+reads it: `TextImagePairDataset` (`--task-type` caption or generation,
+the captions tokenized by `--tokenizer`, a local HF tokenizer directory,
+or the word-hash fallback, also for the contrastive tower, which then
+encodes `input_ids_for_contrastive`), `Collator(max_len=77)`, a
+`BatchLoader` over `--num-workers` threads (a new permutation every epoch,
+seed + epoch) and a `DeviceLoader` that copies each batch to the card
+ahead of the step. Images are resized by the C++ resize + normalize of
+`data/native.py` unless `--no-native-preprocess` (PIL, bicubic). Or
+`--synthetic N` as the JAX CLI draws it, N structured images
 (`--synthetic-structured`, utils/synthetic.py) or uniform noise, each
 image with a frozen caption embedding (one table row per image, drawn from
 seed + 1), so that the contrastive task is learnable.
@@ -23,16 +35,18 @@ seed + 1), so that the contrastive task is learnable.
 Checkpoints: with `--output-dir`, `<dir>/checkpoints/<step>/` through
 `utils/checkpoint.CheckpointRunner` (background writes after a copy to
 the host, a SIGTERM hook) every `--checkpoint-every` micro-batches and at
-the last; a run finds its newest step there and resumes from it (the
-trainer's parameters, Adam moments, counts, accumulated gradients and the
-dropout generator; the synthetic stream skips the batches already
-taken), unless `--no-resume`. Without `--output-dir` nothing is written
-(the JAX CLI defaults to a directory under /tmp).
+the last, and each step's metrics as one JSON line of
+`<dir>/metrics.jsonl` (`utils/logging.MetricsLogger`); a run finds its
+newest step there and resumes from it (the trainer's parameters, Adam
+moments, counts, accumulated gradients and the dropout generator; the
+batch stream skips the batches already taken), unless `--no-resume`.
+Without `--output-dir` nothing is written (the JAX CLI defaults to a
+directory under /tmp).
 
 The flags are the JAX CLI's (`scripts/train_setok.py`). Those that need
 modules the port lacks raise `NotImplementedError` naming their ROADMAP.md
-entry: real data, LPIPS weights and the compilation cache; the trainer
-refuses 8-bit moments and optimizer offload.
+entry: LPIPS weights and the compilation cache; the trainer refuses 8-bit
+moments and optimizer offload.
 """
 
 from __future__ import annotations
@@ -47,29 +61,38 @@ import numpy as np
 import torch
 
 from setok_tpu_torch import config as cfgs
+from setok_tpu_torch.data.collator import Collator
+from setok_tpu_torch.data.datasets import TextImagePairDataset, load_cc3m
+from setok_tpu_torch.data.image_processing import (GeneratorImageProcessor,
+                                                   ImageProcessor)
+from setok_tpu_torch.data.loader import BatchLoader, DeviceLoader
+from setok_tpu_torch.data.tokenizer import load_text_tokenizer
 from setok_tpu_torch.train.stage1 import Stage1Trainer
 from setok_tpu_torch.utils.checkpoint import CheckpointRunner
+from setok_tpu_torch.utils.logging import MetricsLogger
 from setok_tpu_torch.utils.synthetic import structured_images
 
-DATA = "real data: ROADMAP.md, Queue A item 4 (the data pipeline)"
 # the JAX CLI's flags that this port does not run
 REFUSED = {
-    "data_path": DATA, "image_folder": DATA, "tokenizer": DATA,
-    "task_type": DATA, "num_workers": DATA, "no_native_preprocess": DATA,
     "lpips_weights": "LPIPS weights (scripts/port_weights.py): ROADMAP.md, "
                      "Queue A (remaining scripts and utils)",
     "compile_cache": "the compilation cache: ROADMAP.md, Queue A "
                      "(remaining scripts and utils)",
 }
-FLAGS = ("no_native_preprocess",)
+# the contrastive text tower's vocabulary (stage-1 text feeds only it)
+TEXT_VOCAB = 32000
+# the collator's static text length: CLIP's context
+TEXT_LEN = 77
 logger = logging.getLogger("train_setok")
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--data-path", default=None,
+                   help="cc3m-style json (or a directory of jsons)")
+    p.add_argument("--image-folder", default="")
     p.add_argument("--synthetic", type=int, default=0,
-                   help="train on N synthetic samples (the only data the "
-                        "port reads)")
+                   help="train on N synthetic samples instead of a dataset")
     p.add_argument("--synthetic-structured", action="store_true",
                    help="synthetic = coloured shapes over gradients "
                         "(utils/synthetic.py) instead of uniform noise")
@@ -97,6 +120,14 @@ def parse_args(argv=None):
                    help="8 is not ported (the trainer refuses it)")
     p.add_argument("--offload-optimizer", action="store_true",
                    help="not ported (the trainer refuses it)")
+    p.add_argument("--task-type", default="caption",
+                   choices=["caption", "generation"])
+    p.add_argument("--tokenizer", default=None,
+                   help="local HF tokenizer directory (word-hash fallback)")
+    p.add_argument("--num-workers", type=int, default=8,
+                   help="batch-assembly worker threads (real data)")
+    p.add_argument("--no-native-preprocess", action="store_true",
+                   help="PIL instead of the C++ resize + normalize")
     p.add_argument("--tiny", action="store_true",
                    help="the test configuration")
     p.add_argument("--seed", type=int, default=0)
@@ -109,12 +140,8 @@ def parse_args(argv=None):
                    help="resume from the newest checkpoint (the default)")
     p.add_argument("--no-resume", dest="resume", action="store_false")
     for name in REFUSED:
-        if name in FLAGS:
-            p.add_argument("--" + name.replace("_", "-"),
-                           action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument("--" + name.replace("_", "-"), default=None,
-                           help=argparse.SUPPRESS)
+        p.add_argument("--" + name.replace("_", "-"), default=None,
+                       help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -123,8 +150,8 @@ def check_ported(args) -> None:
         if getattr(args, name) not in (None, False):
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported: {why}")
-    if not args.synthetic:
-        raise NotImplementedError(f"only --synthetic data is ported: {DATA}")
+    if bool(args.synthetic) == bool(args.data_path):
+        raise SystemExit("give one of --synthetic N and --data-path")
 
 
 def configs(args):
@@ -191,9 +218,55 @@ def synthetic_batches(args, text_dim: int):
         yield {"comp_image": img, "gen_image": img, "text_emb": te}
 
 
+def dataset(args) -> TextImagePairDataset:
+    """The JAX CLI's dataset of `--data-path`."""
+    native = not args.no_native_preprocess
+    return TextImagePairDataset(
+        load_cc3m(args.data_path, args.image_folder),
+        load_text_tokenizer(args.tokenizer, vocab_size=TEXT_VOCAB),
+        contrastive_tokenizer=load_text_tokenizer(args.tokenizer,
+                                                  vocab_size=TEXT_VOCAB),
+        task_type=args.task_type,
+        image_processor=ImageProcessor(size=args.image_size,
+                                       use_native=native),
+        gen_processor=GeneratorImageProcessor(size=args.image_size,
+                                              use_native=native))
+
+
+def epochs(loader: BatchLoader, seed: int):
+    """`loader`'s array batches without end, epoch e drawn from seed + e.
+    Passthrough keys such as 'caption' stay behind."""
+    epoch = 0
+    while True:
+        loader.seed = seed + epoch
+        n = 0
+        for b in loader:
+            n += 1
+            yield {k: v for k, v in b.items() if isinstance(v, np.ndarray)}
+        if not n:
+            raise ValueError(f"{len(loader.dataset)} records make no batch "
+                             f"of {loader.batch_size}")
+        epoch += 1
+
+
+def data_loader(args, ds, collate, device) -> DeviceLoader:
+    """`ds`'s collated batches over `--num-workers` threads, epoch after
+    epoch, their arrays copied to `device` ahead of the step."""
+    loader = BatchLoader(ds, args.batch_size, collate,
+                         num_workers=args.num_workers, seed=args.seed)
+    return DeviceLoader(epochs(loader, args.seed), device, prefetch=2)
+
+
+def on_device(batch: dict, device) -> dict:
+    """A batch's arrays as tensors on `device` (tensors pass through)."""
+    return {k: (torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
+                else v) for k, v in batch.items()}
+
+
 def build(args):
     """The trainer of the parsed flags (random weights from --seed, its
-    optimizers ready) and its synthetic batch stream."""
+    optimizers ready) and its batch stream: the `DeviceLoader` of
+    `--data-path`, or the synthetic numpy batches."""
     check_ported(args)
     tok, det = configs(args)
     train_cfg = cfgs.TrainConfig(
@@ -207,21 +280,29 @@ def build(args):
             text_embed_dim=tok.token_feat_dim),
         train_cfg=train_cfg, use_lpips=args.lpips,
         offload_optimizer=args.offload_optimizer, optim_bits=args.optim_bits,
+        use_text_encoder=args.data_path is not None,
         device="cpu" if args.cpu else None)
     trainer.init_weights_(args.seed)
     trainer.init_state()
+    if args.data_path:
+        return trainer, data_loader(
+            args, dataset(args), Collator(max_len=TEXT_LEN, k_max=tok.k_max),
+            trainer.device)
     return trainer, synthetic_batches(args, tok.token_feat_dim)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     trainer, batches = build(args)
+    batches = iter(batches)
     dev = trainer.device
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    runner, start = None, 0
+    runner, metrics_log, start = None, None, 0
     if args.output_dir:
         runner = CheckpointRunner(os.path.join(args.output_dir,
                                                "checkpoints"))
+        metrics_log = MetricsLogger(
+            os.path.join(args.output_dir, "metrics.jsonl"), print_every=0)
         if args.resume and runner.latest_step() is not None:
             trainer.load_state_dict(runner.restore(map_location=dev),
                                     {"dropout": gen})
@@ -230,8 +311,7 @@ def main(argv=None) -> None:
                 next(batches)
             logger.warning("resumed from step %d", start)
     for step in range(start, args.steps):
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in next(batches).items()}
+        batch = on_device(next(batches), dev)
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch, gen)
         metrics = {k: float(v) for k, v in metrics.items()}
@@ -240,6 +320,7 @@ def main(argv=None) -> None:
               flush=True)
         if runner is None:
             continue
+        metrics_log.log(step, metrics)
         if (step + 1) % args.checkpoint_every == 0 or step == args.steps - 1:
             runner.save(step + 1, trainer.state_dict({"dropout": gen}))
         if runner.preempted(step):
@@ -249,6 +330,8 @@ def main(argv=None) -> None:
             break
     if runner is not None:
         runner.close()
+        metrics_log.close()
+    batches.close()
 
 
 if __name__ == "__main__":

@@ -5,17 +5,38 @@
         --learning-rate 2e-4 --use-flash --batch-size 4 --steps 6 \
         --grad-accum-steps 2
     python -m setok_tpu_torch.scripts.train_setokim --cpu --tiny --synthetic
+    python -m setok_tpu_torch.scripts.train_setokim --task-type instruction \
+        --dataset-name llava --data-path llava.json --image-folder images \
+        --lora-enable --lora-r 128 --use-flash --batch-size 4
 
-Trains `Stage2Trainer` (train/stage2.py) on synthetic batches with random
-weights from `--seed`: `--tiny` runs the test configuration, otherwise the
+Trains `Stage2Trainer` (train/stage2.py) with random weights from
+`--seed`: `--tiny` runs the test configuration, otherwise the
 full-width `base_setokim()` (Vicuna-7B trunk, ViT-B/16 SeTok). `--steps`
 counts micro-batches, as the JAX CLI's does; every `--grad-accum-steps`-th
 makes an optimizer update. Prints one JSON line of losses per step.
 
-A synthetic batch fills `--model-max-length` slots per row: BOS, one
-image's k_max slots, a text prompt, target_num `<target>` slots and a text
-answer, then pads; each row's valid length is drawn between half the
-length and the whole. The answer and the `<target>` slots carry labels.
+Data, as the JAX CLI reads it, tokenized by `--tokenizer` (a local HF
+tokenizer directory, or the word-hash fallback over the vocabulary less 8)
+with `<target>` added as a special token, whose id the trainer gathers on:
+  --task-type pair         a cc3m-style json (`--data-path`), each record a
+                           generation conversation (`TextImagePairDataset`);
+  --task-type edit         a json of {source_image, target_image,
+                           instruction} records (`EditingDataset`);
+  --task-type instruction  LLaVA-form jsons, one per `--dataset-name` and
+                           `--data-path` (and `--image-folder`), mixed by
+                           `--data-multiple` (`InstructionTuningDataset`).
+`--image-folder` prefixes the image paths of every task (the JAX CLI
+passes it only to the instruction task). `Collator` lays each row out
+in `--model-max-length` slots, a `BatchLoader` assembles batches on
+`--num-workers` threads (a new permutation every epoch, seed + epoch) and
+a `DeviceLoader` copies them to the card ahead of the step; images are
+resized by the C++ resize + normalize of `data/native.py` unless
+`--no-native-preprocess` (PIL, bicubic).
+
+Or `--synthetic`: a synthetic batch fills `--model-max-length` slots per
+row: BOS, one image's k_max slots, a text prompt, target_num `<target>`
+slots and a text answer, then pads; each row's valid length is drawn
+between half the length and the whole. The answer and the `<target>` slots carry labels.
 The JAX CLI's own synthetic batch is cut to 48 slots and runs only with
 `--tiny` (ROADMAP.md, Queue C).
 
@@ -27,13 +48,15 @@ Checkpoints: with `--output-dir`, `<dir>/checkpoints/<step>/` (the
 'params', 'lora' and 'train' parts, `utils/checkpoint.CheckpointRunner`)
 every `--checkpoint-every` micro-batches and at the last, the directory
 `models/builder.load_pretrained_model` reads; a run resumes from the
-newest step there (the synthetic stream skips the batches already
-taken) unless `--no-resume`. Without `--output-dir` nothing is written
-(the JAX CLI defaults to a directory under /tmp).
+newest step there (the batch stream skips the batches already taken)
+unless `--no-resume`; each step's metrics go to one JSON line of
+`<dir>/metrics.jsonl` (`utils/logging.MetricsLogger`). Without
+`--output-dir` nothing is written (the JAX CLI defaults to a directory
+under /tmp).
 
-The flags are the JAX CLI's (`scripts/train_setokim.py`); its real-data,
-parallel, QLoRA and 8-bit-optimizer flags are refused with a message
-naming their ROADMAP.md entry.
+The flags are the JAX CLI's (`scripts/train_setokim.py`); its parallel,
+QLoRA and 8-bit-optimizer flags are refused with a message naming their
+ROADMAP.md entry.
 """
 
 from __future__ import annotations
@@ -48,22 +71,29 @@ import numpy as np
 import torch
 
 from setok_tpu_torch import config as cfgs
-from setok_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from setok_tpu_torch.constants import (DEFAULT_TARGET_TOKEN, IGNORE_INDEX,
+                                       IMAGE_TOKEN_INDEX)
+from setok_tpu_torch.data.collator import Collator
+from setok_tpu_torch.data.datasets import (EditingDataset,
+                                           InstructionTuningDataset,
+                                           TextImagePairDataset, load_cc3m)
+from setok_tpu_torch.data.image_processing import (GeneratorImageProcessor,
+                                                   ImageProcessor)
+from setok_tpu_torch.data.tokenizer import load_text_tokenizer
+from setok_tpu_torch.scripts.train_setok import data_loader, on_device
 from setok_tpu_torch.train.stage2 import Stage2Trainer
 from setok_tpu_torch.utils.checkpoint import CheckpointRunner
 from setok_tpu_torch.utils.init import init_setokim_random_
+from setok_tpu_torch.utils.logging import MetricsLogger
 from setok_tpu_torch.utils.porting import load_flat_into
 
 TARGET_TOKEN_ID = 3
-DATA = "real data: ROADMAP.md, Queue A item 4 (the data pipeline)"
 PRETRAIN = ("vision_tokenizer", "vision_detokenizer", "mm_in_mlp_adapter",
             "mm_out_mlp_adapter")
 logger = logging.getLogger("train_setokim")
 
 # the JAX CLI's flags that this port does not run
 REFUSED = {
-    "data_path": DATA, "dataset_name": DATA, "image_folder": DATA,
-    "tokenizer": DATA,
     "tensor_parallel": "multi-card training: ROADMAP.md, Queue A (parallel)",
     "sequence_parallel": "sequence parallelism: ROADMAP.md, Queue A "
                          "(parallel)",
@@ -99,10 +129,29 @@ def synthetic_batch(cfg, batch: int, length: int, rs: np.random.RandomState,
             "gen_image": img}
 
 
+def synthetic_batches(cfg, args):
+    """`synthetic_batch` after `synthetic_batch`, drawn from --seed."""
+    rs = np.random.RandomState(args.seed)
+    while True:
+        yield synthetic_batch(cfg, args.batch_size, args.model_max_length, rs)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--data-path", nargs="*", default=None)
+    p.add_argument("--dataset-name", nargs="*", default=None)
+    p.add_argument("--image-folder", nargs="*", default=None)
+    p.add_argument("--data-multiple", nargs="*", type=float, default=None)
+    p.add_argument("--task-type", default="instruction",
+                   choices=["pair", "instruction", "edit"])
+    p.add_argument("--tokenizer", default=None,
+                   help="local HF tokenizer directory (word-hash fallback)")
+    p.add_argument("--num-workers", type=int, default=8,
+                   help="batch-assembly worker threads (real data)")
+    p.add_argument("--no-native-preprocess", action="store_true",
+                   help="PIL instead of the C++ resize + normalize")
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic batches (the only data the port reads)")
+                   help="synthetic batches instead of a dataset")
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--learning-rate", type=float, default=1e-3)
@@ -146,21 +195,68 @@ def parse_args(argv=None):
     for name, why in REFUSED.items():
         if getattr(args, name) is not None:
             p.error(f"--{name.replace('_', '-')} is not ported: {why}")
-    if not args.synthetic:
-        p.error(f"only --synthetic data is ported: {DATA}")
+    if args.synthetic == bool(args.data_path):
+        p.error("give one of --synthetic and --data-path")
+    if (args.data_path and args.task_type == "instruction"
+            and len(args.dataset_name or ()) != len(args.data_path)):
+        p.error("--task-type instruction takes one --dataset-name per "
+                "--data-path")
     return args
 
 
-def main(argv=None) -> None:
-    args = parse_args(argv)
+def text_tokenizer(args, cfg):
+    """The text tokenizer over the vocabulary less 8, with `<target>`
+    registered as a special token, and that token's id."""
+    tok = load_text_tokenizer(args.tokenizer,
+                              vocab_size=cfg.llama.vocab_size - 8)
+    tok.add_tokens([DEFAULT_TARGET_TOKEN], special_tokens=True)
+    return tok, int(tok.convert_tokens_to_ids(DEFAULT_TARGET_TOKEN))
+
+
+def _in_folder(folder: str, path: str) -> str:
+    return os.path.join(folder, path) if folder else path
+
+
+def dataset(args, cfg, tokenizer):
+    """The dataset of `--task-type` over `--data-path`."""
+    size = cfg.tokenizer.vit.image_size
+    native = not args.no_native_preprocess
+    kw = dict(image_processor=ImageProcessor(size=size, use_native=native),
+              gen_processor=GeneratorImageProcessor(size=size,
+                                                    use_native=native),
+              target_num=cfg.target_num)
+    folder = args.image_folder[0] if args.image_folder else ""
+    if args.task_type == "pair":
+        return TextImagePairDataset(load_cc3m(args.data_path[0], folder),
+                                    tokenizer, task_type="generation", **kw)
+    if args.task_type == "edit":
+        with open(args.data_path[0]) as f:
+            records = [{**r, "source_image": _in_folder(folder,
+                                                        r["source_image"]),
+                        "target_image": _in_folder(folder, r["target_image"])}
+                       for r in json.load(f)]
+        return EditingDataset(records, tokenizer, **kw)
+    return InstructionTuningDataset(
+        args.dataset_name, args.data_path, tokenizer,
+        image_folders=args.image_folder, data_multiple=args.data_multiple,
+        **kw)
+
+
+def build(args):
+    """The trainer of the parsed flags (random weights from --seed, the
+    `--pretrain-*` files loaded, its optimizer ready) and its batch stream:
+    the `DeviceLoader` of `--data-path`, or the synthetic numpy batches."""
     cfg = cfgs.tiny_setokim() if args.tiny else cfgs.base_setokim()
+    target_id, tokenizer = TARGET_TOKEN_ID, None
+    if args.data_path:
+        tokenizer, target_id = text_tokenizer(args, cfg)
     train_cfg = cfgs.TrainConfig(
         learning_rate=args.learning_rate, max_grad_norm=args.max_grad_norm,
         warmup_steps=args.warmup_steps, total_steps=args.steps,
         batch_size=args.batch_size, seed=args.seed,
         grad_accum_steps=args.grad_accum_steps)
     trainer = Stage2Trainer(
-        cfg, train_cfg=train_cfg, target_token_id=TARGET_TOKEN_ID,
+        cfg, train_cfg=train_cfg, target_token_id=target_id,
         freeze_backbone=args.freeze_backbone,
         tune_mm_in_mlp_adapter=args.tune_mm_in_mlp_adapter,
         tune_mm_out_mlp_adapter=args.tune_mm_out_mlp_adapter,
@@ -182,24 +278,35 @@ def main(argv=None) -> None:
             logger.warning("loaded %s (%d arrays, %d unmatched)", path,
                            len(flat), len(unmatched))
     trainer.init_state(args.seed + 1)
+    if not args.data_path:
+        return trainer, synthetic_batches(cfg, args)
+    return trainer, data_loader(
+        args, dataset(args, cfg, tokenizer),
+        Collator(max_len=args.model_max_length, k_max=cfg.tokenizer.k_max),
+        trainer.model.device)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    trainer, batches = build(args)
+    batches = iter(batches)
     dev = trainer.model.device
-    rs = np.random.RandomState(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
-    runner, start = None, 0
+    runner, metrics_log, start = None, None, 0
     if args.output_dir:
         runner = CheckpointRunner(os.path.join(args.output_dir,
                                                "checkpoints"))
+        metrics_log = MetricsLogger(
+            os.path.join(args.output_dir, "metrics.jsonl"), print_every=0)
         if args.resume and runner.latest_step() is not None:
             trainer.load_state_dict(runner.restore(map_location=dev),
                                     {"draws": gen})
             start = trainer.step
             for _ in range(start):          # the batches already taken
-                synthetic_batch(cfg, args.batch_size, args.model_max_length,
-                                rs)
+                next(batches)
             logger.warning("resumed from step %d", start)
     for step in range(start, args.steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
-            cfg, args.batch_size, args.model_max_length, rs).items()}
+        batch = on_device(next(batches), dev)
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch, gen)
         metrics = {k: float(v) for k, v in metrics.items()}
@@ -208,6 +315,7 @@ def main(argv=None) -> None:
               flush=True)
         if runner is None:
             continue
+        metrics_log.log(step, metrics)
         if (step + 1) % args.checkpoint_every == 0 or step == args.steps - 1:
             runner.save(step + 1, trainer.state_dict({"draws": gen}))
         if runner.preempted(step):
@@ -217,6 +325,8 @@ def main(argv=None) -> None:
             break
     if runner is not None:
         runner.close()
+        metrics_log.close()
+    batches.close()
 
 
 if __name__ == "__main__":

@@ -762,3 +762,29 @@ def test_flash_trunk_trains_through_the_kernels(card):
         want = grads()
     assert fa.LAUNCHES["flash_fwd"] == 4
     assert chip_smoke.max_rel(got, want) <= 1e-4
+
+
+def test_device_loader_delivers_exactly_under_a_busy_consumer(card):
+    """The data pipeline's copy stream: while the consumer's stream is
+    kept busy, every batch the DeviceLoader hands out, read on that stream
+    after the busy work and then dropped, equals the host's arrays (a
+    missing wait or record_stream would let a copy, or a later batch's
+    allocation, race the read)."""
+    from setok_tpu_torch.data.loader import DeviceLoader
+
+    rs = np.random.RandomState(0)
+    host = [{"x": rs.rand(1024, 1024).astype(np.float32),
+             "ids": rs.randint(0, 32000, (64, 2048)),
+             "mask": rs.rand(64, 2048) > 0.5} for _ in range(24)]
+    busy = torch.randn(2048, 2048, device=card)
+    outs = []
+    for batch in DeviceLoader(iter(host), card, prefetch=2):
+        for _ in range(8):
+            busy = torch.tanh(busy @ busy)
+        outs.append({k: v.clone() for k, v in batch.items()})
+        del batch
+    torch.cuda.synchronize()
+    assert len(outs) == len(host)
+    for got, want in zip(outs, host):
+        for k, v in want.items():
+            assert torch.equal(got[k].cpu(), torch.from_numpy(v)), k

@@ -47,6 +47,11 @@ def test_port_and_chip_smoke_import_no_jax():
             "setok_tpu_torch.data.image_processing",
             "setok_tpu_torch.data.native",
             "setok_tpu_torch.data.vqa_eval"} <= set(modules)
+    # the data pipeline
+    assert {f"setok_tpu_torch.data.{m}" for m in (
+        "conversation", "mm_tokens", "preprocess", "collator", "datasets",
+        "sampler", "loader", "anyres")} | {
+        "setok_tpu_torch.utils.logging"} <= set(modules)
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, "setok_tpu_torch", *modules,
          "chip_smoke", "chip_kernel_times"],

@@ -31,7 +31,7 @@ from setok_tpu import config as jcfg
 from setok_tpu.models.setokim import Setokim as JSetokim
 from setok_tpu.serve import ServeEngine as JServeEngine
 from setok_tpu_torch.models.generate import find_image_spans, generate_image
-from setok_tpu_torch.scripts import demo, serve as cli
+from setok_tpu_torch.scripts import demo, eval_recon, serve as cli
 from setok_tpu_torch.scripts import train_setokim as train_cli
 from setok_tpu_torch.serve import ServeEngine
 from setok_tpu_torch.serve.engine import sample_rows
@@ -270,7 +270,7 @@ def test_serve_cli_takes_decode_block(capsys):
 
 
 @pytest.mark.parametrize("script,flag", [
-    (cli, ["--tensor-parallel", "2"]), (train_cli, ["--data-path", "x"]),
+    (cli, ["--tensor-parallel", "2"]), (eval_recon, ["--compile-cache", "x"]),
     (train_cli, ["--tensor-parallel", "2"]),
     (train_cli, ["--sequence-parallel", "2"])])
 def test_flags_not_ported_refuse(script, flag, capsys):

@@ -448,11 +448,14 @@ def test_cli_clamps_like_the_jax_cli():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--data-path", "x.json"], ["--image-folder", "imgs"],
+    ["--data-path", "x.json"], ["--compile-cache", "cache"],
     ["--lpips-weights", "vgg.npz"], ["--optim-bits", "8"],
     ["--offload-optimizer"]])
 def test_cli_refuses_unported_flags(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md|not ported"):
+    """Flags the port does not run, and --data-path beside --synthetic
+    (one data source)."""
+    with pytest.raises((NotImplementedError, SystemExit),
+                       match="ROADMAP.md|not ported|one of"):
         train_setok.main(["--cpu", "--tiny", "--synthetic", "4", *argv])
 
 
