@@ -146,6 +146,28 @@ the last line:
                 with its score sums in another order, each direction's
                 kernels alone, and a planted fault (delta dropped) that the
                 gradient bar must catch;
+  train_options (after train_parity) the stage-2 memory options at
+                base_setokim()'s full width and 32 layers: QLoRA (train's
+                finetune.sh run with the targeted trunk linears int8: 3
+                updates of 2 x 4 x 2048; ms per update, valid tokens/s,
+                the build's and the training's peak memory, the int8 base
+                bytes and checksum, LoRA B unchanged by update 1 and moved
+                by update 3, rows 10 and 1 per micro-batch as train's);
+                the full fine-tune (bf16 parameters, 8-bit moments, the
+                tower's trainable part, flash, remat; 2 updates of one 4 x
+                2048: peak memory, ms per update, the optimizer step's ms,
+                moment_bytes against 8 a parameter, the share of each
+                sampled trunk linear's elements moved by update 1, the
+                embedding unchanged by update 1 (32-bit AdamW at lr 0) and
+                moved by update 2, the 8-bit groups unchanged by update 2
+                (lr 0 after the increment), the backbone and the generator
+                bit for bit unchanged); each configuration's parity cut (2
+                layers, float32, 1 x 512, card vs CPU: losses, every
+                trainable gradient; for the full fine-tune two Adam8bit
+                steps on the same gradients, card vs CPU, the payload
+                elements, scales and parameters that differ); stage-1
+                through train_setok.build --optim-bits 8 (B=24, 3
+                updates: ms, peak, the generator moved by update 1);
   train_setok   stage-1 SeTok training at full width through the stage-1
                 CLI's own `build` (scripts/train_setok.py: base_tokenizer /
                 base_detokenizer, ViT-B/16 @256, batch 24, lr 1e-3, clip 1.0,
@@ -268,7 +290,9 @@ from setok_tpu_torch.models.builder import load_pretrained_model
 from setok_tpu_torch.models.setok import SeTok, expected_calls
 from setok_tpu_torch.models.generate import (find_image_spans,
                                              generate_image, generate_text)
-from setok_tpu_torch.models.setokim import ImageDraws, Setokim, splice_layout
+from setok_tpu_torch.models.setokim import (DiffusionDraws, ForwardDraws,
+                                            ImageDraws, Setokim,
+                                            splice_layout)
 from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
 from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
@@ -3110,6 +3134,479 @@ def phase_train_parity(cfg) -> None:
 
 
 # ----------------------------------------------------------------------------
+# stage-2 memory options (QLoRA; bf16 parameters with 8-bit moments and the
+# trainable tower) and stage-1's 8-bit moments
+
+FT_UPDATES = 2                       # the full fine-tune's updates
+OPTIONS_PARITY = (1, 512)            # the parity cut's micro-batch
+# trunk linears whose elements are compared one by one (the rest by sums)
+FT_SAMPLED_LAYERS = (0, 15, 31)
+
+
+def options_trainer(cfg, option: str, device=None,
+                    compute_dtype: str = "bfloat16") -> Stage2Trainer:
+    """'qlora': `build_trainer`'s finetune.sh configuration with the trunk's
+    targeted linears int8 (quant_base). 'full_ft': every trunk parameter
+    trained, bf16 parameters, 8-bit moments, the tower's trainable part
+    unfrozen, flash attention, remat, lr 2e-4 (mm_in projector 2e-5),
+    warm-up 1 of 2 updates, one micro-batch an update. Weights from the
+    seed are the caller's (`init_setokim_random_`), then `init_state`."""
+    if option == "qlora":
+        tc = cfgs.TrainConfig(learning_rate=2e-4, max_grad_norm=1.0,
+                              warmup_steps=1, total_steps=TRAIN_UPDATES,
+                              batch_size=TRAIN_BATCH,
+                              grad_accum_steps=TRAIN_ACCUM,
+                              compute_dtype=compute_dtype)
+        return Stage2Trainer(cfg, train_cfg=tc, target_token_id=3,
+                             lora_enable=True, lora_r=128, lora_alpha=256.0,
+                             mm_in_projector_lr=2e-5, use_flash=True,
+                             quant_base=True, device=device)
+    tc = cfgs.TrainConfig(learning_rate=2e-4, max_grad_norm=1.0,
+                          warmup_steps=1, total_steps=FT_UPDATES,
+                          batch_size=TRAIN_BATCH, grad_accum_steps=1,
+                          param_dtype="bfloat16",
+                          compute_dtype=compute_dtype)
+    return Stage2Trainer(cfg, train_cfg=tc, target_token_id=3, optim_bits=8,
+                         unfreeze_mm_vision_tower=True,
+                         mm_in_projector_lr=2e-5, use_flash=True,
+                         device=device)
+
+
+def path_launches(n_micro: int, layers: int) -> tuple:
+    """The launches of rows 10 and 1 in the window, per micro-batch, and
+    what one bf16 micro-batch takes (`train`'s)."""
+    got = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+    want = {"flash_fwd": 2 * layers * fa.FWD_LAUNCHES_BF16,
+            "flash_dq": layers, "flash_dkv": layers,
+            "dpc_density_parent": 2 * cluster_dpc.LAUNCHES_PER_CALL}
+    return got, {k: v / n_micro for k, v in got.items()}, want
+
+
+def valid_tokens(tr: Stage2Trainer, batches) -> list:
+    """Text tokens and the image slots the tower fills, per micro-batch."""
+    with torch.no_grad():
+        return [int((bt["input_ids"] > 0).sum()) + int(tr.model.tokenize(
+            bt["comp_image"]).token_valid.sum()) for bt in batches]
+
+
+def run_qlora(cfg) -> dict:
+    """Run A: QLoRA in the finetune.sh configuration at full width and
+    depth, 3 updates of 2 micro-batches of 4 x 2048."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = options_trainer(cfg, "qlora")
+    init_setokim_random_(tr.model, SEED)
+    tr.init_state(SEED + 1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_micro = TRAIN_ACCUM * TRAIN_UPDATES
+    batches = train_batches(cfg, n_micro, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    base = [m.weight for m in tr.model.modules() if getattr(
+        m, "weight", None) is not None and m.weight.dtype == torch.int8]
+    base_sum = float(sum(w.double().sum() for w in base))
+    b_before = {n: b.detach().clone() for n, (_, b) in tr.lora.items()}
+    b_after_1 = None
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i in range(n_micro):
+        t = time.perf_counter()
+        metrics = tr.train_step(batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        if tr.updates == 1 and b_after_1 is None:
+            b_after_1 = all(torch.equal(b.detach(), b_before[n])
+                            for n, (_, b) in tr.lora.items())
+    torch.cuda.synchronize()
+    launches, per_micro, want = path_launches(n_micro,
+                                              cfg.llama.num_layers)
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    b_moved = sum(not torch.equal(b.detach(), b_before[n])
+                  for n, (_, b) in tr.lora.items())
+    base_after = float(sum(w.double().sum() for w in base))
+    tokens = valid_tokens(tr, batches)
+    per_update = [sum(times[i:i + TRAIN_ACCUM])
+                  for i in range(0, n_micro, TRAIN_ACCUM)]
+    steady = slice(TRAIN_ACCUM, n_micro)
+    res = {"phase": "train_options", "run": "qlora",
+           "config": "base_setokim, finetune.sh + quant_base",
+           "trunk_layers": cfg.llama.num_layers,
+           "int8_linears": len(base),
+           "int8_base_bytes": sum(w.numel() for w in base)
+           + sum(m.qscale.numel() * 4 for m in tr.model.modules()
+                 if hasattr(m, "qscale")),
+           "micro_batch": [TRAIN_BATCH, TRAIN_LEN],
+           "grad_accum_steps": TRAIN_ACCUM, "updates": tr.updates,
+           "build_s": build_s, "build_peak_memory_gb": build_peak,
+           "losses": losses, "ms_per_micro_batch": [1e3 * t for t in times],
+           "ms_per_update": [1e3 * t for t in per_update],
+           "valid_tokens_per_s_after_update_1": sum(tokens[steady])
+           / sum(times[steady]),
+           "train_peak_memory_gb": train_peak,
+           "launches": launches, "launches_per_micro_batch": per_micro,
+           "base_checksum_before_after": [base_sum, base_after],
+           "lora_b_unchanged_after_update_1": b_after_1,
+           "lora_b_moved_after_update_3": [b_moved, len(tr.lora)],
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    check(all(np.isfinite(v) for row in losses for v in row.values()),
+          "a QLoRA loss is not finite")
+    check(per_micro == want, f"QLoRA launches per micro-batch {per_micro}, "
+          f"expected {want}")
+    check(base_sum == base_after, "the int8 base moved")
+    check(bool(b_after_1), "QLoRA's first update (lr 0) moved a LoRA B")
+    check(b_moved == len(tr.lora), f"only {b_moved} of {len(tr.lora)} LoRA "
+          "B factors moved by the third update")
+    del tr, batches, base
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moved_share(t: torch.Tensor, before: torch.Tensor) -> float:
+    return float((t.detach() != before).float().mean())
+
+
+def run_full_finetune(cfg) -> dict:
+    """Run B: every trunk parameter trained, bf16 parameters, 8-bit
+    moments, the tower's trainable part unfrozen, full width and depth,
+    flash attention and remat, 2 updates of one 4 x 2048 micro-batch."""
+    import setok_tpu_torch.train.stage2 as stage2
+    from setok_tpu_torch.train.opt8 import moment_bytes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = options_trainer(cfg, "full_ft")
+    init_setokim_random_(tr.model, SEED)
+    tr.init_state(SEED + 1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m = tr.model
+    named = dict(m.named_parameters())
+    linears = {n: p for n, p in named.items() if n.startswith("llama.model.")
+               and n.endswith("_proj.weight")}
+    sampled = {n: p.detach().clone() for n, p in linears.items()
+               if int(n.split(".")[2].split("_")[1]) in FT_SAMPLED_LAYERS}
+    sums = {n: float(p.detach().double().sum()) for n, p in linears.items()}
+    embed = named["llama.embed_tokens.weight"]
+    embed0 = embed.detach().clone()
+    tower = m.vision_tower
+    frozen_ids = {id(p) for p in tower.frozen_parameters()}
+    tower_train = {n: p for n, p in tower.named_parameters()
+                   if id(p) not in frozen_ids}
+    tower0 = {n: p.detach().clone() for n, p in tower_train.items()}
+    fixed = list(tower.frozen_parameters()) + list(
+        m.vision_generator.parameters())
+    fixed0 = [p.detach().clone() for p in fixed]
+    batches = train_batches(cfg, FT_UPDATES, SEED + 3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    opt_ms, times, losses, after = [], [], [], {}
+    step = stage2.optimizer_step
+
+    def timed_step(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(*a, **k)
+        torch.cuda.synchronize()
+        opt_ms.append(1e3 * (time.perf_counter() - t))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with mock.patch.object(stage2, "optimizer_step", timed_step):
+        for i in range(FT_UPDATES):
+            t = time.perf_counter()
+            metrics = tr.train_step(batches[i], gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append({k: float(v) for k, v in metrics.items()})
+            if i == 0:
+                after["embed"] = torch.equal(embed.detach(), embed0)
+                after["shares"] = {n: moved_share(linears[n], b)
+                                   for n, b in sampled.items()}
+                after["sums_moved"] = sum(
+                    float(p.detach().double().sum()) != sums[n]
+                    for n, p in linears.items())
+                after["tower"] = sum(not torch.equal(p.detach(), tower0[n])
+                                     for n, p in tower_train.items())
+                after["sampled"] = {n: linears[n].detach().clone()
+                                    for n in sampled}
+    torch.cuda.synchronize()
+    launches, per_micro, want = path_launches(FT_UPDATES,
+                                              cfg.llama.num_layers)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    opt8 = tr.optimizers["adam8bit"]
+    n8 = sum(p.numel() for g in opt8.param_groups for p in g["params"])
+    still = all(torch.equal(linears[n].detach(), b)
+                for n, b in after["sampled"].items())
+    embed_moved_2 = not torch.equal(embed.detach(), embed0)
+    fixed_same = all(torch.equal(p.detach(), b)
+                     for p, b in zip(fixed, fixed0))
+    shares = after["shares"]
+    kinds = {}
+    for n, v in shares.items():
+        kinds.setdefault(n.split(".")[-2], []).append(v)
+    res = {"phase": "train_options", "run": "full_finetune",
+           "config": "base_setokim, bf16 parameters, optim_bits 8, "
+                     "unfreeze_mm_vision_tower, flash, remat",
+           "trunk_layers": cfg.llama.num_layers,
+           "micro_batch": [TRAIN_BATCH, TRAIN_LEN], "updates": tr.updates,
+           "trainable_params": sum(p.numel() for p in tr.trainable),
+           "build_s": build_s, "losses": losses,
+           "ms_per_update": [1e3 * t for t in times],
+           "optimizer_step_ms": opt_ms, "peak_memory_gb": peak,
+           "moment_bytes": moment_bytes(opt8), "adam8bit_params": n8,
+           "moment_bytes_per_param": moment_bytes(opt8) / n8,
+           "f32_adam_moment_bytes": 8 * n8,
+           "lr_8bit_per_update": [warmup_cosine(i + 1, 2e-4, tr.warmup,
+                                                FT_UPDATES)
+                                  for i in range(FT_UPDATES)],
+           "lr_embed32_per_update": [warmup_cosine(i, 2e-4, tr.warmup,
+                                                   FT_UPDATES)
+                                     for i in range(FT_UPDATES)],
+           "update1_moved_share_by_linear_kind": {
+               k: [min(v), statistics.median(v), max(v)]
+               for k, v in kinds.items()},
+           "update1_moved_share_sampled": shares,
+           "update1_linears_moved": [after["sums_moved"], len(linears)],
+           "update1_tower_params_moved": [after["tower"], len(tower_train)],
+           "embed_unchanged_after_update_1": after["embed"],
+           "embed_moved_in_update_2": embed_moved_2,
+           "sampled_linears_unchanged_in_update_2_lr0": still,
+           "frozen_backbone_and_generator_unchanged": fixed_same,
+           "launches": launches, "launches_per_micro_batch": per_micro,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    check(all(np.isfinite(v) for row in losses for v in row.values()),
+          "a full fine-tune loss is not finite")
+    check(peak < 80.0, f"full fine-tune peak {peak} GB")
+    check(per_micro == want, f"full fine-tune launches per micro-batch "
+          f"{per_micro}, expected {want}")
+    check(after["sums_moved"] == len(linears), f"update 1 moved "
+          f"{after['sums_moved']} of {len(linears)} trunk linears")
+    check(min(shares.values()) > 0, "a sampled trunk linear did not move")
+    check(after["embed"], "embed_tokens (32-bit AdamW, lr 0) moved in "
+          "update 1")
+    check(embed_moved_2, "embed_tokens did not move in update 2")
+    check(after["tower"] >= 0.8 * len(tower_train), f"only {after['tower']} "
+          f"of {len(tower_train)} tower parameters moved")
+    check(still, "an 8-bit group moved in update 2 (its lr is 0)")
+    check(fixed_same, "the frozen backbone or the vision generator moved")
+    del tr, batches, sampled, after, fixed0, tower0, embed0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parity_grads(tr: Stage2Trainer, batch, draws) -> tuple:
+    """One micro-batch's losses and the gradients of every trainable
+    parameter and adapter, by name."""
+    m = tr.model
+    out = m(batch["input_ids"], batch["comp_image"], batch["labels"],
+            batch["gen_image"], draws)
+    names = {id(p): n for n, p in m.named_parameters()}
+    for n, (a, b) in tr.lora.items():
+        names[id(a)], names[id(b)] = f"lora.{n}.a", f"lora.{n}.b"
+    grads = torch.autograd.grad(out.loss, tr.trainable, allow_unused=True)
+    return (float(out.lm_loss.detach()), float(out.diff_loss.detach()),
+            {names[id(p)]: g for p, g in zip(tr.trainable, grads)
+             if g is not None})
+
+
+def eight_bit_step_parity(tr: Stage2Trainer, grads: dict) -> dict:
+    """Two Adam8bit steps (the second on the gradients negated and halved)
+    over the trunk's first q projection, the in projector and the
+    diffusion head, from the same parameters and gradients on the card and
+    on the CPU: the payload elements, scales and parameters that differ."""
+    from setok_tpu_torch.train.opt8 import Adam8bit, module_perms
+    perms = module_perms(tr.model)
+    named = {n: p for n, p in tr.model.named_parameters()
+             if n in grads and (n.startswith(("mm_in_", "diffloss."))
+                                or ".layer_0.attn.q_proj" in n)}
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        ps = [p.detach().to(dev, copy=True) for p in named.values()]
+        opt = Adam8bit([{"params": ps, "flax_perms": [
+            perms[p] for p in named.values()]}], lr=2e-4)
+        for scale in (1.0, -0.5):
+            for t, n in zip(ps, named):
+                t.grad = (grads[n] * scale).to(dev)
+            opt.step()
+        sides[dev] = (ps, opt)
+    (pc, oc), (pp, op) = sides["cuda"], sides["cpu"]
+    out = {"params": sum(p.numel() for p in pp), "payload": 0, "scales": 0,
+           "param": 0}
+    for a, b in zip(pc, pp):
+        sa, sb = oc.state[a], op.state[b]
+        for k in ("m_q", "v_q"):
+            out["payload"] += int((sa[k].cpu() != sb[k]).sum())
+        for k in ("m_s", "v_s"):
+            out["scales"] += int((sa[k].cpu() != sb[k]).sum())
+        out["param"] += int((a.cpu() != b).sum())
+    return out
+
+
+@contextmanager
+def weights_unset():
+    """Build modules without PyTorch's default initialisation of their
+    linears and embeddings (~10 s for a 2-layer Setokim on the host), for
+    a caller that loads every weight right after, strictly."""
+    with mock.patch.object(torch.nn.Linear, "reset_parameters",
+                           lambda self: None), \
+            mock.patch.object(torch.nn.Embedding, "reset_parameters",
+                              lambda self: None):
+        yield
+
+
+def parity_weights(cfg) -> dict:
+    """The parity cut's seeded float32 weights (2 trunk layers), drawn
+    once on the host for both configurations."""
+    with weights_unset():
+        model = Setokim(parity_cfg(cfg), device="cpu")
+    return init_random_(model, SEED + 11).state_dict()
+
+
+def parity_cfg(cfg):
+    return cfgs.replace(cfg, llama=cfgs.replace(cfg.llama, num_layers=2))
+
+
+def run_options_parity(cfg, option: str, weights: dict) -> dict:
+    """The trunk cut to 2 layers, float32 compute, one micro-batch of
+    OPTIONS_PARITY on the card and on the CPU: the same weights, adapters
+    (B set small and nonzero), batch and diffusion draws (no dropout)."""
+    t0 = time.perf_counter()
+    small = parity_cfg(cfg)
+    with weights_unset():
+        cpu = options_trainer(small, option, "cpu", compute_dtype="float32")
+        card = options_trainer(small, option, compute_dtype="float32")
+    cpu.model.load_state_dict(weights)
+    card.model.load_state_dict(weights)
+    cpu.init_state(SEED + 12)
+    if cpu.lora:
+        gen = torch.Generator().manual_seed(SEED + 13)
+        with torch.no_grad():
+            for _, b in cpu.lora.values():
+                b.copy_(1e-3 * torch.randn(b.shape, generator=gen))
+    card.init_state(lora={n: tuple(torch.nn.Parameter(t.detach().cuda())
+                                   for t in ab)
+                          for n, ab in cpu.lora.items()} or None)
+    b, length = OPTIONS_PARITY
+    rs = np.random.RandomState(SEED + 14)
+    host = synthetic_batch(small, b, length, rs, min_len=length // 2)
+    draws = cpu.model.draw_forward(b, torch.Generator().manual_seed(1))
+    on = {k: torch.from_numpy(v) for k, v in host.items()}
+    want = parity_grads(cpu, on, ForwardDraws(None, draws.diffusion))
+    card_draws = ForwardDraws(None, DiffusionDraws(
+        *(t.cuda() for t in draws.diffusion)))
+    reset_counts()
+    got = parity_grads(card, {k: v.cuda() for k, v in on.items()},
+                       card_draws)
+    kernel = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+    rel = {n: max_rel(g.float().cpu(), want[2][n].float())
+           for n, g in got[2].items()
+           if float(want[2][n].abs().max()) > 0}
+    worst = max(rel, key=rel.get)
+    res = {"phase": "train_options", "run": f"parity_{option}",
+           "trunk_layers": 2, "micro_batch": list(OPTIONS_PARITY),
+           "compute_dtype": "float32", "lm_loss": [got[0], want[0]],
+           "diff_loss": [got[1], want[1]],
+           "lm_loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+           "diff_loss_rel": abs(got[1] - want[1]) / abs(want[1]),
+           "grads_compared": len(rel), "grad_max_rel": rel[worst],
+           "grad_worst": worst, "launches": kernel}
+    if option == "full_ft":
+        res["adam8bit_card_vs_cpu_differ"] = eight_bit_step_parity(
+            card, {n: g for n, g in got[2].items()})
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    check(res["lm_loss_rel"] <= TRAIN_PARITY_LOSS_TOL
+          and res["diff_loss_rel"] <= TRAIN_PARITY_LOSS_TOL,
+          f"{option} parity losses {res['lm_loss']}, {res['diff_loss']}")
+    check(res["grad_max_rel"] <= TRAIN_PARITY_GRAD_TOL,
+          f"{option} parity gradient {worst}: {rel[worst]}")
+    # (the diffusion head's zero-initialised layers leave its and the out
+    # projector's gradients 0)
+    core = [n for n in got[2]
+            if n.startswith(("lora.", "mm_in_projector.", "llama."))]
+    check(all(n in rel for n in core), f"{option} parity: a gradient of "
+          f"{[n for n in core if n not in rel][:4]} is 0")
+    check(kernel["flash_fwd"] > 0 and kernel["dpc_density_parent"] > 0,
+          f"{option} parity on the card launched {kernel}")
+    if option == "full_ft":
+        d = res["adam8bit_card_vs_cpu_differ"]
+        check(d["payload"] == 0 and d["scales"] == 0 and d["param"] == 0,
+              f"Adam8bit card vs CPU differ: {d}")
+    del cpu, card
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_setok_8bit() -> dict:
+    """Stage 1 through the CLI's `build` with --optim-bits 8: 3 updates at
+    B=24; the generator moves in update 1 (the schedule after the
+    increment)."""
+    from setok_tpu_torch.train.opt8 import Adam8bit, moment_bytes
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    args = setok_train_args("--optim-bits", "8")
+    tr, stream = train_setok.build(args)
+    batches = [on_card(next(stream)) for _ in range(SETOK_TRAIN_UPDATES)]
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    before = [p.detach().clone() for p in tr.gen_params]
+    times, losses = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(SETOK_TRAIN_UPDATES):
+        t = time.perf_counter()
+        metrics = tr.train_step(batches[i], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            moved_1 = moved(tr.gen_params, before)
+    launches = cluster_dpc.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {"phase": "train_options", "run": "train_setok_optim_bits_8",
+           "batch": args.batch_size, "updates": SETOK_TRAIN_UPDATES,
+           "losses": losses, "ms_per_update": [1e3 * t for t in times],
+           "ms_per_update_after_update_1": 1e3 * sum(times[1:])
+           / len(times[1:]), "peak_memory_gb": peak,
+           "moment_bytes": moment_bytes(tr.gen_opt),
+           "generator_params_moved_by_update_1": [moved_1,
+                                                  len(tr.gen_params)],
+           "cluster_launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    check(isinstance(tr.gen_opt, Adam8bit), "the generator's optimizer is "
+          "not Adam8bit")
+    check(all(np.isfinite(v) for row in losses for v in row.values()),
+          "a stage-1 8-bit loss is not finite")
+    check(moved_1 >= 0.9 * len(tr.gen_params), f"update 1 moved only "
+          f"{moved_1} of {len(tr.gen_params)} generator parameters")
+    check(launches == SETOK_TRAIN_UPDATES * cluster_dpc.LAUNCHES_PER_CALL,
+          f"stage-1 8-bit clustering launches {launches}")
+    del tr, batches, before
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_options(cfg) -> dict:
+    """QLoRA (A) and the bf16 + 8-bit full fine-tune (B) at full width and
+    depth, their parity cuts, then stage-1 with 8-bit moments. Returns the
+    launches of rows 10 and 1 in A and B, each reset just before its run."""
+    t0 = time.perf_counter()
+    out = {"qlora": run_qlora(cfg), "full_finetune": run_full_finetune(cfg)}
+    weights = parity_weights(cfg)
+    for option in ("qlora", "full_ft"):
+        run_options_parity(cfg, option, weights)
+    del weights
+    run_setok_8bit()
+    emit({"phase": "train_options", "run": "done",
+          "phase_seconds": time.perf_counter() - t0})
+    return out
+
+
+# ----------------------------------------------------------------------------
 # stage-1 SeTok training
 
 SETOK_TRAIN_UPDATES = 3
@@ -4168,6 +4665,12 @@ def main() -> int:
     for name, e in flash_entries.items():
         e["launches"] = launches[name]
     phase_train_parity(setokim)
+    options = phase_train_options(setokim)
+    for name, e in flash_entries.items():
+        e["train_options_launches"] = {run: c[name]
+                                       for run, c in options.items()}
+    entry["train_options_launches"] = {
+        run: c["dpc_density_parent"] for run, c in options.items()}
     entry["train_setok_launches"] = phase_train_setok()
     entry["train_setok_launches_per_update"] = \
         entry["train_setok_launches"] / SETOK_TRAIN_UPDATES

@@ -34,12 +34,13 @@ class SampleDraws(NamedTuple):
 
 class DiffLoss(nn.Module):
     def __init__(self, cfg: DiffLossConfig, *, dtype=torch.float32,
-                 device=None):
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.cfg = cfg
         self.net = SimpleMLPAdaLN(cfg.target_channels, cfg.width,
                                   cfg.target_channels * 2, cfg.z_channels,
-                                  cfg.depth, dtype=dtype, device=device)
+                                  cfg.depth, dtype=dtype,
+                                  param_dtype=param_dtype, device=device)
         self.train_diffusion: GaussianDiffusion = create_diffusion(
             timestep_respacing="", noise_schedule="cosine")
         self.gen_diffusion: GaussianDiffusion = create_diffusion(

@@ -4,8 +4,8 @@ The counterpart of `setok_tpu/models/diffmlp.py`, with its module names
 (`input_proj`, `time_embed.fc1`, `cond_embed`, `res_{i}.adaLN`,
 `res_{i}.in_ln`, `res_{i}.mlp_fc1`, `final_layer.linear`, ...) so that the
 flax tree loads as a rename. It works on flat token vectors (N, C); each
-linear computes in `dtype`, the LayerNorms take their statistics in
-float32.
+linear computes in `dtype` on its `param_dtype` weight, the LayerNorms take
+their statistics in float32.
 """
 
 from __future__ import annotations
@@ -38,12 +38,13 @@ def timestep_embedding(t: torch.Tensor, dim: int,
 
 class TimestepEmbedder(nn.Module):
     def __init__(self, hidden_size: int, frequency_embedding_size: int = 256,
-                 *, dtype=torch.float32, device=None):
+                 *, dtype=torch.float32, param_dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.frequency_embedding_size = frequency_embedding_size
-        self.fc1 = Dense(frequency_embedding_size, hidden_size, dtype=dtype,
-                         device=device)
-        self.fc2 = Dense(hidden_size, hidden_size, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.fc1 = Dense(frequency_embedding_size, hidden_size, **kw)
+        self.fc2 = Dense(hidden_size, hidden_size, **kw)
 
     def forward(self, t):
         x = timestep_embedding(t, self.frequency_embedding_size)
@@ -53,12 +54,14 @@ class TimestepEmbedder(nn.Module):
 class ResBlock(nn.Module):
     """AdaLN residual MLP block (the affine `in_ln`, eps 1e-6)."""
 
-    def __init__(self, channels: int, *, dtype=torch.float32, device=None):
+    def __init__(self, channels: int, *, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
-        self.adaLN = Dense(channels, 3 * channels, dtype=dtype, device=device)
-        self.in_ln = LayerNorm(channels, eps=1e-6, dtype=dtype, device=device)
-        self.mlp_fc1 = Dense(channels, channels, dtype=dtype, device=device)
-        self.mlp_fc2 = Dense(channels, channels, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.adaLN = Dense(channels, 3 * channels, **kw)
+        self.in_ln = LayerNorm(channels, eps=1e-6, **kw)
+        self.mlp_fc1 = Dense(channels, channels, **kw)
+        self.mlp_fc2 = Dense(channels, channels, **kw)
 
     def forward(self, x, y):
         shift, scale, gate = self.adaLN(F.silu(y)).chunk(3, dim=-1)
@@ -71,12 +74,13 @@ class FinalLayer(nn.Module):
     """DiT final layer: an affine-free LayerNorm (eps 1e-6), modulated."""
 
     def __init__(self, channels: int, out_channels: int, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.dtype = dtype
-        self.adaLN = Dense(channels, 2 * channels, dtype=dtype, device=device)
-        self.linear = Dense(channels, out_channels, dtype=dtype,
-                            device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.adaLN = Dense(channels, 2 * channels, **kw)
+        self.linear = Dense(channels, out_channels, **kw)
 
     def forward(self, x, y):
         shift, scale = self.adaLN(F.silu(y)).chunk(2, dim=-1)
@@ -91,11 +95,12 @@ class SimpleMLPAdaLN(nn.Module):
 
     def __init__(self, in_channels: int, model_channels: int,
                  out_channels: int, z_channels: int, num_res_blocks: int, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.in_channels = in_channels
         self.num_res_blocks = num_res_blocks
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.input_proj = Dense(in_channels, model_channels, **kw)
         self.time_embed = TimestepEmbedder(model_channels, **kw)
         self.cond_embed = Dense(z_channels, model_channels, **kw)

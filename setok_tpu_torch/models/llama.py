@@ -7,9 +7,13 @@ autograd, the mean of squares summed in float64 and rounded once), rotary
 embeddings in the HF rotate-half convention, GQA attention with a boolean
 mask (holes inside the sequence allowed), SwiGLU MLP.
 
-`weight_bits` selects the trunk linears: 16 → `Dense` (float), 8 →
-`QuantDense` (the w8a8 kernel), 4 → `Quant4Dense` (the w4a8 kernel, per
-channel or per `quant_group` input rows).
+Parameters live in `param_dtype` (float32 by default, bf16 as the JAX
+trainers' `param_dtype` stores them): the embedding, the RMSNorm scales
+(read as float32 for their statistics, as the JAX RMSNorm reads
+`scale.astype(f32)`), every float trunk linear and the LM head; `dtype` is
+the compute type. `weight_bits` selects the trunk linears: 16 → `Dense`
+(float), 8 → `QuantDense` (the w8a8 kernel), 4 → `Quant4Dense` (the w4a8
+kernel, per channel or per `quant_group` input rows).
 
 The KV cache is static-shaped, (layers, B, max_len, kv_heads, head_dim).
 Where the JAX package returns a new cache, the port writes the new entries
@@ -71,11 +75,13 @@ def refuse(**options) -> None:
 
 class RMSNorm(nn.Module):
     def __init__(self, features: int, eps: float = 1e-5, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.eps = eps
         self.compute_dtype = dtype
-        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.weight = nn.Parameter(torch.ones(features, device=device,
+                                              dtype=param_dtype))
 
     def forward(self, x):
         x32 = x.float()
@@ -139,8 +145,10 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                    length=0, k_scale=scales(), v_scale=scales())
 
 
-def _dense(weight_bits: int, quant_group: int, dtype, device):
-    """Trunk linear constructor for the weight-at-rest precision."""
+def _dense(weight_bits: int, quant_group: int, dtype, device,
+           param_dtype=torch.float32):
+    """Trunk linear constructor for the weight-at-rest precision (a float
+    `Dense` keeps its weight in `param_dtype`)."""
     if weight_bits == 8:
         return lambda i, o: QuantDense(i, o, dtype=dtype, device=device)
     if weight_bits == 4:
@@ -148,7 +156,8 @@ def _dense(weight_bits: int, quant_group: int, dtype, device):
                                         dtype=dtype, device=device)
     if weight_bits != 16:
         raise ValueError(f"weight_bits must be 16, 8 or 4, got {weight_bits}")
-    return lambda i, o: Dense(i, o, bias=False, dtype=dtype, device=device)
+    return lambda i, o: Dense(i, o, bias=False, dtype=dtype,
+                              param_dtype=param_dtype, device=device)
 
 
 def _quant_int8(t: torch.Tensor):
@@ -177,13 +186,13 @@ class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32,
                  weight_bits: int = 16, quant_group: int = 0,
                  cache_kernel: bool = False, use_flash: bool = False,
-                 device=None):
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.cache_kernel = cache_kernel
         self.use_flash = use_flash
-        dense = _dense(weight_bits, quant_group, dtype, device)
+        dense = _dense(weight_bits, quant_group, dtype, device, param_dtype)
         hd = cfg.head_dim
         self.q_proj = dense(cfg.hidden_size, cfg.num_heads * hd)
         self.k_proj = dense(cfg.hidden_size, cfg.num_kv_heads * hd)
@@ -254,9 +263,10 @@ class LlamaAttention(nn.Module):
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32,
-                 weight_bits: int = 16, quant_group: int = 0, device=None):
+                 weight_bits: int = 16, quant_group: int = 0,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
-        dense = _dense(weight_bits, quant_group, dtype, device)
+        dense = _dense(weight_bits, quant_group, dtype, device, param_dtype)
         self.gate_proj = dense(cfg.hidden_size, cfg.intermediate_size)
         self.up_proj = dense(cfg.hidden_size, cfg.intermediate_size)
         self.down_proj = dense(cfg.intermediate_size, cfg.hidden_size)
@@ -269,16 +279,17 @@ class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32,
                  weight_bits: int = 16, quant_group: int = 0,
                  cache_kernel: bool = False, use_flash: bool = False,
-                 device=None):
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, weight_bits=weight_bits,
-                  quant_group=quant_group, device=device)
-        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
-                                  dtype=dtype, device=device)
+                  quant_group=quant_group, param_dtype=param_dtype,
+                  device=device)
+        norm = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **norm)
         self.attn = LlamaAttention(cfg, cache_kernel=cache_kernel,
                                    use_flash=use_flash, **kw)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
-                                      dtype=dtype, device=device)
+                                      **norm)
         self.mlp = LlamaMLP(cfg, **kw)
 
     def forward(self, x, mask, rope, cache_kv=None, index=None):
@@ -314,7 +325,8 @@ class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32,
                  weight_bits: int = 16, quant_group: int = 0,
                  cache_kernel: bool = False, use_flash: bool = False,
-                 remat: bool = False, device=None):
+                 remat: bool = False, param_dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -323,9 +335,10 @@ class LlamaModel(nn.Module):
             self.add_module(f"layer_{i}", LlamaBlock(
                 cfg, dtype=dtype, weight_bits=weight_bits,
                 quant_group=quant_group, cache_kernel=cache_kernel,
-                use_flash=use_flash, device=device))
+                use_flash=use_flash, param_dtype=param_dtype, device=device))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
-                                  dtype=dtype, device=device)
+                                  dtype=dtype, param_dtype=param_dtype,
+                                  device=device)
 
     def forward(self, inputs_embeds, mask, positions,
                 cache: Optional[KVCache] = None):
@@ -361,27 +374,36 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, dtype=torch.float32,
                  weight_bits: int = 16, quant_group: int = 0,
                  cache_kernel: bool = False, use_flash: bool = False,
-                 ring_mesh: Any = None, remat: bool = False, device=None):
+                 ring_mesh: Any = None, remat: bool = False,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         refuse(ring_mesh=ring_mesh)
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         device=device)
+                                         device=device, dtype=param_dtype)
         self.model = LlamaModel(cfg, dtype=dtype, weight_bits=weight_bits,
                                 quant_group=quant_group,
                                 cache_kernel=cache_kernel,
                                 use_flash=use_flash, remat=remat,
-                                device=device)
+                                param_dtype=param_dtype, device=device)
         self.lm_head = (None if cfg.tie_embeddings else
                         Dense(cfg.hidden_size, cfg.vocab_size, bias=False,
-                              dtype=dtype, device=device))
+                              dtype=dtype, param_dtype=param_dtype,
+                              device=device))
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         # clamped at both ends: negative multimodal sentinels (replaced
         # later by spliced features) and out-of-vocabulary ids
         ids = input_ids.clamp(0, self.cfg.vocab_size - 1)
+        table = self.embed_tokens.weight
+        if table.dtype != self.dtype and torch.is_grad_enabled() \
+                and table.requires_grad:
+            # flax's Embed casts the table to the compute type before the
+            # gather, so a repeated id's gradient sums in that type (a
+            # gather from the bf16 table would sum it in bf16)
+            return nn.functional.embedding(ids, table.to(self.dtype))
         return self.embed_tokens(ids).to(self.dtype)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:

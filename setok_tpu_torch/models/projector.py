@@ -3,6 +3,7 @@
 The counterpart of `setok_tpu/models/projector.py`: 'linear', 'mlp{N}x_gelu'
 and 'mlp', each with an optional '_Norm' LayerNorm prefix, and 'identity'.
 The GELU between the layers is flax's default `nn.gelu`, the tanh form.
+Parameters live in `param_dtype`, activations in `dtype`.
 """
 
 from __future__ import annotations
@@ -19,16 +20,16 @@ from setok_tpu_torch.ops.blocks import Dense, LayerNorm
 class MLPProjector(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, depth: int = 2,
                  pre_norm: bool = False, *, dtype=torch.float32,
-                 device=None):
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.depth = depth
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         # torch's default eps, as the reference's LayerNorm has
-        self.pre_norm = (LayerNorm(in_dim, eps=1e-5, dtype=dtype,
-                                   device=device) if pre_norm else None)
+        self.pre_norm = (LayerNorm(in_dim, eps=1e-5, **kw) if pre_norm
+                         else None)
         for i in range(depth):
             self.add_module(f"fc_{i}", Dense(in_dim if i == 0 else out_dim,
-                                             out_dim, dtype=dtype,
-                                             device=device))
+                                             out_dim, **kw))
 
     def forward(self, x):
         if self.pre_norm is not None:
@@ -46,7 +47,8 @@ class IdentityProjector(nn.Module):
 
 
 def build_projector(projector_type: str, in_dim: int, out_dim: int, *,
-                    dtype=torch.float32, device=None) -> nn.Module:
+                    dtype=torch.float32, param_dtype=torch.float32,
+                    device=None) -> nn.Module:
     """The JAX package's dispatch on the projector type string."""
     t = projector_type
     pre_norm = t.startswith("_Norm") or t.endswith("_Norm")
@@ -60,4 +62,4 @@ def build_projector(projector_type: str, in_dim: int, out_dim: int, *,
     if depth is None:
         raise ValueError(f"Unknown projector type: {projector_type}")
     return MLPProjector(in_dim, out_dim, depth, pre_norm, dtype=dtype,
-                        device=device)
+                        param_dtype=param_dtype, device=device)

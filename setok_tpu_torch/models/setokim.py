@@ -19,10 +19,15 @@ The training forward's randomness is split out: `draw_forward` makes the
 draws (the tower's dropout generator, and the diffusion branch's orders,
 mask rate, timesteps and noise) from a `torch.Generator`, and `forward`
 computes on them, so that the JAX package's draws can be replayed. The
-vision tower and the detokenizer are frozen, as the JAX package builds
-them (`freeze_backbone=True`, label 'frozen'): every call of them here runs
-under `torch.no_grad()`, and the tower's tokens enter the trainable
-projector as constants.
+detokenizer is frozen (label 'frozen' in the trainers) and runs under
+`torch.no_grad()` here, as do `tokenize` and the diffusion branch's gold
+tokens (the JAX package's stop-gradient). The splice's tower tokens
+(`encode_images`) carry a graph where the tower's parameters require one
+(`unfreeze_mm_vision_tower`); its backbone stays frozen
+(`freeze_backbone=True`, as the JAX package builds it), and a frozen
+tower's tokens enter the trainable projector as constants. Parameters live
+in `param_dtype` (float32, or bf16 as the JAX trainers' `param_dtype`
+stores them), passed to every submodule; `dtype` is the compute type.
 
 The cache is written in place (models/llama.py); `cache_valid` is returned
 as a new tensor, as the JAX package returns it. The serving entry points
@@ -131,29 +136,28 @@ class Setokim(nn.Module):
                  pad_token_id: int = 0, *, dtype=torch.float32,
                  weight_bits: int = 16, quant_group: int = 0,
                  cache_kernel: bool = False, use_flash: bool = False,
-                 ring_mesh: Any = None, remat: bool = False, device=None):
+                 ring_mesh: Any = None, remat: bool = False,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.target_token_id = target_token_id
         self.pad_token_id = pad_token_id
         self.dtype = dtype
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.llama = LlamaForCausalLM(
-            cfg.llama, dtype=dtype, weight_bits=weight_bits,
-            quant_group=quant_group, cache_kernel=cache_kernel,
-            use_flash=use_flash, ring_mesh=ring_mesh, remat=remat,
-            device=device)
-        self.vision_tower = SetokTokenizer(cfg.tokenizer, dtype=dtype,
-                                           device=device)
+            cfg.llama, weight_bits=weight_bits, quant_group=quant_group,
+            cache_kernel=cache_kernel, use_flash=use_flash,
+            ring_mesh=ring_mesh, remat=remat, **kw)
+        self.vision_tower = SetokTokenizer(cfg.tokenizer, **kw)
         self.mm_in_projector = build_projector(
             cfg.mm_in_projector_type, cfg.tokenizer.token_feat_dim,
-            cfg.llama.hidden_size, dtype=dtype, device=device)
-        self.vision_generator = SetokDeTokenizer(cfg.detokenizer, dtype=dtype,
-                                                 device=device)
+            cfg.llama.hidden_size, **kw)
+        self.vision_generator = SetokDeTokenizer(cfg.detokenizer, **kw)
         self.mm_out_projector = build_projector(
             cfg.mm_out_projector_type, cfg.llama.hidden_size,
-            cfg.diffloss.z_channels, dtype=dtype, device=device)
-        self.diffloss = DiffLoss(cfg.diffloss, dtype=dtype, device=device)
+            cfg.diffloss.z_channels, **kw)
+        self.diffloss = DiffLoss(cfg.diffloss, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -172,9 +176,11 @@ class Setokim(nn.Module):
 
     def encode_images(self, images, generator=None):
         """images (N, H, W, 3) → (N, k_max, llama hidden), valid (N, k_max).
-        The frozen tower's tokens enter the projector as constants."""
-        with torch.no_grad():
-            tok = self.vision_tower(images, generator=generator)
+        The tower runs with a graph where its parameters require one (a
+        trainer's `unfreeze_mm_vision_tower`); its backbone and clustering
+        never carry one (models/tokenizer.py). A frozen tower's tokens
+        enter the projector as constants."""
+        tok = self.vision_tower(images, generator=generator)
         return self.mm_in_projector(tok.tokens), tok.token_valid
 
     def prepare_multimodal(self, input_ids, images, generator=None):

@@ -51,9 +51,12 @@ a dropout key); without one the blocks are deterministic. Its bits are the
 generator's, not JAX's.
 
 A `Dense` may carry a LoRA adapter (`train/lora.py`): its weight is then
-`W + (alpha/r)·(A@B)ᵀ`, formed in float32 at each use and cast to the
-compute type, the numerics of the JAX package's `apply_lora` on the
-(in, out) kernel.
+`W + (alpha/r)·(A@B)ᵀ`, formed at each use in the weight's type (the
+product cast to it, the JAX package's `apply_lora` on the (in, out)
+kernel) and cast to the compute type. Under QLoRA (`train/qlora.py`) the
+weight is stored int8 with a (1, out) float32 buffer `qscale`; at use it is
+`(q·s)` cast to the compute type (the JAX `dequantize`), plus the adapter
+product cast to that type.
 """
 
 from __future__ import annotations
@@ -128,11 +131,16 @@ class Dense(nn.Linear):
         self.__dict__["lora"] = None
 
     def effective_weight(self) -> torch.Tensor:
-        """The (out, in) weight in use: W, or W + scale·(A@B)ᵀ in float32."""
+        """The (out, in) weight in use: W (an int8 QLoRA weight dequantised
+        to the compute type), plus scale·(A@B)ᵀ cast to W's type where an
+        adapter is attached."""
+        w = self.weight
+        if w.dtype == torch.int8:
+            w = (w.float() * self.qscale.t()).to(self.compute_dtype)
         if self.lora is None:
-            return self.weight
+            return w
         a, b, scale = self.lora
-        return self.weight + scale * (a @ b).t()
+        return w + scale * (a @ b).t().to(w.dtype)
 
     def forward(self, x):
         dt = self.compute_dtype

@@ -45,8 +45,9 @@ directory under /tmp).
 
 The flags are the JAX CLI's (`scripts/train_setok.py`). Those that need
 modules the port lacks raise `NotImplementedError` naming their ROADMAP.md
-entry: LPIPS weights and the compilation cache; the trainer refuses 8-bit
-moments and optimizer offload.
+entry: LPIPS weights and the compilation cache; the trainer refuses
+optimizer offload (a TPU memory-space feature). `--optim-bits 8` gives the
+generator int8 Adam moments (train/opt8.py).
 """
 
 from __future__ import annotations
@@ -117,7 +118,8 @@ def parse_args(argv=None):
     p.add_argument("--lpips", action="store_true",
                    help="the LPIPS term (random VGG-16 weights)")
     p.add_argument("--optim-bits", type=int, default=32, choices=[32, 8],
-                   help="8 is not ported (the trainer refuses it)")
+                   help="8: the generator's Adam moments int8 in blocks "
+                        "of 256 (train/opt8.py)")
     p.add_argument("--offload-optimizer", action="store_true",
                    help="not ported (the trainer refuses it)")
     p.add_argument("--task-type", default="caption",

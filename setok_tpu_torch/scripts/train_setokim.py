@@ -54,9 +54,14 @@ unless `--no-resume`; each step's metrics go to one JSON line of
 `--output-dir` nothing is written (the JAX CLI defaults to a directory
 under /tmp).
 
-The flags are the JAX CLI's (`scripts/train_setokim.py`); its parallel,
-QLoRA and 8-bit-optimizer flags are refused with a message naming their
-ROADMAP.md entry.
+The flags are the JAX CLI's (`scripts/train_setokim.py`). `--bits 8` is
+QLoRA (with `--lora-enable`: the trunk's targeted linears int8 under the
+adapters, train/qlora.py), `--optim-bits 8` gives the trained groups int8
+Adam moments (train/opt8.py; the embedding table keeps 32-bit AdamW) and
+`--unfreeze-mm-vision-tower` trains the vision tower's part above its
+frozen backbone; a checkpoint of each resumes (the int8 base and its
+scales, the int8 moments and theirs). Its parallel flags are refused
+with a message naming their ROADMAP.md entry.
 """
 
 from __future__ import annotations

@@ -1,17 +1,19 @@
 """LoRA adapters on the trunk's linears.
 
 The counterpart of `setok_tpu/train/lora.py`. A LoRA tree is a dict
-{module name: (A (in, r), B (r, out))} of float32 parameters, in the JAX
-package's layout (its keys are the flax kernel paths; `utils/from_flax
-.lora_from_flax` converts them). `init_lora` draws A ~ N(0, 1)/√r and sets
-B = 0, so the adapted model starts at the base.
+{module name: (A (in, r), B (r, out))} of parameters in the type of the
+weight they adapt, in the JAX package's layout (its keys are the flax
+kernel paths; `utils/from_flax.lora_from_flax` converts them). `init_lora`
+draws A ~ N(0, 1)/√r and sets B = 0, so the adapted model starts at the
+base.
 
 `apply_lora` attaches the adapters to their `Dense` modules, which then form
-`W + (alpha/r)·(A@B)ᵀ` in float32 at each use (ops/blocks.Dense), layer by
-layer; the JAX package materialises the whole adapted tree before the
-forward instead. The numerics are the same: the sum in the parameter type,
-then the cast to the compute type. `merge_lora` writes the merged weights
-into a state dict (a servable float checkpoint).
+`W + (alpha/r)·(A@B)ᵀ` at each use (ops/blocks.Dense), layer by layer; the
+JAX package materialises the whole adapted tree before the forward instead.
+The numerics are the same: the product cast to the weight's type and the
+sum in that type (the dequantised compute type under QLoRA), then the cast
+to the compute type. `merge_lora` writes the merged weights into a state
+dict (a servable float checkpoint).
 """
 
 from __future__ import annotations
@@ -47,13 +49,15 @@ def init_lora(model: nn.Module, generator: torch.Generator, rank: int,
               target_filter: Callable[[str], bool] = default_target_filter
               ) -> Lora:
     """A (in, r) ~ N(0, 1)/√r and B (r, out) = 0 for each target, on the
-    model's device, drawn in module order from `generator`."""
+    model's device and in its weight's type (as the JAX `init_lora` draws
+    them in the leaf's), drawn in module order from `generator`."""
     lora = {}
     for name, mod in lora_targets(model, target_filter).items():
         w = mod.weight
-        a = torch.randn((mod.in_features, rank), generator=generator,
-                        device=w.device) / rank ** 0.5
-        b = torch.zeros((rank, mod.out_features), device=w.device)
+        a = (torch.randn((mod.in_features, rank), generator=generator,
+                         device=w.device) / rank ** 0.5).to(w.dtype)
+        b = torch.zeros((rank, mod.out_features), device=w.device,
+                        dtype=w.dtype)
         lora[name] = (nn.Parameter(a), nn.Parameter(b))
     return lora
 
@@ -83,10 +87,10 @@ def apply_lora(model: nn.Module, lora: Lora, alpha: float,
 def merge_lora(state: Dict[str, torch.Tensor], lora: Lora, alpha: float,
                rank: int) -> Dict[str, torch.Tensor]:
     """A copy of the state dict with W + (alpha/rank)·(A@B)ᵀ in place of
-    each adapted weight."""
+    each adapted weight, the product cast to W's type."""
     out = dict(state)
     for name, (a, b) in lora.items():
         key = f"{name}.weight"
-        out[key] = state[key] + (alpha / rank) * (a @ b).t().to(
-            state[key].device)
+        w = state[key]
+        out[key] = w + (alpha / rank) * (a @ b).t().to(w.device, w.dtype)
     return out

@@ -18,8 +18,11 @@ with its own optimizer:
   * optimizers: the generator's AdamW (eps 1e-8, the config's betas and
     weight decay) at `warmup_cosine` of its update count, with warmup =
     min(warmup_steps, total_steps - 1), so the first update runs at lr 0;
-    the discriminator's Adam at the constant `disc_learning_rate`; each
-    clipped to `max_grad_norm` by its own global norm (optax's rule);
+    with `optim_bits=8`, `opt8.Adam8bit` over the generator instead (int8
+    moments, no weight decay, the schedule read after the increment, so
+    its first update moves); the discriminator's Adam at the constant
+    `disc_learning_rate`; each clipped to `max_grad_norm` by its own
+    global norm (optax's rule);
   * `grad_accum_steps` micro-batches per update, as `optax.MultiSteps`:
     the running mean of the gradients, both optimizers in lockstep.
     `step` counts micro-batches; the adversarial factors read it.
@@ -35,8 +38,10 @@ leaves it unchanged. Here the frozen parameters (the tokenizer's
 `frozen_parameters`, `requires_grad` off) are in no optimizer: the same
 result, bit for bit. A weight decay above 0 would shrink the JAX
 package's frozen backbone; the port refuses it rather than copy that.
-The LPIPS net is frozen too. `offload_optimizer` and `optim_bits=8` are
-not ported (`NotImplementedError`).
+The LPIPS net is frozen too. `offload_optimizer` (a TPU memory-space
+feature) raises `NotImplementedError`. The JAX trainer builds SeTok in
+float32 whatever `TrainConfig.param_dtype` says, so another
+`param_dtype` raises `ValueError` here.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from setok_tpu_torch.losses.mse import l1_loss
 from setok_tpu_torch.models.detokenizer import unpatchify
 from setok_tpu_torch.models.setok import SeTok
 from setok_tpu_torch.models.text_encoder import TextEncoder
+from setok_tpu_torch.train.opt8 import Adam8bit, module_perms
 from setok_tpu_torch.train.stage2 import (accumulate, global_norm,
                                           optimizer_step, warmup_cosine)
 from setok_tpu_torch.utils import metrics as quality
@@ -68,8 +74,6 @@ from setok_tpu_torch.utils.init import init_random_
 NOT_PORTED = {
     "offload_optimizer": "Adam moments in host memory (a TPU memory-space "
                          "feature of the JAX package): not ported",
-    "optim_bits": "8-bit AdamW moments (train/opt8.py): ROADMAP.md, Queue A "
-                  "(stage-2 options)",
 }
 # the discriminator's convolution kernels: flax normal(0.02)
 DISC_CONV_STD = 0.02
@@ -90,15 +94,17 @@ class Stage1Trainer:
     device: Any = None
 
     def __post_init__(self):
-        for name, on in (("offload_optimizer", self.offload_optimizer),
-                         ("optim_bits", self.optim_bits != 32)):
-            if on:
-                raise NotImplementedError(f"{name}: {NOT_PORTED[name]}")
+        if self.offload_optimizer:
+            raise NotImplementedError(
+                f"offload_optimizer: {NOT_PORTED['offload_optimizer']}")
+        if self.optim_bits not in (32, 8):
+            raise ValueError(f"optim_bits must be 32 or 8, got "
+                             f"{self.optim_bits}")
         tc = self.train_cfg
         if tc.param_dtype != "float32":
-            raise ValueError(f"param_dtype {tc.param_dtype}: the port's "
-                             "trainers keep float32 parameters (ROADMAP.md, "
-                             "Queue A item 1)")
+            raise ValueError(f"param_dtype {tc.param_dtype}: the JAX "
+                             "Stage1Trainer builds SeTok in float32 whatever "
+                             "param_dtype says, and so does the port")
         if tc.weight_decay != 0:
             raise ValueError("weight_decay must be 0: the JAX trainer's "
                              "AdamW would decay the frozen backbone too")
@@ -146,9 +152,15 @@ class Stage1Trainer:
             gen += list(self.text_encoder.parameters())
         self.gen_params = gen
         self.disc_params = list(self.disc.parameters())
-        self.gen_opt = torch.optim.AdamW(
-            gen, lr=0.0, betas=(tc.beta1, tc.beta2), eps=1e-8,
-            weight_decay=tc.weight_decay)
+        if self.optim_bits == 8:
+            perms = module_perms(*self.parts().values())
+            self.gen_opt = Adam8bit(
+                [{"params": gen, "flax_perms": [perms[p] for p in gen]}],
+                lr=0.0, betas=(tc.beta1, tc.beta2))
+        else:
+            self.gen_opt = torch.optim.AdamW(
+                gen, lr=0.0, betas=(tc.beta1, tc.beta2), eps=1e-8,
+                weight_decay=tc.weight_decay)
         self.disc_opt = torch.optim.Adam(
             self.disc_params, lr=tc.disc_learning_rate,
             betas=(tc.beta1, tc.beta2), eps=1e-8)
@@ -213,9 +225,11 @@ class Stage1Trainer:
             g.set_state(train["generators"][key].cpu())
 
     def lr(self) -> float:
-        """The generator's learning rate at its next update."""
+        """The generator's learning rate at its next update: the schedule
+        at the update count before it, or after it under `Adam8bit`."""
         tc = self.train_cfg
-        return warmup_cosine(self.updates, tc.learning_rate, self.warmup,
+        count = self.updates + (self.optim_bits == 8)
+        return warmup_cosine(count, tc.learning_rate, self.warmup,
                              tc.total_steps)
 
     # ------------------------------------------------------------------

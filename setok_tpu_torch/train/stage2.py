@@ -2,51 +2,66 @@
 
 The counterpart of `setok_tpu/train/stage2.py` on one card. Each parameter
 gets a label from its name, as `Stage2Trainer._label_of` gives it in the
-JAX package: 'main' (scheduled learning rate), 'proj_in' / 'proj_out' (the
-projectors' constant rates), 'lora' (the adapters, scheduled) or 'frozen'
-(`requires_grad=False`, in no optimizer group). The update is the JAX
-optimizer chain's:
+JAX package: 'main' (scheduled learning rate), 'embed32' (the embedding
+table under 8-bit moments: 32-bit AdamW, scheduled), 'proj_in' /
+'proj_out' (the projectors' constant rates), 'lora' (the adapters,
+scheduled) or 'frozen' (`requires_grad=False`, in no optimizer group). The
+update is the JAX optimizer chain's:
 
   * k = `grad_accum_steps` micro-batches per update, their gradients
     averaged as `optax.MultiSteps` does (acc += (g - acc)/(n + 1));
   * the global-norm clip over the trainable gradients, applied to the
-    average: g / norm · max_norm where norm ≥ max_norm (optax's rule, not
-    `clip_grad_norm_`'s);
-  * AdamW (eps 1e-8, the config's betas and weight decay) per group, the
-    scheduled groups at `optax.warmup_cosine_decay_schedule(0, lr, warmup,
-    total)` of the update count before the update, with warmup =
-    min(warmup_steps, total_steps - 1): the first update runs at lr 0.
+    average in place, tensor by tensor: g / norm · max_norm where norm ≥
+    max_norm (optax's rule, not `clip_grad_norm_`'s);
+  * per group, AdamW (eps 1e-8, the config's betas and weight decay) at
+    `optax.warmup_cosine_decay_schedule(0, lr, warmup, total)` of the
+    update count before the update, with warmup = min(warmup_steps,
+    total_steps - 1): the first update runs at lr 0. Float32 parameters
+    take `torch.optim.AdamW`; others (`TrainConfig.param_dtype` bf16) take
+    `AdamWOptax`, optax's steps in the moments' type (the parameter's, as
+    optax keeps them);
+  * `optim_bits=8`: the 'main', 'proj_in', 'proj_out' and 'lora' groups
+    take `opt8.Adam8bit` (int8 moments, no weight decay), which reads the
+    schedule after the increment (its first update moves); 'embed32'
+    keeps AdamW.
 
-`train_step(batch, generator | draws)` runs one micro-batch; the update
-happens on every k-th. Left out, each raising `NotImplementedError` with its
-ROADMAP.md entry: `quant_base` (QLoRA), `optim_bits=8`, `ring_mesh` and
-`unfreeze_mm_vision_tower`.
+Options: `param_dtype` (TrainConfig; the model's parameters and adapters
+in that type), `quant_base` (QLoRA, train/qlora.py: the targeted trunk
+linears int8 under the adapters; needs `lora_enable`),
+`unfreeze_mm_vision_tower` (the tower's trainable part under 'main';
+its backbone and clustering take no gradient). `train_step(batch,
+generator | draws)` runs one micro-batch; the update happens on every k-th.
+`ring_mesh` raises `NotImplementedError` with its ROADMAP.md entry.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
 from setok_tpu_torch.config import SetokimConfig, TrainConfig
 from setok_tpu_torch.models.setokim import ForwardDraws, Setokim
 from setok_tpu_torch.train.lora import Lora, apply_lora, merge_lora
+from setok_tpu_torch.train.opt8 import (Adam8bit, bias_correction,
+                                        module_perms)
+from setok_tpu_torch.train.qlora import dequantize, quantize_base
+from setok_tpu_torch.utils.from_flax import flax_entries
 from setok_tpu_torch.utils.init import init_lora_random
 
 NOT_PORTED = {
-    "quant_base": "QLoRA (train/qlora.py): ROADMAP.md, Queue A (stage-2 "
-                  "options)",
-    "optim_bits": "8-bit AdamW moments (train/opt8.py): ROADMAP.md, Queue A "
-                  "(stage-2 options)",
     "ring_mesh": "sequence-parallel training: ROADMAP.md, Queue A "
                  "(parallel)",
-    "unfreeze_mm_vision_tower": "training the vision tower: ROADMAP.md, "
-                                "Queue A (stage-2 options)",
 }
-SCHEDULED = ("main", "lora")
+SCHEDULED = ("main", "embed32", "lora")
+# the groups that `optim_bits=8` gives int8 moments
+EIGHT_BIT = ("main", "proj_in", "proj_out", "lora")
+# the order of the optimizers and of their groups (that of the gradients'
+# global norm)
+KINDS = ("adamw", "adamw_optax", "adam8bit")
+LABELS = ("main", "embed32", "proj_in", "proj_out", "lora")
 
 
 def warmup_cosine(count: int, peak: float, warmup: int, total: int) -> float:
@@ -68,12 +83,20 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum((g * g).sum() for g in grads))
 
 
-def clip_by_global_norm(grads, max_norm: float) -> list:
-    """optax.clip_by_global_norm: every gradient g / norm · max_norm where
-    the global norm is at least max_norm (not `clip_grad_norm_`'s rule)."""
-    norm = global_norm(grads)
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float, order=None) -> None:
+    """optax.clip_by_global_norm in place: every gradient becomes g / norm
+    · max_norm (the norm cast to g's type) where the global norm is at
+    least max_norm (not `clip_grad_norm_`'s rule). The norm sums the
+    gradients in `order` (indices; default their own): the JAX tree's leaf
+    order, on which a bf16 norm's roundings depend. One tensor's
+    temporaries at a time, and no host sync."""
+    norm = global_norm(grads if order is None else [grads[i] for i in order])
     clip = norm >= max_norm
-    return [torch.where(clip, g / norm * max_norm, g) for g in grads]
+    for g in grads:
+        # max_norm in g's type, as JAX's weak type gives it
+        scale = torch.tensor(max_norm, dtype=g.dtype, device=g.device)
+        torch.where(clip, g / norm.to(g.dtype) * scale, g, out=g)
 
 
 def accumulate(acc, grads, n: int):
@@ -86,19 +109,77 @@ def accumulate(acc, grads, n: int):
     return acc
 
 
+class AdamWOptax(torch.optim.Optimizer):
+    """`optax.adamw` in the order and the type optax 0.2.6 takes with
+    moments in a low-precision parameter's type (bf16): mu = (1-b1)·g +
+    b1·mu and nu = (1-b2)·g² + b2·nu in that type (the scalars rounded to
+    it first, as JAX's weak types are), count += 1, mu / (1 - b1^count)
+    and nu / (1 - b2^count) with each correction computed in float32 then
+    cast, u = mu_hat / (sqrt(nu_hat) + eps), + weight_decay·p, times the
+    learning rate cast to the type, and p + u in the type.
+    `torch.optim.AdamW` orders these steps otherwise (lerp, float bias
+    corrections, the decay first); for float32 parameters it agrees with
+    optax and the trainers keep it there."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st.update(count=0, mu=torch.zeros_like(p),
+                              nu=torch.zeros_like(p))
+                dt, g = p.dtype, p.grad
+
+                def c(x):
+                    return torch.tensor(x, dtype=dt, device=p.device)
+
+                st["mu"] = c(1 - b1) * g + c(b1) * st["mu"]
+                st["nu"] = c(1 - b2) * (g * g) + c(b2) * st["nu"]
+                st["count"] += 1
+                bc1 = c(bias_correction(b1, st["count"]))
+                bc2 = c(bias_correction(b2, st["count"]))
+                root = (st["nu"] / bc2).double().sqrt().to(dt)
+                u = (st["mu"] / bc1) / (root + c(group["eps"]))
+                if group["weight_decay"]:
+                    u = u + c(group["weight_decay"]) * p
+                p.copy_(p + c(-group["lr"]) * u)
+
+
+def make_optimizer(kind: str, groups: list, tc: TrainConfig):
+    """The optimizer of one kind ('adam8bit', 'adamw' for float32,
+    'adamw_optax' for other parameter types) over its param groups."""
+    betas = (tc.beta1, tc.beta2)
+    if kind == "adam8bit":
+        return Adam8bit(groups, betas=betas)
+    cls = torch.optim.AdamW if kind == "adamw" else AdamWOptax
+    return cls(groups, betas=betas, eps=1e-8, weight_decay=tc.weight_decay)
+
+
 @torch.no_grad()
-def optimizer_step(opt: torch.optim.Optimizer, params, grads,
-                   max_norm: float, lr) -> None:
-    """One update of `opt`: the gradients clipped to `max_norm` (0: not at
-    all) by their global norm, each group at the rate `lr(group)`."""
+def optimizer_step(opts, params, grads, max_norm: float, lr,
+                   order=None) -> None:
+    """One update of the optimizer(s) `opts` (one, or a list): the
+    gradients clipped to `max_norm` (0: not at all) by their global norm
+    (summed in `order`), in place, each group at the rate `lr(group)`."""
     if max_norm > 0:
-        grads = clip_by_global_norm(grads, max_norm)
+        clip_by_global_norm_(grads, max_norm, order)
     for p, g in zip(params, grads):
         p.grad = g
-    for group in opt.param_groups:
-        group["lr"] = lr(group)
-    opt.step()
-    opt.zero_grad(set_to_none=True)
+    opts = opts if isinstance(opts, (list, tuple)) else [opts]
+    for opt in opts:
+        for group in opt.param_groups:
+            group["lr"] = lr(group)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
 
 
 @dataclasses.dataclass(eq=False)
@@ -125,26 +206,24 @@ class Stage2Trainer:
     device: Any = None
 
     def __post_init__(self):
-        for name, on in (("quant_base", self.quant_base),
-                         ("optim_bits", self.optim_bits != 32),
-                         ("ring_mesh", self.ring_mesh is not None),
-                         ("unfreeze_mm_vision_tower",
-                          self.unfreeze_mm_vision_tower)):
-            if on:
-                raise NotImplementedError(f"{name}: {NOT_PORTED[name]}")
+        if self.ring_mesh is not None:
+            raise NotImplementedError(f"ring_mesh: {NOT_PORTED['ring_mesh']}")
+        if self.quant_base and not self.lora_enable:
+            raise ValueError("quant_base (QLoRA) requires lora_enable: the "
+                             "int8 base is frozen; adapters carry training")
+        if self.optim_bits not in (32, 8):
+            raise ValueError(f"optim_bits must be 32 or 8, got "
+                             f"{self.optim_bits}")
         tc = self.train_cfg
-        if tc.param_dtype != "float32":
-            raise ValueError(f"param_dtype {tc.param_dtype}: the port's "
-                             "trainers keep float32 parameters (ROADMAP.md, "
-                             "Queue A item 1)")
         self.model = Setokim(self.cfg, self.target_token_id,
                              self.pad_token_id,
                              dtype=getattr(torch, tc.compute_dtype),
+                             param_dtype=getattr(torch, tc.param_dtype),
                              use_flash=self.use_flash, remat=tc.remat,
                              device=self.device)
         self.warmup = min(tc.warmup_steps, max(tc.total_steps - 1, 0))
         self.lora: Lora = {}
-        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.optimizers: Dict[str, torch.optim.Optimizer] = {}
 
     # ------------------------------------------------------------------
     def _label_of(self, name: str, in_lora_tree: bool) -> str:
@@ -164,6 +243,8 @@ class Stage2Trainer:
                          or self.tune_mm_out_mlp_adapter)
         if self.freeze_backbone or adapters_only or self.lora_enable:
             return "frozen"
+        if self.optim_bits == 8 and "embed_tokens" in name:
+            return "embed32"
         return "main"
 
     def labels(self) -> Dict[str, str]:
@@ -175,47 +256,100 @@ class Stage2Trainer:
             out[f"lora.{name}.a"] = out[f"lora.{name}.b"] = "lora"
         return out
 
+    def _kind(self, label: str, p: torch.Tensor) -> str:
+        """The optimizer of a parameter: 'adam8bit' for the 8-bit groups,
+        else 'adamw' (float32) or 'adamw_optax' (another type)."""
+        if self.optim_bits == 8 and label in EIGHT_BIT:
+            return "adam8bit"
+        return "adamw" if p.dtype == torch.float32 else "adamw_optax"
+
     def init_state(self, seed: int = 0, lora: Optional[Lora] = None) -> None:
         """Adapters (given, or drawn from `seed` when `lora_enable`), the
-        frozen flags, the optimizer groups and the step counters. The
-        model's weights are the caller's (utils/init or from_flax)."""
+        int8 base under `quant_base` (quantised after the adapters are
+        drawn, as the JAX trainer does), the frozen flags, the optimizers'
+        groups and the step counters. The model's weights are the caller's
+        (utils/init or from_flax)."""
         if self.lora_enable:
             if lora is None:
                 lora = init_lora_random(self.model, seed, self.lora_r)
             self.lora = lora
+        self.qscales = quantize_base(self.model) if self.quant_base else {}
         apply_lora(self.model, self.lora, self.lora_alpha, self.lora_r)
         tc = self.train_cfg
-        groups = {"main": [], "proj_in": [], "proj_out": [], "lora": []}
+        named = []
         for name, p in self.model.named_parameters():
             label = self._label_of(name, False)
             p.requires_grad_(label != "frozen")
             if label != "frozen":
-                groups[label].append(p)
+                named.append((label, p))
         for a, b in self.lora.values():
-            groups["lora"] += [a, b]
-        const = {"proj_in": self.mm_in_projector_lr or tc.learning_rate,
-                 "proj_out": self.mm_out_projector_lr or tc.learning_rate}
-        self.optimizer = torch.optim.AdamW(
-            [{"params": ps, "label": label,
-              "lr": const.get(label, tc.learning_rate)}
-             for label, ps in groups.items() if ps],
-            betas=(tc.beta1, tc.beta2), eps=1e-8,
-            weight_decay=tc.weight_decay)
-        self.trainable = [p for g in self.optimizer.param_groups
-                          for p in g["params"]]
+            named += [("lora", a), ("lora", b)]
         self.step = 0            # micro-batches
         self.updates = 0         # optimizer updates
         self._acc = None
+        perms = module_perms(self.model)
+        groups: Dict[tuple, list] = {}
+        for label, p in named:
+            groups.setdefault((self._kind(label, p), label), []).append(p)
+        self.optimizers = {}
+        for kind in KINDS:
+            spec = []
+            for label in LABELS:
+                ps = groups.get((kind, label))
+                if not ps:
+                    continue
+                group = {"params": ps, "label": label, "lr": self.lr(label)}
+                if kind == "adam8bit":
+                    group["flax_perms"] = [perms.get(p) for p in ps]
+                spec.append(group)
+            if spec:
+                self.optimizers[kind] = make_optimizer(kind, spec, tc)
+        self.trainable = [p for opt in self.optimizers.values()
+                          for g in opt.param_groups for p in g["params"]]
+        self._norm_order = self._jax_leaf_order()
+
+    def _jax_leaf_order(self) -> List[int]:
+        """The trainable parameters' indices in the JAX trainer's leaf order
+        (its tree {'lora': {kernel keystr: {'a', 'b'}}, 'params': ...}
+        flattened with sorted keys; the QLoRA overlay keyed by keystr)."""
+        def keystr(path):
+            return "".join(f"['{k}']" for k in ("params", *path))
+
+        where = {}
+        for path, (key, _) in flax_entries(self.model).items():
+            where[key] = (("params", keystr(path)) if self.quant_base
+                          else ("params", "params", *path))
+        for name, ab in self.lora.items():
+            kernel = keystr((*name.split("."), "kernel"))
+            for f, t in zip("ab", ab):
+                where[id(t)] = ("lora", kernel, f)
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        keys = [where[names[id(p)]] if id(p) in names else where[id(p)]
+                for p in self.trainable]
+        return sorted(range(len(keys)), key=keys.__getitem__)
+
+    @property
+    def optimizer(self) -> Optional[torch.optim.Optimizer]:
+        """The float32 parameters' `torch.optim.AdamW` (None if none)."""
+        return self.optimizers.get("adamw")
 
     def lr(self, label: str) -> float:
-        """The learning rate the next update gives a group."""
+        """The learning rate the next update gives a group: the schedule
+        at the update count before it, or after it for `Adam8bit`."""
         tc = self.train_cfg
         if label in SCHEDULED:
-            return warmup_cosine(self.updates, tc.learning_rate, self.warmup,
+            count = self.updates
+            if self.optim_bits == 8 and label in EIGHT_BIT:
+                count += 1
+            return warmup_cosine(count, tc.learning_rate, self.warmup,
                                  tc.total_steps)
         return {"proj_in": self.mm_in_projector_lr,
                 "proj_out": self.mm_out_projector_lr}[label] \
             or tc.learning_rate
+
+    def _ready(self) -> None:
+        if not self.optimizers:
+            raise RuntimeError("init_state() first")
 
     # ------------------------------------------------------------------
     def train_step(self, batch: Dict[str, torch.Tensor],
@@ -223,9 +357,8 @@ class Stage2Trainer:
                    ) -> Dict[str, torch.Tensor]:
         """One micro-batch: the forward (draws from `rng`, or the given
         draws), its gradients folded into the running mean, and on every
-        k-th micro-batch the clipped AdamW update. Returns the losses."""
-        if self.optimizer is None:
-            raise RuntimeError("init_state() first")
+        k-th micro-batch the clipped update. Returns the losses."""
+        self._ready()
         ids = batch["input_ids"]
         draws = (rng if isinstance(rng, ForwardDraws)
                  else self.model.draw_forward(ids.shape[0], rng))
@@ -238,11 +371,13 @@ class Stage2Trainer:
         k = self.train_cfg.grad_accum_steps
         n = self.step % k
         self._acc = accumulate(self._acc, grads, n)
+        del grads
         self.step += 1
         if n == k - 1:
-            optimizer_step(self.optimizer, self.trainable, self._acc,
-                           self.train_cfg.max_grad_norm,
-                           lambda group: self.lr(group["label"]))
+            optimizer_step(list(self.optimizers.values()), self.trainable,
+                           self._acc, self.train_cfg.max_grad_norm,
+                           lambda group: self.lr(group["label"]),
+                           self._norm_order)
             self.updates += 1
             self._acc = None
         return {"lm_loss": out.lm_loss.detach(),
@@ -253,18 +388,20 @@ class Stage2Trainer:
                    = None) -> Dict[str, Any]:
         """The run's state in three parts, as the JAX `Stage2State` holds
         it (utils/checkpoint writes each to a file of its own): 'params'
-        (the model's state dict), 'lora' ({'<module>.a': A, '<module>.b':
-        B}) and 'train' (the optimizer's state with the Adam moments, the
-        micro-batch and update counts, the accumulated gradients and the
-        state of each of `generators`, the caller's). Tensors are the live
-        ones: `to_host` or a checkpoint save copies them."""
-        if self.optimizer is None:
-            raise RuntimeError("init_state() first")
+        (the model's state dict: under QLoRA the int8 weights and their
+        `qscale`), 'lora' ({'<module>.a': A, '<module>.b': B}) and 'train'
+        (each optimizer's state by kind, with the Adam moments (int8 with
+        their scales under `Adam8bit`), the micro-batch and update counts,
+        the accumulated gradients and the state of each of `generators`,
+        the caller's). Tensors are the live ones: `to_host` or a checkpoint
+        save copies them."""
+        self._ready()
         lora = {}
         for name, (a, b) in self.lora.items():
             lora[f"{name}.a"], lora[f"{name}.b"] = a, b
         return {"params": self.model.state_dict(), "lora": lora, "train": {
-            "optimizer": self.optimizer.state_dict(),
+            "optimizers": {k: opt.state_dict()
+                           for k, opt in self.optimizers.items()},
             "step": self.step, "updates": self.updates, "acc": self._acc,
             "generators": {k: g.get_state()
                            for k, g in (generators or {}).items()}}}
@@ -275,10 +412,9 @@ class Stage2Trainer:
                         = None) -> None:
         """Restore a `state_dict()` into a trainer built with the same
         configuration and `init_state()`: parameters, adapters, optimizer
-        state, counts, accumulated gradients, and the states of
+        states, counts, accumulated gradients, and the states of
         `generators` (each name must be in the state)."""
-        if self.optimizer is None:
-            raise RuntimeError("init_state() first")
+        self._ready()
         self.model.load_state_dict(state["params"], strict=True)
         lora = state["lora"]
         if set(lora) != {f"{n}.{f}" for n in self.lora for f in "ab"}:
@@ -288,7 +424,12 @@ class Stage2Trainer:
             a.copy_(lora[f"{name}.a"])
             b.copy_(lora[f"{name}.b"])
         train = state["train"]
-        self.optimizer.load_state_dict(train["optimizer"])
+        if set(train["optimizers"]) != set(self.optimizers):
+            raise KeyError(f"the checkpoint's optimizers "
+                           f"{sorted(train['optimizers'])} differ from the "
+                           f"trainer's {sorted(self.optimizers)}")
+        for kind, opt in self.optimizers.items():
+            opt.load_state_dict(train["optimizers"][kind])
         self.step, self.updates = int(train["step"]), int(train["updates"])
         dev = self.model.device
         self._acc = (None if train["acc"] is None else
@@ -297,6 +438,11 @@ class Stage2Trainer:
             g.set_state(train["generators"][key].cpu())
 
     def merged_params(self) -> Dict[str, torch.Tensor]:
-        """The model's state dict with the adapters merged in."""
-        return merge_lora(self.model.state_dict(), self.lora,
-                          self.lora_alpha, self.lora_r)
+        """The model's state dict with the adapters merged in; under QLoRA
+        the int8 weights dequantised to the compute type first (the JAX
+        trainer's order), so the merged weights are float and servable."""
+        state = self.model.state_dict()
+        if self.quant_base:
+            state = dequantize(state, getattr(torch,
+                                              self.train_cfg.compute_dtype))
+        return merge_lora(state, self.lora, self.lora_alpha, self.lora_r)

@@ -34,7 +34,11 @@ unused leaf raises.
 `lora_from_flax` carries the JAX package's LoRA tree ({flax kernel path:
 {'a': (in, r), 'b': (r, out)}}, paths such as
 "['params']['llama']['model']['layer_0']['attn']['q_proj']['kernel']") into
-the port's adapters ({module name: (A, B)}, the same layout), strictly.
+the port's adapters ({module name: (A, B)}, the same layout and type),
+strictly. The JAX QLoRA state (its int8 kernels, which `from_flax` keeps
+int8, and the `qscales` dict keyed by the same paths) loads through
+`load_flax_params(..., qscales=)` into a model quantised by
+`train/qlora.quantize_base`.
 
 `load_stage1_flax` fills a stage-1 trainer from the JAX `Stage1State`'s
 trees: `gen_params` {'setok', 'contrastive'[, 'text_encoder']},
@@ -221,23 +225,41 @@ def lora_from_flax(lora, model: nn.Module) -> Dict[str, tuple]:
         if keys[-1:] != ["kernel"] or not isinstance(mod, Dense):
             raise KeyError(f"LoRA path {path} names no Dense kernel of the "
                            "model")
-        a, b = (np.asarray(ab[k], np.float32) for k in ("a", "b"))
+        a, b = (to_tensor(np.asarray(ab[k])) for k in ("a", "b"))
         if a.shape[0] != mod.in_features or b.shape[1] != mod.out_features \
                 or a.shape[1] != b.shape[0]:
-            raise ValueError(f"{path}: LoRA shapes {a.shape}, {b.shape} for "
-                             f"a {mod.in_features} → {mod.out_features} "
-                             "linear")
+            raise ValueError(f"{path}: LoRA shapes {tuple(a.shape)}, "
+                             f"{tuple(b.shape)} for a {mod.in_features} → "
+                             f"{mod.out_features} linear")
         dev = mod.weight.device
-        out[name] = (nn.Parameter(torch.tensor(a, device=dev)),
-                     nn.Parameter(torch.tensor(b, device=dev)))
+        out[name] = (nn.Parameter(a.to(dev)), nn.Parameter(b.to(dev)))
+    return out
+
+
+def qscales_from_flax(qscales) -> Dict[str, torch.Tensor]:
+    """The JAX QLoRA scales ({flax kernel path: (1, out) float32}, the
+    `qscales` of a `Stage2State`) → {'<module>.qscale': (1, out) float32},
+    the buffers `train/qlora.quantize_base` puts beside each int8 weight."""
+    out = {}
+    for path, value in qscales.items():
+        keys = re.findall(r"\['([^']*)'\]", path)
+        if keys[:1] == ["params"]:
+            keys = keys[1:]
+        if keys[-1:] != ["kernel"]:
+            raise KeyError(f"QLoRA scale path {path} names no kernel")
+        out[".".join(keys[:-1] + ["qscale"])] = to_tensor(np.asarray(value))
     return out
 
 
 def load_flax_params(model: nn.Module, params,
-                     skip: Iterable[str] = ()) -> nn.Module:
+                     skip: Iterable[str] = (), qscales=None) -> nn.Module:
     """Fill every parameter and buffer of `model` from the flax tree,
-    strictly; `skip`: top-level subtrees the model does not hold."""
+    strictly; `skip`: top-level subtrees the model does not hold.
+    `qscales`: the JAX QLoRA scales of a tree whose targeted kernels are
+    int8, for a model that `train/qlora.quantize_base` has quantised."""
     state = from_flax(params, skip)
+    if qscales is not None:
+        state.update(qscales_from_flax(qscales))
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     unused = sorted(set(state) - set(own))

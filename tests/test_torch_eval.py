@@ -121,7 +121,10 @@ def test_eval_recon_matches_jax(setok_npz, precision, monkeypatch, capsys):
     argv = ["--tiny", "--cpu", "--synthetic", "4", "--fid", "--batch-size",
             "2", "--image-size", str(IMAGE_SIZE), "--checkpoint", path,
             "--precision", precision]
-    monkeypatch.setattr(sys, "argv", ["eval_recon.py", *argv])
+    # the JAX CLI's persistent compilation cache stays off: turned on, it
+    # would write under $HOME and stay on for the process's later tests
+    monkeypatch.setattr(sys, "argv", ["eval_recon.py", *argv,
+                                      "--compile-cache", "off"])
     jax_script("eval_recon").main()
     want = last_json(capsys.readouterr().out)
     got = eval_recon.main(argv)

@@ -449,8 +449,7 @@ def test_cli_clamps_like_the_jax_cli():
 
 @pytest.mark.parametrize("argv", [
     ["--data-path", "x.json"], ["--compile-cache", "cache"],
-    ["--lpips-weights", "vgg.npz"], ["--optim-bits", "8"],
-    ["--offload-optimizer"]])
+    ["--lpips-weights", "vgg.npz"], ["--offload-optimizer"]])
 def test_cli_refuses_unported_flags(argv):
     """Flags the port does not run, and --data-path beside --synthetic
     (one data source)."""

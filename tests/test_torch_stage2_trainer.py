@@ -13,8 +13,10 @@ tests/test_torch_stage2.py). Bars:
   * the labels of every parameter and adapter, for each freezing flag,
     equal the JAX trainer's, and exactly the 'frozen' ones have
     requires_grad off;
-  * QLoRA, 8-bit moments, the vision tower's training and ring attention
-    raise `NotImplementedError` naming their ROADMAP.md entry.
+  * ring attention raises `NotImplementedError` naming its ROADMAP.md
+    entry (QLoRA, 8-bit moments, bf16 parameters and the vision tower's
+    training are held to the JAX trainer in
+    tests/test_torch_stage2_options.py).
 """
 
 import numpy as np
@@ -116,10 +118,7 @@ def test_labels_match_jax_trainer(flax_params, flags):
     assert frozen == {n for n, lab in want.items() if lab == "frozen"}
 
 
-@pytest.mark.parametrize("option", [{"quant_base": True, "lora_enable": True},
-                                    {"optim_bits": 8},
-                                    {"unfreeze_mm_vision_tower": True},
-                                    {"ring_mesh": object()}])
+@pytest.mark.parametrize("option", [{"ring_mesh": object()}])
 def test_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Stage2Trainer(port_cfg(), device="cpu", **option)
