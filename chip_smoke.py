@@ -3,6 +3,7 @@
 versions.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py parallel data     # those phases alone (a check)
 
 Phases, each printed as one JSON line; any failure exits non-zero before
 the last line:
@@ -242,12 +243,19 @@ the last line:
                 with FID (PSNR, SSIM, clusters, FID, img/s, the clustering
                 and int8 kernels counted).
 
+  parallel      the entry points' mesh code (setok_tpu_torch/parallel/)
+                over a one-rank NCCL group: a stage-2 update through
+                make_mesh 1x1 (FSDP, the TP forms over one rank), the ring
+                path at sp = 1, and ServeEngine(mesh=...) at bits 8, each
+                against the same run without a mesh (after train_parity).
+
 Then the kernels summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no JAX: it imports setok_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -4560,7 +4568,209 @@ def phase_builder(cfg) -> dict:
     return {"launches": launches, "bits4_launches": q4_launches}
 
 
-def main() -> int:
+# ----------------------------------------------------------------------------
+# the mesh code of the entry points (parallel/) over a one-rank NCCL group
+
+PAR_LAYERS = 2                       # the trunk cut of the parallel phase
+PAR_RING = (1, 1024)                 # the ring comparison's micro-batch
+PAR_LOSS_TOL = 1e-5                  # losses: the flash forward bar
+PAR_NORM_TOL = 2e-4                  # gradient norms: the gradient bar
+# updated parameters: Adam turns a gradient's rounding noise (the card's
+# atomics reorder sums from run to run) into steps of up to lr where the
+# gradient is near 0; elements beyond 1e-4 of their tensor's largest, at
+# most this share, and none beyond Adam's bound of 2·lr an update
+PAR_PARAM_SHARE = 1e-2
+PAR_LR = 2e-4
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_trainer(cfg, mesh=None, ring_mesh=None, compute_dtype="bfloat16",
+                use_flash=True) -> Stage2Trainer:
+    """`build_trainer`'s finetune.sh configuration, one micro-batch an
+    update, on a mesh (or none)."""
+    tc = cfgs.TrainConfig(learning_rate=2e-4, max_grad_norm=1.0,
+                          warmup_steps=1, total_steps=3,
+                          batch_size=TRAIN_BATCH, grad_accum_steps=1,
+                          compute_dtype=compute_dtype)
+    tr = Stage2Trainer(cfg, train_cfg=tc, target_token_id=3,
+                       lora_enable=True, lora_r=128, lora_alpha=256.0,
+                       mm_in_projector_lr=2e-5, use_flash=use_flash,
+                       mesh=mesh, ring_mesh=ring_mesh)
+    init_setokim_random_(tr.model, SEED)
+    tr.init_state(SEED + 1)
+    return tr
+
+
+def par_updates(tr: Stage2Trainer, batches) -> dict:
+    """Two updates (the first at lr 0 for the scheduled groups, the
+    projectors at their constant rate): the losses, the gradient norm, the
+    LoRA factors and projectors after, and the flash launches."""
+    fa.reset_counts()
+    losses, norms = [], []
+    for i, b in enumerate(batches):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11 + i)
+        m = tr.train_step(b, gen)
+        losses.append([float(m["lm_loss"]), float(m["diff_loss"])])
+        norms.append(float(tr.last_grad_norm))
+    torch.cuda.synchronize()
+    params = {f"lora.{n}.{f}": t.detach().clone()
+              for n, ab in tr.lora.items() for f, t in zip("ab", ab)}
+    params.update({n: p.detach().clone() for n, p in
+                   tr.model.named_parameters() if "projector" in n})
+    return {"losses": losses, "norms": norms, "params": params,
+            "launches": dict(fa.LAUNCHES)}
+
+
+def par_gap(got: dict, want: dict) -> dict:
+    """Losses and gradient norms max-rel; the parameters' largest step
+    gap against Adam's bound and the share of elements beyond 1e-4 of
+    their tensor's largest."""
+    loss = max(abs(a - b) / max(abs(b), 1e-30)
+               for ga, wa in zip(got["losses"], want["losses"])
+               for a, b in zip(ga, wa))
+    norm = max(abs(a - b) / max(abs(b), 1e-30)
+               for a, b in zip(got["norms"], want["norms"]))
+    worst, name, n, beyond = 0.0, None, 0, 0
+    for k, w in want["params"].items():
+        gap = (got["params"][k].float() - w.float()).abs()
+        if float(gap.max()) > worst:
+            worst, name = float(gap.max()), k
+        n += gap.numel()
+        beyond += int((gap > 1e-4 * w.float().abs().max()).sum())
+    return {"loss_max_rel": loss, "norm_max_rel": norm,
+            "param_max_abs": worst, "param_worst": name,
+            "param_share_beyond": beyond / n,
+            "norms": [got["norms"], want["norms"]]}
+
+
+def check_par_gap(name: str, gap: dict, updates: int) -> None:
+    check(gap["loss_max_rel"] <= PAR_LOSS_TOL,
+          f"parallel: {name} losses {gap['loss_max_rel']}")
+    check(gap["norm_max_rel"] <= PAR_NORM_TOL,
+          f"parallel: {name} gradient norms {gap['norms']}")
+    check(gap["param_max_abs"] <= 2 * PAR_LR * updates
+          and gap["param_share_beyond"] <= PAR_PARAM_SHARE,
+          f"parallel: {name} parameters {gap['param_worst']} "
+          f"{gap['param_max_abs']}, share {gap['param_share_beyond']}")
+
+
+def phase_parallel(cfg) -> dict:
+    """The entry points' mesh code over a one-rank NCCL group: a stage-2
+    update at a PAR_LAYERS cut through `make_mesh` 1×1 (FSDP gathers
+    around every trunk block, the tensor-parallel forms of the trunk over
+    one rank) against the same update without a mesh; the ring path
+    (`make_sp_mesh(1, 1)`: ring attention, the hidden states gathered)
+    against the materialised attention, in float32; and `ServeEngine
+    (mesh=...)` at bits 8 (the row-parallel layers' absmax column and
+    float32 partial sums) against the engine without one: identical
+    greedy streams. Counts are reset before each run and read after it:
+    rows 8, 10 and 11 must have run under the mesh."""
+    import torch.distributed as dist
+    from setok_tpu_torch.parallel.mesh import make_mesh, make_sp_mesh
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        small = cfgs.replace(cfg, llama=cfgs.replace(
+            cfg.llama, num_layers=PAR_LAYERS))
+        batches = train_batches(small, 2, SEED + 7)
+        want = par_updates(par_trainer(small), batches)
+        torch.cuda.empty_cache()
+        mesh = make_mesh(cfgs.MeshConfig(data=1, model=1))
+        tr = par_trainer(small, mesh=mesh)
+        check(tr.fsdp is not None and tr.fsdp.entries,
+              "parallel: FSDP sharded nothing")
+        got = par_updates(tr, batches)
+        train = {"mesh": [1, 1], "fsdp_params": len(tr.fsdp.entries),
+                 "tp_slices": len(tr._pieces) - len(tr.fsdp.entries),
+                 **par_gap(got, want), "launches": got["launches"]}
+        del tr
+        gc.collect()           # the FSDP hooks hold the trainer in a cycle
+        torch.cuda.empty_cache()
+        check_par_gap("mesh", train, len(batches))
+        for name, _ in FLASH_KERNELS:
+            check(got["launches"][name] > 0,
+                  f"parallel: row 10's {name} did not run under the mesh")
+
+        # the ring path at sp = 1 against the materialised attention
+        rs = np.random.RandomState(SEED + 13)
+        ring_batch = [{k: torch.from_numpy(v).cuda() for k, v in
+                       synthetic_batch(small, PAR_RING[0], PAR_RING[1], rs,
+                                       min_len=PAR_RING[1] // 2).items()}]
+        dense = par_updates(par_trainer(small, compute_dtype="float32",
+                                        use_flash=False), ring_batch)
+        torch.cuda.empty_cache()
+        ring = par_updates(par_trainer(small, ring_mesh=make_sp_mesh(1, 1),
+                                       compute_dtype="float32",
+                                       use_flash=False), ring_batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ring_res = {"sp": 1, "batch": list(PAR_RING),
+                    **par_gap(ring, dense)}
+        check_par_gap("ring", ring_res, len(ring_batch))
+
+        # ServeEngine(mesh=...) at bits 8 against the engine without one
+        model = build_setokim(small, 8)
+        reqs = serve_requests(small, SEED + 3, n_image=2, n_text=2)
+        _, plain_h, _, _, _, _ = run_engine(model, reqs, 16)
+        want_streams = [list(h.tokens) for h in plain_h]
+        reset_counts()
+        eng, h, steps, _, wall, _ = run_engine(model, reqs, 16, mesh=mesh)
+        counts = serve_counts()
+        got_streams = [list(x.tokens) for x in h]
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve = {"bits": 8, "streams_identical": got_streams == want_streams,
+                 "tokens": sum(map(len, got_streams)),
+                 "quant_matmul_launches": sum(
+                     counts["quant_matmul_launches"].values()),
+                 "cache_launches": counts["cache_attention"],
+                 "wall_s": wall}
+        check(serve["streams_identical"],
+              f"parallel: mesh streams {got_streams} vs {want_streams}")
+        check(serve["quant_matmul_launches"] > 0 and
+              serve["cache_launches"] > 0,
+              "parallel: rows 8 and 11 did not run under the mesh")
+    finally:
+        dist.destroy_process_group()
+    res = {"phase": "parallel", "trunk_layers": PAR_LAYERS,
+           "train": train, "ring": ring_res, "serve": serve,
+           "phase_seconds": time.perf_counter() - t0}
+    emit(res)
+    return {"flash": got["launches"],
+            "quant_matmul": serve["quant_matmul_launches"],
+            "int8_cache_decode_attention": serve["cache_launches"]}
+
+
+# the phases that run alone (`python3 chip_smoke.py PHASE ...`): each
+# needs only the device and the build
+SELECTABLE = {
+    "parallel": lambda: phase_parallel(cfgs.base_setokim()),
+    "train_options": lambda: phase_train_options(cfgs.base_setokim()),
+    "train_setok": phase_train_setok,
+    "data": phase_data,
+    "param_dtype": phase_param_dtype,
+    "checkpoint": phase_checkpoint,
+    "builder": lambda: phase_builder(cfgs.base_setokim()),
+}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    unknown = [a for a in argv if a not in SELECTABLE]
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}; the phases that run "
+              f"alone: {sorted(SELECTABLE)} (none: every phase)",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -4571,6 +4781,12 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
+    if argv:
+        # a check of some phases, not the run the contract describes: no
+        # kernels line and no last line
+        for name in argv:
+            SELECTABLE[name]()
+        return 0
     entry = phase_kernels()
     int8_entries = phase_int8_kernels()
 
@@ -4665,6 +4881,11 @@ def main() -> int:
     for name, e in flash_entries.items():
         e["launches"] = launches[name]
     phase_train_parity(setokim)
+    par = phase_parallel(setokim)
+    for name, e in flash_entries.items():
+        e["parallel_launches"] = par["flash"][name]
+    for row in ("quant_matmul", "int8_cache_decode_attention"):
+        serve_entries[row]["parallel_launches"] = par[row]
     options = phase_train_options(setokim)
     for name, e in flash_entries.items():
         e["train_options_launches"] = {run: c[name]

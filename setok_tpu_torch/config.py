@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -231,6 +231,16 @@ class SetokimConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axes. data = DP/FSDP shards, model = TP shards
+    (parallel/mesh.make_mesh lays the ranks out row-major over them)."""
+
+    data: int = 1
+    model: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Optimisation settings of the trainers (train/stage1.py,
     train/stage2.py): AdamW, a linear warm-up then cosine decay, the
@@ -238,8 +248,8 @@ class TrainConfig:
     mixed-precision policy (float32 parameters, `compute_dtype`
     activations, `remat` per trunk block). Stage-1 also reads the
     discriminator's constant learning rate and the weights of the L1,
-    LPIPS and contrastive terms. `mesh` of the JAX package's copy is left
-    out: the port runs on one card.
+    LPIPS and contrastive terms. `mesh` is the JAX package's field; the
+    trainers take the built `DeviceMesh` itself (`mesh=`).
     """
 
     learning_rate: float = 1e-3
@@ -256,6 +266,7 @@ class TrainConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat: bool = True
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     contrastive_weight: float = 1.0
     rec_l1_weight: float = 1.0
     lpips_weight: float = 1.0

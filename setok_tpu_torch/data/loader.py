@@ -2,8 +2,10 @@
 prefetching copy to the device.
 
 The counterpart of `setok_tpu/data/loader.py`. `host_shard` takes this
-process's slice of an index stream (rank and world size from
-`torch.distributed` when it is initialised). `BatchLoader` assembles
+process's slice of an index stream over the data ranks (the `data` axis of
+a mesh, or the world); `batch_rows` and `BatchLoader(shard=)` a data
+rank's rows of each global batch, which the ranks of one `model` or `seq`
+group share. `BatchLoader` assembles
 collated numpy batches on worker threads, with the JAX package's
 permutation, order and `drop_last`. `DeviceLoader` takes the place of
 `jax.device_put` with a sharding: a prefetch thread copies each batch to
@@ -30,18 +32,48 @@ import numpy as np
 import torch
 
 
-def host_shard(indices: Sequence[int], process_index: Optional[int] = None,
-               process_count: Optional[int] = None) -> Sequence[int]:
-    """This process's slice of the global index stream (data parallel):
-    rank and world size from `torch.distributed` when it is initialised,
-    else 0 and 1."""
+def data_coordinates(mesh=None) -> tuple:
+    """(this process's index, the count) over the data ranks: the `data`
+    axis of `mesh` (the ranks of a `model` or `seq` group read the same
+    batch), else the whole world when `torch.distributed` is initialised,
+    else (0, 1)."""
+    if mesh is not None:
+        from setok_tpu_torch.parallel.mesh import (DATA_AXIS, axis_rank,
+                                                   axis_size)
+        return axis_rank(mesh, DATA_AXIS), axis_size(mesh, DATA_AXIS)
     dist = torch.distributed
-    ready = dist.is_available() and dist.is_initialized()
-    pi = process_index if process_index is not None else (
-        dist.get_rank() if ready else 0)
-    pc = process_count if process_count is not None else (
-        dist.get_world_size() if ready else 1)
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def host_shard(indices: Sequence[int], process_index: Optional[int] = None,
+               process_count: Optional[int] = None,
+               mesh=None) -> Sequence[int]:
+    """This process's slice of the global index stream (data parallel):
+    index and count as given, or over the data ranks
+    (`data_coordinates(mesh)`)."""
+    pi, pc = data_coordinates(mesh)
+    pi = pi if process_index is None else process_index
+    pc = pc if process_count is None else process_count
     return list(indices)[pi::pc]
+
+
+def batch_rows(batch: Dict[str, Any], index: int, count: int):
+    """Rows [index·B/count, (index+1)·B/count) of a global batch's arrays
+    (a data rank's share; other leaves pass through)."""
+    if count == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray) and v.ndim:
+            n = v.shape[0]
+            if n % count:
+                raise ValueError(f"a batch of {n} rows cannot split over "
+                                 f"{count} data ranks")
+            v = v[index * n // count:(index + 1) * n // count]
+        out[k] = v
+    return out
 
 
 class BatchLoader:
@@ -52,7 +84,7 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, collate: Callable,
                  sampler: Optional[Iterator[int]] = None,
                  num_workers: int = 2, seed: int = 0,
-                 drop_last: bool = True):
+                 drop_last: bool = True, shard: tuple = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate
@@ -60,6 +92,9 @@ class BatchLoader:
         self.num_workers = max(num_workers, 1)
         self.seed = seed
         self.drop_last = drop_last
+        # (index, count): assemble only this data rank's rows of each
+        # global batch (`batch_rows`' share)
+        self.shard = shard
 
     def _indices(self):
         if self.sampler is not None:
@@ -76,6 +111,10 @@ class BatchLoader:
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             for b in range(nb):
                 chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                i, n = self.shard
+                if n > 1:
+                    chunk = chunk[i * len(chunk) // n:
+                                  (i + 1) * len(chunk) // n]
                 items = list(pool.map(self.dataset.__getitem__, chunk))
                 yield self.collate(items)
 

@@ -8,9 +8,11 @@ sets with its own temperature (`multi_label_logit_scale`) unless
 `share_temperature`. Both run in float32.
 
 The JAX package gathers the negatives of every data shard (`all_gather`
-over the mesh's data axis). The port runs on one process: `_gather` is the
-identity there, and raises inside a multi-process group, whose gathering
-waits for ROADMAP.md, Queue A (parallel).
+over the mesh's data axis). Here `group` (the data ranks' process group,
+set by the trainer; None on one process) plays that axis: `_gather` is a
+differentiable all-gather whose backward sums the ranks' gradients (the
+transpose of `jax.lax.all_gather`), the InfoNCE labels are arange(b) +
+b·rank, and the multi-label soft targets lie in the rank's own slot.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from setok_tpu_torch.config import ContrastiveLossConfig
+from setok_tpu_torch.parallel import comm
 from setok_tpu_torch.utils.device import resolve_device
 
 
@@ -29,15 +32,10 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(1e-8)
 
 
-def _gather(x: torch.Tensor) -> torch.Tensor:
-    """The negatives of every process: x itself on one process."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "contrastive negatives across processes: ROADMAP.md, Queue A "
-            "(parallel)")
-    return x
+def _gather(x: torch.Tensor, group) -> torch.Tensor:
+    """dist_collect: (b, ...) → (world·b, ...) over `group`,
+    differentiable; x itself without a group."""
+    return comm.gather_summed(x, 0, group)
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
@@ -50,6 +48,8 @@ class ContrastiveLoss(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        # the data ranks' process group (None: one process)
+        self.group = None
         self.logit_scale = nn.Parameter(torch.zeros((), device=device))
         self.multi_label_logit_scale = None
         if cfg.multi_label > 0 and not cfg.share_temperature:
@@ -73,11 +73,12 @@ class ContrastiveLoss(nn.Module):
                  text_x: torch.Tensor) -> torch.Tensor:
         """InfoNCE of (B, C) image and text embeddings, both directions."""
         b = image_x.shape[0]
-        labels = torch.arange(b, device=image_x.device)
+        rank = comm.group_rank(self.group)
+        labels = torch.arange(b, device=image_x.device) + b * rank
         image_x = _normalize(image_x.float())
         text_x = _normalize(text_x.float())
-        logits_per_img = image_x @ _gather(text_x).t()
-        logits_per_text = text_x @ _gather(image_x).t()
+        logits_per_img = image_x @ _gather(text_x, self.group).t()
+        logits_per_text = text_x @ _gather(image_x, self.group).t()
         scale = self._scale()
         return 0.5 * (_cross_entropy(logits_per_img * scale, labels)
                       + _cross_entropy(logits_per_text * scale, labels))
@@ -92,14 +93,19 @@ class ContrastiveLoss(nn.Module):
         text_x = _normalize(text_feat.float()).reshape(b * l2, -1)
         scale = self._scale(shared=False)
         idx = torch.arange(b, device=image_x.device)
+        world = comm.group_size(self.group)
+        rank = comm.group_rank(self.group)
 
         def masked_ce(logits, l_row, l_col):
             logp = F.log_softmax(logits * scale, dim=-1)
-            own = logp.reshape(b, l_row, b, l_col)[idx, :, idx, :]
+            # the own sample's block in the own rank's slot
+            own = logp.reshape(b, l_row, world, b, l_col)[:, :, rank]
+            own = own[idx, :, idx, :]
             return (-own.sum(dim=-1) / l_col).mean()
 
-        return 0.5 * (masked_ce(image_x @ _gather(text_x).t(), l1, l2)
-                      + masked_ce(text_x @ _gather(image_x).t(), l2, l1))
+        g = self.group
+        return 0.5 * (masked_ce(image_x @ _gather(text_x, g).t(), l1, l2)
+                      + masked_ce(text_x @ _gather(image_x, g).t(), l2, l1))
 
     def forward(self, image_x: torch.Tensor, text_x: torch.Tensor):
         """(loss, metrics) of (B, C) pooled image tokens and encoded

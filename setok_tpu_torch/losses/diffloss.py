@@ -22,6 +22,7 @@ from setok_tpu_torch.config import DiffLossConfig
 from setok_tpu_torch.diffusion.gaussian import (GaussianDiffusion, StepNoise,
                                                 create_diffusion)
 from setok_tpu_torch.models.diffmlp import SimpleMLPAdaLN
+from setok_tpu_torch.parallel import comm
 
 
 class SampleDraws(NamedTuple):
@@ -58,14 +59,16 @@ class DiffLoss(nn.Module):
 
     def forward(self, target: torch.Tensor, z: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, *, t: torch.Tensor,
-                noise: torch.Tensor) -> torch.Tensor:
+                noise: torch.Tensor, count_group=None) -> torch.Tensor:
         """target/z: (N, C)/(N, Z); mask: (N,) weights → the scalar loss,
-        the mask-weighted mean of the per-token terms."""
+        the mask-weighted mean of the per-token terms (the mask's sum taken
+        over the data ranks of `count_group`, where given)."""
         terms = self.train_diffusion.training_losses(
             self.net, target.float(), t, noise, model_kwargs={"c": z})
         loss = terms["loss"]
         if mask is not None:
-            loss = (loss * mask).sum() / mask.sum().clamp_min(1.0)
+            denom = comm.all_reduce_(mask.sum(), count_group)
+            loss = (loss * mask).sum() / denom.clamp_min(1.0)
         return loss.mean()
 
     def draw_sample(self, n: int, use_cfg: bool,

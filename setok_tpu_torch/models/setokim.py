@@ -57,6 +57,7 @@ from setok_tpu_torch.models.detokenizer import SetokDeTokenizer
 from setok_tpu_torch.models.llama import (KVCache, LlamaForCausalLM,
                                           init_cache, make_attention_mask)
 from setok_tpu_torch.models.projector import build_projector
+from setok_tpu_torch.parallel import comm
 from setok_tpu_torch.models.tokenizer import SetokTokenizer
 from setok_tpu_torch.utils.device import resolve_device
 
@@ -158,6 +159,10 @@ class Setokim(nn.Module):
             cfg.mm_out_projector_type, cfg.llama.hidden_size,
             cfg.diffloss.z_channels, **kw)
         self.diffloss = DiffLoss(cfg.diffloss, **kw)
+        # data parallelism: the process group over which the losses'
+        # denominators sum (each rank's loss is then its share of the
+        # global batch's), or None
+        self.count_group = None
 
     @property
     def device(self) -> torch.device:
@@ -241,8 +246,13 @@ class Setokim(nn.Module):
             valid = input_ids != self.pad_token_id
             positions = torch.cumsum(valid.to(torch.int32), dim=1) - 1
             embeds = self.llama.embed(input_ids)
-        mask = make_attention_mask(valid, positions)
-        hidden, _ = self.llama.model(embeds, mask, positions)
+        if self.llama.ring_mesh is not None:
+            # ring attention derives causality from positions/valid per
+            # sequence slice: no (B, 1, L, L) global mask exists
+            hidden = self.llama.ring_forward(embeds, positions, valid)
+        else:
+            mask = make_attention_mask(valid, positions)
+            hidden, _ = self.llama.model(embeds, mask, positions)
         logits = self.llama.logits(hidden)
 
         zero = hidden.new_zeros((), dtype=torch.float32)
@@ -277,8 +287,8 @@ class Setokim(nn.Module):
                 -1, -1, logits.shape[-1]))
         logp = torch.log_softmax(pred_logits.float(), dim=-1)
         picked = torch.gather(logp, 2, shift_labels.clamp_min(0)[..., None])
-        denom = shift_valid.sum().clamp_min(1)
-        return -(picked[..., 0] * shift_valid).sum() / denom
+        denom = comm.all_reduce_(shift_valid.sum(), self.count_group)
+        return -(picked[..., 0] * shift_valid).sum() / denom.clamp_min(1)
 
     def _diffusion_branch(self, hidden, labels, gen_images,
                           draws: DiffusionDraws):
@@ -309,7 +319,7 @@ class Setokim(nn.Module):
         flat_z = z.reshape(b * tn, -1).repeat(mul, 1)
         flat_m = diff_mask.reshape(-1).repeat(mul)
         return self.diffloss(flat_t, flat_z, flat_m, t=draws.t,
-                             noise=draws.noise)
+                             noise=draws.noise, count_group=self.count_group)
 
     def init_all(self, input_ids, images, labels, gen_images,
                  draws: Optional[ForwardDraws] = None) -> SetokimOutput:
@@ -345,7 +355,8 @@ class Setokim(nn.Module):
     def _prefill_trunk(self, embeds, valid, positions, max_len, cache_dtype):
         b, l = valid.shape
         cache = init_cache(self.cfg.llama, b, max_len, dtype=cache_dtype,
-                           device=embeds.device)
+                           device=embeds.device,
+                           kv_heads=self.llama.kv_heads)
         cache_valid = torch.zeros((b, max_len), dtype=torch.bool,
                                   device=valid.device)
         cache_valid[:, :l] = valid

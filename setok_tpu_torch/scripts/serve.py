@@ -24,10 +24,15 @@ and registers it as a cached prefix, which needs `--prefill-chunk`.
 .load_pretrained_model` (a stage-2 run directory of the port, its adapters
 merged; `--bits 8|4` quantised after the load), in place of the seed.
 
-The flags are the JAX CLI's (`scripts/serve.py`) that this port runs; its
-others are refused with a message naming their ROADMAP.md entry. There,
-`--tiny` defaults to on, so that the JAX CLI always runs the test
-configuration; here it is a switch, and the default is the full width.
+`--tensor-parallel T` under `torchrun --nproc-per-node N` (one process
+per card; with `--cpu`, gloo processes): a (N/T, T) (data, model) mesh as
+the JAX CLI builds it, the trunk TP-sharded over `model` and the KV cache
+over kv heads (serve/engine.py); every rank runs the engine on the same
+prompts and the first prints. At one process the mesh has size 1.
+
+The flags are the JAX CLI's (`scripts/serve.py`). There, `--tiny`
+defaults to on, so that the JAX CLI always runs the test configuration;
+here it is a switch, and the default is the full width.
 """
 
 from __future__ import annotations
@@ -43,14 +48,9 @@ from setok_tpu_torch.data.tokenizer import load_text_tokenizer
 from setok_tpu_torch.models.builder import load_pretrained_model
 from setok_tpu_torch.models.llama import valid_quant_group
 from setok_tpu_torch.models.setokim import Setokim
+from setok_tpu_torch.scripts.train_setok import main_rank, parallel_setup
 from setok_tpu_torch.serve import ServeEngine
 from setok_tpu_torch.utils.init import init_setokim_random_
-
-# the JAX CLI's flags that this port does not run
-REFUSED = {
-    "tensor_parallel": "multi-card serving: ROADMAP.md, Queue A (serving "
-                       "features; after the parallel item)",
-}
 
 DEMO_PROMPTS = ["Describe the image.", "What color is the sky?",
                 "Write a haiku about clustering.",
@@ -96,13 +96,9 @@ def parse_args(argv=None):
     p.add_argument("--cpu", action="store_true")
     p.add_argument("--checkpoint", default=None,
                    help="a stage-2 run directory (models/builder.py)")
-    for name in REFUSED:
-        p.add_argument("--" + name.replace("_", "-"), default=None,
-                       help=argparse.SUPPRESS)
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="TP-shard the trunk over T ranks (torchrun)")
     args = p.parse_args(argv)
-    for name, why in REFUSED.items():
-        if getattr(args, name) is not None:
-            p.error(f"--{name.replace('_', '-')} is not ported: {why}")
     if args.system_prompt and args.prefill_chunk <= 0:
         p.error("--system-prompt requires --prefill-chunk")
     return args
@@ -110,7 +106,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    device = "cpu" if args.cpu else None
+    device, mesh, _ = parallel_setup(args.cpu, args.tensor_parallel)
+    show = main_rank()
     cfg = cfgs.tiny_setokim() if args.tiny else cfgs.base_setokim()
     group = (valid_quant_group(cfg.llama, args.quant_group)
              if args.bits == 4 else 0)
@@ -157,10 +154,11 @@ def main(argv=None) -> None:
                       cache_dtype=(torch.int8 if args.kv_bits == 8
                                    else torch.bfloat16),
                       eos_id=getattr(tok, "eos_token_id", 2),
-                      pad_id=getattr(tok, "pad_token_id", 0))
+                      pad_id=getattr(tok, "pad_token_id", 0), mesh=mesh)
     if len(sys_ids):
         eng.register_prefix(sys_ids)
-        print(f"registered {len(sys_ids)}-token system-prompt prefix")
+        if show:
+            print(f"registered {len(sys_ids)}-token system-prompt prefix")
     t0 = time.perf_counter()
     reqs = [eng.submit(e, max_new_tokens=args.max_new_tokens) for e in enc]
     pending = set(range(len(reqs)))
@@ -169,10 +167,16 @@ def main(argv=None) -> None:
         for i in sorted(pending):
             if reqs[i].done:
                 pending.discard(i)
-                print(f"[{i}] {prompts[i]!r} -> "
-                      f"{tok.decode(reqs[i].tokens)!r}")
+                if show:
+                    print(f"[{i}] {prompts[i]!r} -> "
+                          f"{tok.decode(reqs[i].tokens)!r}")
     ntok = sum(len(r.tokens) for r in reqs)
     dt = time.perf_counter() - t0
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    if not show:
+        return
     print(f"{len(reqs)} requests, {ntok} tokens in {dt:.1f}s "
           f"({ntok / max(dt, 1e-9):.1f} tok/s on {model.device})")
     ttfts = [r.ttft for r in reqs if r.ttft is not None]

@@ -45,9 +45,17 @@ directory under /tmp).
 
 The flags are the JAX CLI's (`scripts/train_setok.py`). Those that need
 modules the port lacks raise `NotImplementedError` naming their ROADMAP.md
-entry: LPIPS weights and the compilation cache; the trainer refuses
-optimizer offload (a TPU memory-space feature). `--optim-bits 8` gives the
-generator int8 Adam moments (train/opt8.py).
+entry: LPIPS weights and the compilation cache. `--optim-bits 8` gives the
+generator int8 Adam moments (train/opt8.py); `--offload-optimizer` keeps
+both optimizers' moments in pinned host memory between steps
+(parallel/sharding.HostOffload).
+
+Data parallelism, as the JAX CLI's mesh over every device: run under
+`torchrun --nproc-per-node N` (one process per card; with `--cpu`, gloo
+processes). The state is FSDP-sharded over the N data ranks
+(parallel/sharding.Fsdp), `--batch-size` is the global batch and each rank
+takes its rows of it; only the first rank prints and writes (a save
+gathers the slices; a resume reads each rank's own).
 """
 
 from __future__ import annotations
@@ -66,10 +74,15 @@ from setok_tpu_torch.data.collator import Collator
 from setok_tpu_torch.data.datasets import TextImagePairDataset, load_cc3m
 from setok_tpu_torch.data.image_processing import (GeneratorImageProcessor,
                                                    ImageProcessor)
-from setok_tpu_torch.data.loader import BatchLoader, DeviceLoader
+from setok_tpu_torch.data.loader import (BatchLoader, DeviceLoader,
+                                         batch_rows, data_coordinates)
 from setok_tpu_torch.data.tokenizer import load_text_tokenizer
+from setok_tpu_torch.parallel.mesh import (initialize_multihost,
+                                           local_device, make_mesh,
+                                           make_sp_mesh)
 from setok_tpu_torch.train.stage1 import Stage1Trainer
-from setok_tpu_torch.utils.checkpoint import CheckpointRunner
+from setok_tpu_torch.utils.checkpoint import (CheckpointRunner,
+                                              restore_sharded)
 from setok_tpu_torch.utils.logging import MetricsLogger
 from setok_tpu_torch.utils.synthetic import structured_images
 
@@ -121,7 +134,8 @@ def parse_args(argv=None):
                    help="8: the generator's Adam moments int8 in blocks "
                         "of 256 (train/opt8.py)")
     p.add_argument("--offload-optimizer", action="store_true",
-                   help="not ported (the trainer refuses it)")
+                   help="both optimizers' moments in pinned host memory "
+                        "between steps")
     p.add_argument("--task-type", default="caption",
                    choices=["caption", "generation"])
     p.add_argument("--tokenizer", default=None,
@@ -251,12 +265,52 @@ def epochs(loader: BatchLoader, seed: int):
         epoch += 1
 
 
-def data_loader(args, ds, collate, device) -> DeviceLoader:
+def data_loader(args, ds, collate, device, mesh=None) -> DeviceLoader:
     """`ds`'s collated batches over `--num-workers` threads, epoch after
-    epoch, their arrays copied to `device` ahead of the step."""
+    epoch, their arrays copied to `device` ahead of the step. Under a
+    mesh, each data rank assembles its rows of every global batch of
+    `--batch-size`."""
     loader = BatchLoader(ds, args.batch_size, collate,
-                         num_workers=args.num_workers, seed=args.seed)
+                         num_workers=args.num_workers, seed=args.seed,
+                         shard=data_coordinates(mesh))
     return DeviceLoader(epochs(loader, args.seed), device, prefetch=2)
+
+
+def parallel_setup(cpu: bool, tp: int = 1, sp: int = 1):
+    """Under `torchrun` (one process per card, or per CPU process with
+    --cpu): the process group (NCCL on the card, gloo on the CPU), this
+    rank's device and the mesh, as the JAX CLIs build theirs over the
+    devices: (data, seq) for sp > 1, else (data, model). → (device, mesh,
+    ring_mesh); one process: (device, None, None)."""
+    dev = local_device(cpu)
+    initialize_multihost(device=dev)
+    dist = torch.distributed
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    sp, tp = min(sp, world), min(tp, world)
+    if world == 1:
+        return dev, None, None
+    if sp > 1:
+        return dev, None, make_sp_mesh(world // sp, sp)
+    return dev, make_mesh(cfgs.MeshConfig(data=world // tp, model=tp)), None
+
+
+def main_rank() -> bool:
+    dist = torch.distributed
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def shard_stream(batches, mesh):
+    """A data rank's rows of each global numpy batch."""
+    index, count = data_coordinates(mesh)
+    for b in batches:
+        yield batch_rows(b, index, count)
+
+
+def resume(trainer, ckpt_dir: str, generators, device) -> None:
+    """Load the newest step into `trainer`: each rank reads its slices
+    (`restore_sharded` by the trainer's layout)."""
+    state = restore_sharded(ckpt_dir, shardings=trainer.shardings())
+    trainer.load_state_dict(state, generators)
 
 
 def on_device(batch: dict, device) -> dict:
@@ -270,6 +324,7 @@ def build(args):
     optimizers ready) and its batch stream: the `DeviceLoader` of
     `--data-path`, or the synthetic numpy batches."""
     check_ported(args)
+    dev, mesh, _ = parallel_setup(args.cpu)
     tok, det = configs(args)
     train_cfg = cfgs.TrainConfig(
         learning_rate=args.learning_rate, max_grad_norm=args.max_grad_norm,
@@ -282,15 +337,16 @@ def build(args):
             text_embed_dim=tok.token_feat_dim),
         train_cfg=train_cfg, use_lpips=args.lpips,
         offload_optimizer=args.offload_optimizer, optim_bits=args.optim_bits,
-        use_text_encoder=args.data_path is not None,
-        device="cpu" if args.cpu else None)
+        use_text_encoder=args.data_path is not None, mesh=mesh,
+        device=dev)
     trainer.init_weights_(args.seed)
     trainer.init_state()
     if args.data_path:
         return trainer, data_loader(
             args, dataset(args), Collator(max_len=TEXT_LEN, k_max=tok.k_max),
-            trainer.device)
-    return trainer, synthetic_batches(args, tok.token_feat_dim)
+            trainer.device, mesh)
+    return trainer, shard_stream(synthetic_batches(args, tok.token_feat_dim),
+                                 mesh)
 
 
 def main(argv=None) -> None:
@@ -299,15 +355,25 @@ def main(argv=None) -> None:
     batches = iter(batches)
     dev = trainer.device
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    run_steps(args, trainer, batches, gen, "dropout", dev)
+
+
+def run_steps(args, trainer, batches, gen, gen_key: str, dev) -> None:
+    """The CLIs' loop: resume, then a step per micro-batch, one JSON line
+    each and the checkpoints (under a mesh every rank takes part in a
+    save, which gathers the slices, and the first writes); under
+    torchrun the process group ends with it."""
     runner, metrics_log, start = None, None, 0
+    main = main_rank()
     if args.output_dir:
-        runner = CheckpointRunner(os.path.join(args.output_dir,
-                                               "checkpoints"))
-        metrics_log = MetricsLogger(
-            os.path.join(args.output_dir, "metrics.jsonl"), print_every=0)
+        ckpt_dir = os.path.join(args.output_dir, "checkpoints")
+        runner = CheckpointRunner(ckpt_dir)
+        if main:
+            metrics_log = MetricsLogger(
+                os.path.join(args.output_dir, "metrics.jsonl"),
+                print_every=0)
         if args.resume and runner.latest_step() is not None:
-            trainer.load_state_dict(runner.restore(map_location=dev),
-                                    {"dropout": gen})
+            resume(trainer, ckpt_dir, {gen_key: gen}, dev)
             start = trainer.step
             for _ in range(start):          # the batches already taken
                 next(batches)
@@ -317,23 +383,32 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch, gen)
         metrics = {k: float(v) for k, v in metrics.items()}
-        print(json.dumps({"step": step, "updates": trainer.updates,
-                          "seconds": time.perf_counter() - t0, **metrics}),
-              flush=True)
+        if main:
+            print(json.dumps({"step": step, "updates": trainer.updates,
+                              "seconds": time.perf_counter() - t0,
+                              **metrics}), flush=True)
         if runner is None:
             continue
-        metrics_log.log(step, metrics)
-        if (step + 1) % args.checkpoint_every == 0 or step == args.steps - 1:
-            runner.save(step + 1, trainer.state_dict({"dropout": gen}))
-        if runner.preempted(step):
-            runner.save(step + 1, trainer.state_dict({"dropout": gen}),
-                        force=True)
+        if main:
+            metrics_log.log(step, metrics)
+        last = (step + 1) % args.checkpoint_every == 0 \
+            or step == args.steps - 1
+        pre = runner.preempted(step)
+        if last or pre:
+            state = trainer.full_state_dict({gen_key: gen})
+            if main:
+                runner.save(step + 1, state, force=pre)
+        if pre:
             logger.warning("preempted: saved @ %d, exiting", step + 1)
             break
     if runner is not None:
         runner.close()
-        metrics_log.close()
+        if metrics_log is not None:
+            metrics_log.close()
     batches.close()
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -60,8 +60,18 @@ adapters, train/qlora.py), `--optim-bits 8` gives the trained groups int8
 Adam moments (train/opt8.py; the embedding table keeps 32-bit AdamW) and
 `--unfreeze-mm-vision-tower` trains the vision tower's part above its
 frozen backbone; a checkpoint of each resumes (the int8 base and its
-scales, the int8 moments and theirs). Its parallel flags are refused
-with a message naming their ROADMAP.md entry.
+scales, the int8 moments and theirs).
+
+Parallelism, under `torchrun --nproc-per-node N` (one process per card;
+with `--cpu`, gloo processes), as the JAX CLI builds its mesh over the
+devices: `--tensor-parallel T` a (N/T, T) (data, model) mesh, the trunk
+Megatron-split over `model` and the rest FSDP-sharded over `data`;
+`--sequence-parallel S` a (N/S, S) (data, seq) mesh, ring attention over
+`seq` (exclusive with `--tensor-parallel`, as in JAX); neither, every rank
+on `data`. `--batch-size` is the global batch; each data rank takes its
+rows (the ranks of a `model` or `seq` group the same ones). At one process
+the mesh has size 1 and the flags change nothing, as the JAX CLI's on one
+device. Only the first rank prints and writes.
 """
 
 from __future__ import annotations
@@ -70,7 +80,6 @@ import argparse
 import json
 import logging
 import os
-import time
 
 import numpy as np
 import torch
@@ -85,25 +94,17 @@ from setok_tpu_torch.data.datasets import (EditingDataset,
 from setok_tpu_torch.data.image_processing import (GeneratorImageProcessor,
                                                    ImageProcessor)
 from setok_tpu_torch.data.tokenizer import load_text_tokenizer
-from setok_tpu_torch.scripts.train_setok import data_loader, on_device
+from setok_tpu_torch.scripts.train_setok import (data_loader,
+                                                 parallel_setup, run_steps,
+                                                 shard_stream)
 from setok_tpu_torch.train.stage2 import Stage2Trainer
-from setok_tpu_torch.utils.checkpoint import CheckpointRunner
 from setok_tpu_torch.utils.init import init_setokim_random_
-from setok_tpu_torch.utils.logging import MetricsLogger
 from setok_tpu_torch.utils.porting import load_flat_into
 
 TARGET_TOKEN_ID = 3
 PRETRAIN = ("vision_tokenizer", "vision_detokenizer", "mm_in_mlp_adapter",
             "mm_out_mlp_adapter")
 logger = logging.getLogger("train_setokim")
-
-# the JAX CLI's flags that this port does not run
-REFUSED = {
-    "tensor_parallel": "multi-card training: ROADMAP.md, Queue A (parallel)",
-    "sequence_parallel": "sequence parallelism: ROADMAP.md, Queue A "
-                         "(parallel)",
-}
-
 
 def synthetic_batch(cfg, batch: int, length: int, rs: np.random.RandomState,
                     min_len: int = None):
@@ -183,6 +184,10 @@ def parse_args(argv=None):
                    help="the flash-attention kernels in the LLaMA trunk")
     p.add_argument("--optim-bits", type=int, default=32, choices=[32, 8])
     p.add_argument("--bits", type=int, default=16, choices=[16, 8])
+    p.add_argument("--tensor-parallel", type=int, default=1)
+    p.add_argument("--sequence-parallel", type=int, default=1,
+                   help="shard the sequence over a ring-attention mesh "
+                        "axis; exclusive with --tensor-parallel")
     p.add_argument("--output-dir", default=None,
                    help="checkpoints under <dir>/checkpoints (none without)")
     p.add_argument("--checkpoint-every", type=int, default=500)
@@ -193,13 +198,10 @@ def parse_args(argv=None):
         p.add_argument(f"--pretrain-{name.replace('_', '-')}", default=None,
                        help="an .npz of flat weights, loaded by path "
                             "suffix")
-    for name in REFUSED:
-        p.add_argument("--" + name.replace("_", "-"), default=None,
-                       help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    for name, why in REFUSED.items():
-        if getattr(args, name) is not None:
-            p.error(f"--{name.replace('_', '-')} is not ported: {why}")
+    if args.sequence_parallel > 1 and args.tensor_parallel > 1:
+        p.error("--sequence-parallel and --tensor-parallel are mutually "
+                "exclusive (one trunk mesh)")
     if args.synthetic == bool(args.data_path):
         p.error("give one of --synthetic and --data-path")
     if (args.data_path and args.task_type == "instruction"
@@ -249,8 +251,12 @@ def dataset(args, cfg, tokenizer):
 
 def build(args):
     """The trainer of the parsed flags (random weights from --seed, the
-    `--pretrain-*` files loaded, its optimizer ready) and its batch stream:
-    the `DeviceLoader` of `--data-path`, or the synthetic numpy batches."""
+    `--pretrain-*` files loaded, its optimizer ready, sharded over the
+    mesh under torchrun) and its batch stream: the `DeviceLoader` of
+    `--data-path`, or the synthetic numpy batches (this data rank's rows
+    of each)."""
+    dev, mesh, ring = parallel_setup(args.cpu, args.tensor_parallel,
+                                     args.sequence_parallel)
     cfg = cfgs.tiny_setokim() if args.tiny else cfgs.base_setokim()
     target_id, tokenizer = TARGET_TOKEN_ID, None
     if args.data_path:
@@ -273,7 +279,7 @@ def build(args):
         lora_enable=args.lora_enable, lora_r=args.lora_r,
         lora_alpha=args.lora_alpha, quant_base=args.bits == 8,
         use_flash=args.use_flash, optim_bits=args.optim_bits,
-        device="cpu" if args.cpu else None)
+        mesh=mesh, ring_mesh=ring, device=dev)
     init_setokim_random_(trainer.model, args.seed)
     for name in PRETRAIN:
         path = getattr(args, f"pretrain_{name}")
@@ -284,11 +290,12 @@ def build(args):
                            len(flat), len(unmatched))
     trainer.init_state(args.seed + 1)
     if not args.data_path:
-        return trainer, synthetic_batches(cfg, args)
+        return trainer, shard_stream(synthetic_batches(cfg, args),
+                                     trainer.data_mesh)
     return trainer, data_loader(
         args, dataset(args, cfg, tokenizer),
         Collator(max_len=args.model_max_length, k_max=cfg.tokenizer.k_max),
-        trainer.model.device)
+        trainer.model.device, trainer.data_mesh)
 
 
 def main(argv=None) -> None:
@@ -297,41 +304,7 @@ def main(argv=None) -> None:
     batches = iter(batches)
     dev = trainer.model.device
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
-    runner, metrics_log, start = None, None, 0
-    if args.output_dir:
-        runner = CheckpointRunner(os.path.join(args.output_dir,
-                                               "checkpoints"))
-        metrics_log = MetricsLogger(
-            os.path.join(args.output_dir, "metrics.jsonl"), print_every=0)
-        if args.resume and runner.latest_step() is not None:
-            trainer.load_state_dict(runner.restore(map_location=dev),
-                                    {"draws": gen})
-            start = trainer.step
-            for _ in range(start):          # the batches already taken
-                next(batches)
-            logger.warning("resumed from step %d", start)
-    for step in range(start, args.steps):
-        batch = on_device(next(batches), dev)
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(batch, gen)
-        metrics = {k: float(v) for k, v in metrics.items()}
-        print(json.dumps({"step": step, "updates": trainer.updates,
-                          "seconds": time.perf_counter() - t0, **metrics}),
-              flush=True)
-        if runner is None:
-            continue
-        metrics_log.log(step, metrics)
-        if (step + 1) % args.checkpoint_every == 0 or step == args.steps - 1:
-            runner.save(step + 1, trainer.state_dict({"draws": gen}))
-        if runner.preempted(step):
-            runner.save(step + 1, trainer.state_dict({"draws": gen}),
-                        force=True)
-            logger.warning("preempted: saved @ %d, exiting", step + 1)
-            break
-    if runner is not None:
-        runner.close()
-        metrics_log.close()
-    batches.close()
+    run_steps(args, trainer, batches, gen, "draws", dev)
 
 
 if __name__ == "__main__":

@@ -61,8 +61,17 @@ drawing from the engine's generator; as in the JAX engine the slot frees at
 `_retire`, and the request's `done` flips only when its images are
 harvested (`stats()["renders_in_flight"]` counts those waiting).
 
-Not ported here: multi-card serving (`mesh`), which raises
-`NotImplementedError` with its ROADMAP.md entry.
+Multi-card serving (`mesh`, a (data, model) mesh from
+parallel/mesh.make_mesh, one process per card): the trunk is TP-sharded
+over `model` (models/llama.tensor_parallel_, Megatron column/row split, one
+all-reduce per attention and MLP block), and the KV cache with the int8
+cache's scales holds this rank's kv heads: a shard where `num_kv_heads %
+tp == 0`, else the one kv head its query heads read. Every rank runs the
+same engine on the same requests: the logits are gathered alike on every
+rank, and each sampled token is broadcast from the group's first rank, so
+the scheduler and the streams are the same on every rank (a stream that
+differed would leave the ranks waiting on different collectives). The
+`data` axis holds replicas.
 """
 
 from __future__ import annotations
@@ -80,15 +89,11 @@ from setok_tpu_torch.models.generate import (_top_p_filter, find_image_spans,
                                              generate_image, sample)
 from setok_tpu_torch.models.llama import KVCache, init_cache
 from setok_tpu_torch.models.setokim import Setokim, mark_columns
+from setok_tpu_torch.parallel.mesh import (MODEL_AXIS, axis_group,
+                                           check_backend)
 from setok_tpu_torch.serve.speculative import (clean_drafts,
                                                draft_prompt_lookup,
                                                draw_spec, speculative_sample)
-
-NOT_PORTED = {
-    "mesh": "multi-card serving: ROADMAP.md, Queue A (serving features; "
-            "after the parallel item)",
-}
-
 
 @dataclasses.dataclass
 class Request:
@@ -176,9 +181,13 @@ class ServeEngine:
     mesh: Any = None
 
     def __post_init__(self):
+        self._tp_group = None
         if self.mesh is not None:
-            raise NotImplementedError(
-                f"mesh is not ported: {NOT_PORTED['mesh']}")
+            check_backend(self.model.device)
+            self._tp_group = axis_group(self.mesh, MODEL_AXIS)
+            if self._tp_group is not None \
+                    and self.model.llama.tp_group is None:
+                self.model.llama.tensor_parallel_(self._tp_group)
         if self.prompt_len >= self.max_len:
             raise ValueError("prompt_len must leave decode room in max_len")
         if self.decode_block < 1:
@@ -203,7 +212,8 @@ class ServeEngine:
         b, s = self.max_batch, self.max_len
         cfg = self.model.cfg.llama
         dev = self.model.device
-        kv_shape = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim)
+        kv_shape = (cfg.num_layers, b, s, self.model.llama.kv_heads,
+                    cfg.head_dim)
         quant = self.cache_dtype == torch.int8
 
         def scales():
@@ -249,9 +259,23 @@ class ServeEngine:
         self._n_verify = self._n_verify_rows = self._n_accepted = 0
 
     # ------------------------------------------------------------------
+    def _agree(self, *toks):
+        """Under tensor parallelism, the group's first rank's tokens on
+        every rank (the same values: each rank samples the same gathered
+        logits with the same generator; the broadcast makes it so)."""
+        g = self._tp_group
+        if g is not None:
+            src = torch.distributed.get_global_rank(g, 0)
+            for t in toks:
+                torch.distributed.broadcast(t, src, group=g)
+        return toks[0] if len(toks) == 1 else toks
+
     def _sample(self, logits, counts, samp=None):
         """Penalties, then greedy or temperature/nucleus sampling; with the
         (4, n) per-row vectors `samp`, `sample_rows`."""
+        return self._agree(self._sample_local(logits, counts, samp))
+
+    def _sample_local(self, logits, counts, samp=None):
         if samp is not None:
             return sample_rows(logits, counts, samp, self._gen)
         if self.presence_penalty or self.frequency_penalty:
@@ -340,7 +364,8 @@ class ServeEngine:
         `_prefill_text_impl`."""
         n = ids.shape[0]
         cache = init_cache(self.model.cfg.llama, n, self.max_len,
-                           dtype=self.cache_dtype, device=ids.device)
+                           dtype=self.cache_dtype, device=ids.device,
+                           kv_heads=self.model.llama.kv_heads)
         cache_valid = torch.zeros((n, self.max_len), dtype=torch.bool,
                                   device=ids.device)
         logits, cache, cache_valid = self._run_chunks(ids, lens, cache,
@@ -367,7 +392,8 @@ class ServeEngine:
         padded = np.full((1, pw), self.pad_id, np.int64)
         padded[0, :len(ids)] = ids
         cache = init_cache(self.model.cfg.llama, 1, self.max_len,
-                           dtype=self.cache_dtype, device=dev)
+                           dtype=self.cache_dtype, device=dev,
+                           kv_heads=self.model.llama.kv_heads)
         cache_valid = torch.zeros((1, self.max_len), dtype=torch.bool,
                                   device=dev)
         _, cache, cache_valid = self._run_chunks(
@@ -497,6 +523,7 @@ class ServeEngine:
             out_tok, acc = speculative_sample(
                 torch.softmax(scaled, dim=-1), drafts,
                 draw_spec(b, d, logits.shape[-1], self._gen, dev))
+        out_tok, acc = self._agree(out_tok.contiguous(), acc.contiguous())
         emit = torch.where(active, acc + 1, 0).to(torch.int32)
         keep = torch.arange(t, device=dev)[None, :] < emit[:, None]
         self._cache_valid = mark_columns(cache_valid, old_len, keep)

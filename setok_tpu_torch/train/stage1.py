@@ -1,6 +1,6 @@
 """Stage-1 SeTok training: reconstruction, PatchGAN and contrastive terms.
 
-The counterpart of `setok_tpu/train/stage1.py` on one card. One
+The counterpart of `setok_tpu/train/stage1.py`. One
 `train_step` runs a generator update, then a discriminator update, each
 with its own optimizer:
 
@@ -38,14 +38,27 @@ leaves it unchanged. Here the frozen parameters (the tokenizer's
 `frozen_parameters`, `requires_grad` off) are in no optimizer: the same
 result, bit for bit. A weight decay above 0 would shrink the JAX
 package's frozen backbone; the port refuses it rather than copy that.
-The LPIPS net is frozen too. `offload_optimizer` (a TPU memory-space
-feature) raises `NotImplementedError`. The JAX trainer builds SeTok in
-float32 whatever `TrainConfig.param_dtype` says, so another
-`param_dtype` raises `ValueError` here.
+The LPIPS net is frozen too. The JAX trainer builds SeTok in float32
+whatever `TrainConfig.param_dtype` says, so another `param_dtype` raises
+`ValueError` here.
+
+`offload_optimizer`: both optimizers' moments live in pinned host memory
+between steps and come to the card on a side stream for the update
+(parallel/sharding.HostOffload); the update is the same, bit for bit.
+
+`mesh` (parallel/mesh.make_mesh, over `data`): data parallelism with the
+FSDP rule over every module (parallel/sharding.Fsdp, gathered for the
+step). Each rank takes its rows of the global batch; its losses are the
+means over them, so its backward is scaled by 1/data and the gradients
+summed: the global batch's. The adaptive weight's two pixel-head
+gradients are averaged over the ranks before their norms, and the
+contrastive loss gathers the negatives of every rank
+(losses/contrastive.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -64,17 +77,19 @@ from setok_tpu_torch.losses.mse import l1_loss
 from setok_tpu_torch.models.detokenizer import unpatchify
 from setok_tpu_torch.models.setok import SeTok
 from setok_tpu_torch.models.text_encoder import TextEncoder
-from setok_tpu_torch.train.opt8 import Adam8bit, module_perms
-from setok_tpu_torch.train.stage2 import (accumulate, global_norm,
-                                          optimizer_step, warmup_cosine)
+from setok_tpu_torch.parallel import comm
+from setok_tpu_torch.parallel.mesh import (DATA_AXIS, axis_group,
+                                           check_backend)
+from setok_tpu_torch.parallel.sharding import (Fsdp, HostOffload,
+                                               gather_layout,
+                                               sharded_sq_norm)
+from setok_tpu_torch.train.opt8 import BLOCK, Adam8bit, module_perms
+from setok_tpu_torch.train.stage2 import (_state_pieces, accumulate,
+                                          global_norm, optimizer_step,
+                                          warmup_cosine)
 from setok_tpu_torch.utils import metrics as quality
 from setok_tpu_torch.utils.device import resolve_device
 from setok_tpu_torch.utils.init import init_random_
-
-NOT_PORTED = {
-    "offload_optimizer": "Adam moments in host memory (a TPU memory-space "
-                         "feature of the JAX package): not ported",
-}
 # the discriminator's convolution kernels: flax normal(0.02)
 DISC_CONV_STD = 0.02
 
@@ -91,12 +106,10 @@ class Stage1Trainer:
     use_text_encoder: bool = False
     offload_optimizer: bool = False
     optim_bits: int = 32
+    mesh: Any = None
     device: Any = None
 
     def __post_init__(self):
-        if self.offload_optimizer:
-            raise NotImplementedError(
-                f"offload_optimizer: {NOT_PORTED['offload_optimizer']}")
         if self.optim_bits not in (32, 8):
             raise ValueError(f"optim_bits must be 32 or 8, got "
                              f"{self.optim_bits}")
@@ -123,6 +136,10 @@ class Stage1Trainer:
             if self.use_text_encoder else None)
         self.warmup = min(tc.warmup_steps, max(tc.total_steps - 1, 0))
         self.gen_opt: Optional[torch.optim.Optimizer] = None
+        check_backend(dev)
+        self.group = axis_group(self.mesh, DATA_AXIS)
+        self.contrastive.group = self.group
+        self.fsdp: Optional[Fsdp] = None
 
     # ------------------------------------------------------------------
     def init_weights_(self, seed: int = 0) -> None:
@@ -152,6 +169,10 @@ class Stage1Trainer:
             gen += list(self.text_encoder.parameters())
         self.gen_params = gen
         self.disc_params = list(self.disc.parameters())
+        if self.group is not None and self.fsdp is None:
+            self.fsdp = Fsdp(torch.nn.ModuleDict(self.parts()), self.mesh,
+                             block_params=gen if self.optim_bits == 8
+                             else (), block=BLOCK)
         if self.optim_bits == 8:
             perms = module_perms(*self.parts().values())
             self.gen_opt = Adam8bit(
@@ -164,6 +185,9 @@ class Stage1Trainer:
         self.disc_opt = torch.optim.Adam(
             self.disc_params, lr=tc.disc_learning_rate,
             betas=(tc.beta1, tc.beta2), eps=1e-8)
+        if self.offload_optimizer:
+            self.gen_opt = HostOffload(self.gen_opt)
+            self.disc_opt = HostOffload(self.disc_opt)
         self.step = 0            # micro-batches
         self.updates = 0         # optimizer updates
         self._acc = None
@@ -256,6 +280,12 @@ class Stage1Trainer:
         rec, _ = self._rec_terms(recon, gold)
         grad_rec, = torch.autograd.grad(rec, w, retain_graph=True)
         grad_g, = torch.autograd.grad(generator_loss(self.disc(recon)), w)
+        if self.group is not None:
+            # the global batch's gradients: the mean of the ranks'
+            n = comm.group_size(self.group)
+            for g in (grad_rec, grad_g):
+                comm.all_reduce_(g, self.group)
+                g.div_(torch.full_like(g, n))
         return adaptive_weight(grad_rec, grad_g, self.gan_cfg.weight)
 
     def _text_embedding(self, batch) -> Optional[torch.Tensor]:
@@ -308,25 +338,34 @@ class Stage1Trainer:
         if self.gen_opt is None:
             raise RuntimeError("init_state() first")
         gold = batch["gen_image"]
+        n = comm.group_size(self.group)
+        gathered = (self.fsdp.gathered() if self.fsdp is not None
+                    else contextlib.nullcontext())
+        with gathered:
+            # ---------------- generator ----------------
+            total, metrics, recon = self.generator_terms(batch, generator)
+            # each rank's loss is its rows' mean: 1/n of the global one
+            grads = torch.autograd.grad(total / n if n > 1 else total,
+                                        self.gen_params, allow_unused=True)
+            gen_grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(self.gen_params, grads)]
+            self._sync(self.gen_params, gen_grads)
+            metrics["grad_norm"] = self._norm(self.gen_params, gen_grads)
 
-        # ---------------- generator ----------------
-        total, metrics, recon = self.generator_terms(batch, generator)
-        grads = torch.autograd.grad(total, self.gen_params,
-                                    allow_unused=True)
-        gen_grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(self.gen_params, grads)]
-        metrics["grad_norm"] = global_norm(gen_grads)
-
-        # ---------------- discriminator ----------------
-        recon_sg = recon.detach()
-        logits_real = self.disc(gold)
-        logits_fake = self.disc(recon_sg)
-        d_loss = discriminator_loss(logits_real, logits_fake, self.step,
-                                    self.gan_cfg)
-        disc_grads = list(torch.autograd.grad(d_loss, self.disc_params))
+            # ---------------- discriminator ----------------
+            recon_sg = recon.detach()
+            logits_real = self.disc(gold)
+            logits_fake = self.disc(recon_sg)
+            d_loss = discriminator_loss(logits_real, logits_fake, self.step,
+                                        self.gan_cfg)
+            disc_grads = list(torch.autograd.grad(
+                d_loss / n if n > 1 else d_loss, self.disc_params))
+            self._sync(self.disc_params, disc_grads)
         metrics.update(total_loss=total, d_loss=d_loss,
                        logits_real=logits_real.mean(),
                        logits_fake=logits_fake.mean())
+        if n > 1:
+            metrics = self._mean_metrics(metrics)
 
         tc = self.train_cfg
         n = self.step % tc.grad_accum_steps
@@ -336,13 +375,92 @@ class Stage1Trainer:
             ng = len(gen_grads)
             gen_lr = self.lr()
             optimizer_step(self.gen_opt, self.gen_params, self._acc[:ng],
-                           tc.max_grad_norm, lambda group: gen_lr)
+                           tc.max_grad_norm, lambda group: gen_lr,
+                           norm=self._norm(self.gen_params, self._acc[:ng]))
             optimizer_step(self.disc_opt, self.disc_params, self._acc[ng:],
                            tc.max_grad_norm,
-                           lambda group: tc.disc_learning_rate)
+                           lambda group: tc.disc_learning_rate,
+                           norm=self._norm(self.disc_params,
+                                           self._acc[ng:]))
             self.updates += 1
             self._acc = None
         return {key: v.detach() for key, v in metrics.items()}
+
+    # ------------------------------------------------------------------
+    def _sync(self, params, grads) -> None:
+        """Sum over the data ranks the gradients of the parameters left
+        whole (a sharded one's came out of the FSDP gather summed)."""
+        if self.fsdp is not None:
+            comm.all_reduce_many([g for p, g in zip(params, grads)
+                                  if not self.fsdp.is_sharded(p)],
+                                 self.group)
+
+    def _norm(self, params, grads):
+        """The global norm of `grads`, over the ranks' slices under a
+        mesh."""
+        if self.fsdp is None:
+            return global_norm(grads)
+        buckets = {(): [], (self.group,): []}
+        for p, g in zip(params, grads):
+            key = (self.group,) if self.fsdp.is_sharded(p) else ()
+            buckets[key].append(g)
+        return sharded_sq_norm(buckets).to(grads[0].device)
+
+    def _mean_metrics(self, metrics):
+        """Each metric's mean over the data ranks (the global batch's:
+        each is a mean over an equal share of its rows); the gradient norm
+        is over every rank already."""
+        keys = sorted(k for k in metrics if k != "grad_norm")
+        vals = torch.stack([metrics[k].detach().float().reshape(())
+                            for k in keys])
+        comm.all_reduce_(vals, self.group)
+        vals = vals / torch.full_like(vals, comm.group_size(self.group))
+        out = dict(zip(keys, vals))
+        out["grad_norm"] = metrics["grad_norm"]
+        return out
+
+    def _layout(self):
+        """{checkpoint path: (Piece, group)} of the sharded leaves of
+        `state_dict()`."""
+        from setok_tpu_torch.utils.checkpoint import keystr
+        if self.fsdp is None:
+            return {}
+        out = {}
+        for name, mod in self.parts().items():
+            for key, p in mod.named_parameters():
+                if self.fsdp.is_sharded(p):
+                    out[keystr("params", name, *key.split("."))] = (
+                        self.fsdp.pieces[id(p)], self.group)
+        perms = module_perms(*self.parts().values())
+        for opt_key, opt, kind in (
+                ("gen_opt", self.gen_opt,
+                 "adam8bit" if self.optim_bits == 8 else "adamw"),
+                ("disc_opt", self.disc_opt, "adamw")):
+            i = 0
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    if self.fsdp.is_sharded(p):
+                        pc = self.fsdp.pieces[id(p)]
+                        for key, v in _state_pieces(kind, pc,
+                                                    perms[p][0]).items():
+                            out[keystr("train", opt_key, "state", str(i),
+                                       key)] = (v, self.group)
+                    i += 1
+        return out
+
+    def shardings(self):
+        """{checkpoint path: Piece} of this trainer's slices (for
+        `utils/checkpoint.restore_sharded`)."""
+        return {k: v[0] for k, v in self._layout().items()}
+
+    def full_state_dict(self, generators=None):
+        """`state_dict()` with every slice gathered to its full tensor (a
+        collective: every rank calls it), between updates."""
+        state = self.state_dict(generators)
+        layout = self._layout()
+        if layout and state["train"]["acc"] is not None:
+            raise RuntimeError("save a sharded trainer between updates")
+        return gather_layout(state, layout)
 
 
 @torch.no_grad()

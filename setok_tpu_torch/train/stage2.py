@@ -1,7 +1,7 @@
 """Stage-2/3 Setokim training: multimodal CE + the MAR diffusion loss.
 
-The counterpart of `setok_tpu/train/stage2.py` on one card. Each parameter
-gets a label from its name, as `Stage2Trainer._label_of` gives it in the
+The counterpart of `setok_tpu/train/stage2.py`. Each parameter gets a
+label from its name, as `Stage2Trainer._label_of` gives it in the
 JAX package: 'main' (scheduled learning rate), 'embed32' (the embedding
 table under 8-bit moments: 32-bit AdamW, scheduled), 'proj_in' /
 'proj_out' (the projectors' constant rates), 'lora' (the adapters,
@@ -31,30 +31,53 @@ linears int8 under the adapters; needs `lora_enable`),
 `unfreeze_mm_vision_tower` (the tower's trainable part under 'main';
 its backbone and clustering take no gradient). `train_step(batch,
 generator | draws)` runs one micro-batch; the update happens on every k-th.
-`ring_mesh` raises `NotImplementedError` with its ROADMAP.md entry.
+
+Over several processes (parallel/, one per card, `torchrun`):
+  * `mesh` (data, model) from parallel/mesh.make_mesh: data parallelism
+    with the FSDP rule (parallel/sharding.Fsdp: each trunk block gathers
+    its parameters around its forward, the rest are gathered for the
+    step) and Megatron tensor parallelism of the trunk over `model`
+    (models/llama.tensor_parallel_); TP slices are not sharded over
+    `data`, as under the JAX `setokim_shardings`;
+  * `ring_mesh` (data, seq) from parallel/mesh.make_sp_mesh: the same FSDP
+    over `data`, and the trunk's sequence split over `seq` with ring
+    attention (models/llama.ring_forward).
+Each data rank takes its rows of the global batch and of the global
+draws; the losses' denominators (the CE's supervised tokens, the
+diffusion mask) are summed over the data ranks, so the ranks' losses sum
+to the global batch's and their gradients are summed. The `seq` ranks
+compute the same loss; its backward is scaled by 1/seq and the gradients
+summed. The clip's global norm sums the squares of every slice over the
+ranks that hold it. 8-bit moments keep whole blocks per rank
+(sharding.Fsdp's `block_params`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from setok_tpu_torch.config import SetokimConfig, TrainConfig
-from setok_tpu_torch.models.setokim import ForwardDraws, Setokim
+from setok_tpu_torch.models.setokim import (DiffusionDraws, ForwardDraws,
+                                            Setokim)
+from setok_tpu_torch.parallel import comm
+from setok_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
+                                           axis_group, axis_rank, axis_size,
+                                           check_backend)
+from setok_tpu_torch.parallel.sharding import (Fsdp, Piece, gather_layout,
+                                               sharded_sq_norm)
 from setok_tpu_torch.train.lora import Lora, apply_lora, merge_lora
-from setok_tpu_torch.train.opt8 import (Adam8bit, bias_correction,
+from setok_tpu_torch.train.opt8 import (BLOCK, Adam8bit, bias_correction,
                                         module_perms)
 from setok_tpu_torch.train.qlora import dequantize, quantize_base
 from setok_tpu_torch.utils.from_flax import flax_entries
 from setok_tpu_torch.utils.init import init_lora_random
 
-NOT_PORTED = {
-    "ring_mesh": "sequence-parallel training: ROADMAP.md, Queue A "
-                 "(parallel)",
-}
 SCHEDULED = ("main", "embed32", "lora")
 # the groups that `optim_bits=8` gives int8 moments
 EIGHT_BIT = ("main", "proj_in", "proj_out", "lora")
@@ -84,14 +107,18 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float, order=None) -> None:
+def clip_by_global_norm_(grads, max_norm: float, order=None,
+                         norm=None) -> None:
     """optax.clip_by_global_norm in place: every gradient becomes g / norm
     · max_norm (the norm cast to g's type) where the global norm is at
     least max_norm (not `clip_grad_norm_`'s rule). The norm sums the
     gradients in `order` (indices; default their own): the JAX tree's leaf
-    order, on which a bf16 norm's roundings depend. One tensor's
-    temporaries at a time, and no host sync."""
-    norm = global_norm(grads if order is None else [grads[i] for i in order])
+    order, on which a bf16 norm's roundings depend; or it is given (a
+    sharded trainer's, over the ranks). One tensor's temporaries at a
+    time, and no host sync."""
+    if norm is None:
+        norm = global_norm(grads if order is None
+                           else [grads[i] for i in order])
     clip = norm >= max_norm
     for g in grads:
         # max_norm in g's type, as JAX's weak type gives it
@@ -166,12 +193,13 @@ def make_optimizer(kind: str, groups: list, tc: TrainConfig):
 
 @torch.no_grad()
 def optimizer_step(opts, params, grads, max_norm: float, lr,
-                   order=None) -> None:
+                   order=None, norm=None) -> None:
     """One update of the optimizer(s) `opts` (one, or a list): the
     gradients clipped to `max_norm` (0: not at all) by their global norm
-    (summed in `order`), in place, each group at the rate `lr(group)`."""
+    (summed in `order`, or `norm` as given), in place, each group at the
+    rate `lr(group)`."""
     if max_norm > 0:
-        clip_by_global_norm_(grads, max_norm, order)
+        clip_by_global_norm_(grads, max_norm, order, norm)
     for p, g in zip(params, grads):
         p.grad = g
     opts = opts if isinstance(opts, (list, tuple)) else [opts]
@@ -180,6 +208,25 @@ def optimizer_step(opts, params, grads, max_norm: float, lr,
             group["lr"] = lr(group)
         opt.step()
         opt.zero_grad(set_to_none=True)
+
+
+def shard_draws(draws: ForwardDraws, rank: int, n: int, batch: int,
+                tn: int) -> ForwardDraws:
+    """Rank `rank`'s rows (`batch` of them) of the draws of a global batch
+    of n·batch rows: its rows of the diffusion orders, and of each repeat
+    of the flattened (rows, tokens) timesteps and noise."""
+    d = draws.diffusion
+    if d is None or n == 1:
+        return draws
+    rows = slice(rank * batch, (rank + 1) * batch)
+    per = batch * tn
+
+    def part(x):
+        x = x.reshape(-1, n * per, *x.shape[1:])
+        return x[:, rank * per:(rank + 1) * per].reshape(-1, *x.shape[2:])
+
+    return ForwardDraws(draws.dropout, DiffusionDraws(
+        d.orders[rows], d.rate, part(d.t), part(d.noise)))
 
 
 @dataclasses.dataclass(eq=False)
@@ -203,11 +250,13 @@ class Stage2Trainer:
     use_flash: bool = False
     optim_bits: int = 32
     ring_mesh: Any = None
+    mesh: Any = None
     device: Any = None
 
     def __post_init__(self):
-        if self.ring_mesh is not None:
-            raise NotImplementedError(f"ring_mesh: {NOT_PORTED['ring_mesh']}")
+        if self.ring_mesh is not None and self.mesh is not None:
+            raise ValueError("ring_mesh and mesh are exclusive (one trunk "
+                             "mesh)")
         if self.quant_base and not self.lora_enable:
             raise ValueError("quant_base (QLoRA) requires lora_enable: the "
                              "int8 base is frozen; adapters carry training")
@@ -220,7 +269,13 @@ class Stage2Trainer:
                              dtype=getattr(torch, tc.compute_dtype),
                              param_dtype=getattr(torch, tc.param_dtype),
                              use_flash=self.use_flash, remat=tc.remat,
-                             device=self.device)
+                             ring_mesh=self.ring_mesh, device=self.device)
+        check_backend(self.model.device)
+        self.fsdp: Optional[Fsdp] = None
+        # id(tensor) → (its Piece of the full tensor, the group over which
+        # the pieces lie) for every sharded parameter and adapter
+        self._pieces: Dict[int, tuple] = {}
+        self._tp_partial: set = set()
         self.warmup = min(tc.warmup_steps, max(tc.total_steps - 1, 0))
         self.lora: Lora = {}
         self.optimizers: Dict[str, torch.optim.Optimizer] = {}
@@ -284,6 +339,8 @@ class Stage2Trainer:
                 named.append((label, p))
         for a, b in self.lora.values():
             named += [("lora", a), ("lora", b)]
+        self._shard([p for label, p in named
+                     if self._kind(label, p) == "adam8bit"])
         self.step = 0            # micro-batches
         self.updates = 0         # optimizer updates
         self._acc = None
@@ -307,6 +364,112 @@ class Stage2Trainer:
         self.trainable = [p for opt in self.optimizers.values()
                           for g in opt.param_groups for p in g["params"]]
         self._norm_order = self._jax_leaf_order()
+
+    # ------------------------------------------------------------------
+    @property
+    def data_mesh(self):
+        return self.mesh if self.mesh is not None else self.ring_mesh
+
+    def _shard(self, blocked: List[torch.Tensor]) -> None:
+        """The tensor-parallel slices over `model`, then FSDP over `data`
+        of everything else (`blocked`: the 8-bit moments' parameters)."""
+        self._pieces, self._tp_partial = {}, set()
+        mg = axis_group(self.mesh, MODEL_AXIS)
+        if axis_size(self.mesh, MODEL_AXIS) > 1:
+            sub = {k[len("llama."):]: v for k, v in self.lora.items()
+                   if k.startswith("llama.")}
+            pieces = self.model.llama.tensor_parallel_(mg, sub)
+            self._pieces = {i: (pc, mg) for i, pc in pieces.items()}
+            for a, b in self.lora.values():
+                # a column-parallel layer's A and a row-parallel one's B
+                # are whole on every rank and get partial gradients
+                if id(b) in pieces:
+                    self._tp_partial.add(id(a))
+                if id(a) in pieces:
+                    self._tp_partial.add(id(b))
+        dmesh = self.data_mesh
+        self.model.count_group = axis_group(dmesh, DATA_AXIS)
+        if dmesh is not None:
+            tp = [p for p in self.model.parameters()
+                  if id(p) in self._pieces]
+            trunk = self.model.llama.model
+            units = [getattr(trunk, f"layer_{i}")
+                     for i in range(self.cfg.llama.num_layers)]
+            self.fsdp = Fsdp(self.model, dmesh, units=units, skip=tp,
+                             block_params=blocked, block=BLOCK)
+            for p in self.model.parameters():
+                if self.fsdp.is_sharded(p):
+                    self._pieces[id(p)] = (self.fsdp.pieces[id(p)],
+                                           self.fsdp.group)
+
+    def _sync_grads(self, grads: List[torch.Tensor]) -> None:
+        """Sum each gradient over the ranks that computed a part of it:
+        the data ranks (unless the FSDP gather's backward did), the seq
+        ranks, and the model ranks for an adapter whole on each."""
+        dg = axis_group(self.data_mesh, DATA_AXIS)
+        sg = axis_group(self.ring_mesh, SEQ_AXIS)
+        mg = axis_group(self.mesh, MODEL_AXIS)
+        whole = [g for p, g in zip(self.trainable, grads)
+                 if self.fsdp is None or not self.fsdp.is_sharded(p)]
+        comm.all_reduce_many(whole, dg)
+        comm.all_reduce_many(grads, sg)
+        comm.all_reduce_many([g for p, g in zip(self.trainable, grads)
+                              if id(p) in self._tp_partial], mg)
+
+    def _grad_norm(self, grads) -> Optional[torch.Tensor]:
+        """The global norm over the ranks' slices (None on one process)."""
+        if not self._pieces:
+            return None
+        buckets: Dict[tuple, list] = {}
+        for p, g in zip(self.trainable, grads):
+            pc = self._pieces.get(id(p))
+            buckets.setdefault(() if pc is None else (pc[1],), []).append(g)
+        return sharded_sq_norm(buckets).to(grads[0].device)
+
+    def _layout(self) -> Dict[str, tuple]:
+        """{checkpoint path: (Piece, group)} of every sliced leaf of
+        `state_dict()`: parameters, adapters and their optimizer state."""
+        from setok_tpu_torch.utils.checkpoint import keystr
+        out = {}
+        for name, p in self.model.state_dict(keep_vars=True).items():
+            if id(p) in self._pieces:
+                out[keystr("params", *name.split("."))] = self._pieces[id(p)]
+        for name, ab in self.lora.items():
+            for f, t in zip("ab", ab):
+                if id(t) in self._pieces:
+                    out[keystr("lora", *name.split("."), f)] = \
+                        self._pieces[id(t)]
+        perms = module_perms(self.model)
+        for kind, opt in self.optimizers.items():
+            i = 0
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    pc = self._pieces.get(id(p))
+                    if pc is not None:
+                        lead = perms[p][0] if p in perms else 0
+                        for key, v in _state_pieces(kind, pc[0],
+                                                    lead).items():
+                            out[keystr("train", "optimizers", kind, "state",
+                                       str(i), key)] = (v, pc[1])
+                    i += 1
+        return out
+
+    def shardings(self) -> Dict[str, Piece]:
+        """{checkpoint path: Piece} of this trainer's slices, for
+        `utils/checkpoint.restore_sharded`: a full checkpoint restored
+        with it loads into `load_state_dict` on any layout."""
+        return {k: v[0] for k, v in self._layout().items()}
+
+    def full_state_dict(self, generators: Optional[Dict[str, torch.Generator]]
+                        = None) -> Dict[str, Any]:
+        """`state_dict()` with every slice gathered to its full tensor (a
+        collective: every rank calls it; one writes the checkpoint). Taken
+        between updates (no accumulated gradients)."""
+        state = self.state_dict(generators)
+        layout = self._layout()
+        if layout and state["train"]["acc"] is not None:
+            raise RuntimeError("save a sharded trainer between updates")
+        return gather_layout(state, layout)
 
     def _jax_leaf_order(self) -> List[int]:
         """The trainable parameters' indices in the JAX trainer's leaf order
@@ -360,29 +523,49 @@ class Stage2Trainer:
         k-th micro-batch the clipped update. Returns the losses."""
         self._ready()
         ids = batch["input_ids"]
+        dmesh = self.data_mesh
+        dp = axis_size(dmesh, DATA_AXIS)
+        # the draws of the global batch (given, or from `rng`, alike on
+        # every rank), then this data rank's rows of them
         draws = (rng if isinstance(rng, ForwardDraws)
-                 else self.model.draw_forward(ids.shape[0], rng))
-        out = self.model(ids, batch["comp_image"], batch["labels"],
-                         batch.get("gen_image"), draws)
-        grads = torch.autograd.grad(out.loss, self.trainable,
-                                    allow_unused=True)
+                 else self.model.draw_forward(ids.shape[0] * dp, rng))
+        draws = shard_draws(draws, axis_rank(dmesh, DATA_AXIS), dp,
+                            ids.shape[0], self.cfg.target_num)
+        sp = axis_size(self.ring_mesh, SEQ_AXIS)
+        gathered = (self.fsdp.gathered() if self.fsdp is not None
+                    else contextlib.nullcontext())
+        with gathered:
+            out = self.model(ids, batch["comp_image"], batch["labels"],
+                             batch.get("gen_image"), draws)
+            # the seq ranks compute the same loss (see ring_forward)
+            loss = out.loss / sp if sp > 1 else out.loss
+            grads = torch.autograd.grad(loss, self.trainable,
+                                        allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.trainable, grads)]
+        self._sync_grads(grads)
         k = self.train_cfg.grad_accum_steps
         n = self.step % k
         self._acc = accumulate(self._acc, grads, n)
         del grads
         self.step += 1
         if n == k - 1:
+            norm = self._grad_norm(self._acc)
+            if norm is None:
+                norm = global_norm([self._acc[i] for i in self._norm_order])
+            # the global norm before the clip, of this update
+            self.last_grad_norm = norm
             optimizer_step(list(self.optimizers.values()), self.trainable,
                            self._acc, self.train_cfg.max_grad_norm,
                            lambda group: self.lr(group["label"]),
-                           self._norm_order)
+                           self._norm_order, norm)
             self.updates += 1
             self._acc = None
-        return {"lm_loss": out.lm_loss.detach(),
-                "diff_loss": out.diff_loss.detach(),
-                "total_loss": out.loss.detach()}
+        losses = torch.stack([out.lm_loss.detach(), out.diff_loss.detach(),
+                              out.loss.detach()])
+        # each data rank's losses are its share of the global batch's
+        comm.all_reduce_(losses, axis_group(dmesh, DATA_AXIS))
+        return dict(zip(("lm_loss", "diff_loss", "total_loss"), losses))
 
     def state_dict(self, generators: Optional[Dict[str, torch.Generator]]
                    = None) -> Dict[str, Any]:
@@ -446,3 +629,28 @@ class Stage2Trainer:
             state = dequantize(state, getattr(torch,
                                               self.train_cfg.compute_dtype))
         return merge_lora(state, self.lora, self.lora_alpha, self.lora_r)
+
+
+# the optimizer state leaves laid out like their parameter, by kind
+_LIKE_PARAM = {"adamw": ("exp_avg", "exp_avg_sq", "max_exp_avg_sq"),
+               "adamw_optax": ("mu", "nu")}
+
+
+def _state_pieces(kind: str, piece: Piece, lead: int) -> Dict[str, Piece]:
+    """The Piece of each optimizer state leaf of a sliced parameter: the
+    parameter's own for the AdamW moments; for the 8-bit moments, the
+    run of whole blocks of a slice of the flax leading dimension `lead`
+    (sharding.Fsdp's rule for them)."""
+    if kind != "adam8bit":
+        return {k: piece for k in _LIKE_PARAM[kind]}
+    if piece.dim != lead:
+        raise ValueError("8-bit moments of a slice off the flax leading "
+                         "dimension have no layout of whole blocks")
+    inner = int(np.prod(piece.full)) // piece.full[piece.dim]
+    start, length = piece.start * inner, piece.length * inner
+    if start % BLOCK or length % BLOCK:
+        raise ValueError("8-bit moments of a slice that splits blocks")
+    nb = -(-int(np.prod(piece.full)) // BLOCK)
+    blocks = Piece(0, start // BLOCK, length // BLOCK, (nb, BLOCK))
+    scales = Piece(0, start // BLOCK, length // BLOCK, (nb, 1))
+    return {"m_q": blocks, "v_q": blocks, "m_s": scales, "v_s": scales}

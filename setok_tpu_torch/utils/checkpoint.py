@@ -37,9 +37,18 @@ map, so that an adapter file written by either package loads in the other.
 bf16 leaves are written as float32 (exact); a load casts to the model's
 types, as the JAX package's does.
 
-Not ported: `abstract_like`, `restore_sharded`, `restore_partial` and
-`checkpoint_metadata` are orbax and sharding forms that wait for the
-parallel item (ROADMAP.md, Queue A item 7).
+The sharded forms (`abstract_like`, `restore_sharded`, `restore_partial`,
+`checkpoint_metadata`) build on the same format, where the JAX package
+hands orbax an abstract target with shardings. A sharded trainer writes
+full tensors (its `full_state_dict()` gathers each slice; one rank
+writes), so a step carries no layout and restores onto any other: each
+part file is opened memory-mapped (`torch.load(mmap=True)`), and a leaf
+with a sharding (`parallel/sharding.Piece`, where this rank's slice lies
+in the full tensor) is copied out of the map slice by slice, so a rank
+reads its own bytes and never holds the full tensor. The format stays
+this module's, rather than `torch.distributed.checkpoint`'s, so that
+every reader of a step (`restore_lazy`, the CLIs, one process) reads a
+step written by a mesh and the other way round.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ import signal
 import threading
 import time
 from collections.abc import Mapping
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -82,6 +91,15 @@ def _walk(tree, keys=()):
             yield from _walk(value, path)
         else:
             yield path, value
+
+
+def map_leaves(tree, fn, keys=()):
+    """A copy of a nested dict with each leaf replaced by fn(keystr path,
+    leaf); the keys are kept (a dotted key's path holds its components)."""
+    if isinstance(tree, Mapping):
+        return {k: map_leaves(v, fn, keys + tuple(str(k).split(".")))
+                for k, v in tree.items()}
+    return fn(keystr(*keys), tree)
 
 
 def leaf_paths(state: Mapping) -> Dict[str, list]:
@@ -168,6 +186,12 @@ def _load(path: str, map_location):
     return torch.load(path, map_location=map_location, weights_only=True)
 
 
+def _load_mapped(path: str):
+    """A part file opened memory-mapped: tensors read on access."""
+    return torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=True)
+
+
 def _cast_like(value, target):
     """`value` in the types and on the devices of `target`'s tensors, where
     target has a tensor at the same position; the structure must match."""
@@ -232,6 +256,140 @@ def restore_lazy(ckpt_dir: str, predicate: Callable[[str], bool],
         out[part] = (filter_subtree(value, predicate, (part,))
                      if isinstance(value, Mapping) else value)
     return out
+
+
+class Abstract(NamedTuple):
+    """A leaf's shape and type without its bytes (jax.ShapeDtypeStruct's
+    counterpart), with this rank's `sharding` (a `Piece`) where given."""
+    shape: tuple
+    dtype: Any
+    sharding: Any = None
+
+
+def _sharding_of(shardings, path):
+    if shardings is None:
+        return None
+    if callable(shardings):
+        return shardings(path)
+    return shardings.get(path)
+
+
+def abstract_like(tree: Any, shardings: Any = None) -> Any:
+    """An `Abstract` tree mirroring `tree` (concrete or abstract), with the
+    sharding of each leaf's path from `shardings` ({keystr path: Piece} or
+    a function of the path) attached where it has one."""
+    def leaf(path, x):
+        sh = _sharding_of(shardings, path)
+        if isinstance(x, Abstract):
+            return x._replace(sharding=sh) if sh is not None else x
+        if isinstance(x, torch.Tensor):
+            return Abstract(tuple(x.shape), x.dtype, sh)
+        return x
+
+    return map_leaves(tree, leaf)
+
+
+def _restore_leaf(path, value, shardings, target):
+    """A restored leaf: this rank's slice (a copy out of the map) where the
+    path has a sharding, else the whole tensor; in the type and on the
+    device of `target`'s leaf where there is one."""
+    if not isinstance(value, torch.Tensor):
+        return value
+    sh = _sharding_of(shardings, path)
+    if sh is None and isinstance(target, Abstract):
+        sh = target.sharding
+    out = sh.take(value) if sh is not None else value.clone()
+    if isinstance(target, torch.Tensor):
+        if tuple(out.shape) != tuple(target.shape):
+            raise ValueError(f"{path}: restored shape {tuple(out.shape)} "
+                             f"vs {tuple(target.shape)}")
+        out = out.to(device=target.device, dtype=target.dtype)
+    elif isinstance(target, Abstract):
+        out = out.to(dtype=target.dtype)
+    return out
+
+
+def _target_at(target, path_keys):
+    node = target
+    for k in path_keys:
+        if not isinstance(node, Mapping) or k not in node:
+            return None
+        node = node[k]
+    return node
+
+
+def _restore_tree(value, shardings, target, keys, predicate=None,
+                  fallback=None):
+    if isinstance(value, Mapping):
+        out = {}
+        for k, v in value.items():
+            sub_t = None if not isinstance(target, Mapping) \
+                else target.get(k)
+            sub_f = None if not isinstance(fallback, Mapping) \
+                else fallback.get(k)
+            out[k] = _restore_tree(v, shardings, sub_t,
+                                   keys + tuple(str(k).split(".")),
+                                   predicate, sub_f)
+        return out
+    path = keystr(*keys)
+    if predicate is not None and not predicate(path):
+        return fallback
+    return _restore_leaf(path, value, shardings, target)
+
+
+def restore_sharded(ckpt_dir: str, target: Any = None, shardings: Any = None,
+                    step: Optional[int] = None) -> Dict:
+    """Every part of a step, each leaf restored as this rank's slice where
+    it has a sharding (from `shardings`, {keystr path: Piece} or a
+    function of the path, or from `target`'s `Abstract` leaves): a step
+    written under one layout restores under another. `target` (concrete
+    or abstract) gives the leaves' types (and a concrete one their
+    devices)."""
+    d = _step_dir(ckpt_dir, step)
+    with open(os.path.join(d, INDEX)) as f:
+        parts = json.load(f)["parts"]
+    out = {}
+    for part in parts:
+        value = _load_mapped(os.path.join(d, f"{part}.pt"))
+        sub = None if target is None else target.get(part)
+        out[part] = _restore_tree(value, shardings, sub, (part,))
+    return out
+
+
+def restore_partial(ckpt_dir: str, target: Any,
+                    predicate: Callable[[str], bool],
+                    step: Optional[int] = None,
+                    shardings: Any = None) -> Dict:
+    """Only the leaves whose path matches `predicate` are read (the part
+    files that hold none are not opened; the others are memory-mapped and
+    only the matching leaves' bytes are copied out), each as this rank's
+    slice where it has a sharding; the other leaves are `target`'s own."""
+    d = _step_dir(ckpt_dir, step)
+    with open(os.path.join(d, INDEX)) as f:
+        parts = json.load(f)["parts"]
+    out = dict(target)
+    for part, paths in parts.items():
+        if not any(predicate(p) for p in paths):
+            continue
+        value = _load_mapped(os.path.join(d, f"{part}.pt"))
+        sub = target.get(part)
+        if isinstance(value, Mapping):
+            out[part] = _restore_tree(value, shardings, sub, (part,),
+                                      predicate, sub)
+        else:
+            out[part] = _restore_leaf(keystr(part), value, shardings, sub)
+    return out
+
+
+def checkpoint_metadata(ckpt_dir: str, step: Optional[int] = None):
+    """(the `Abstract` tree of a step, the step), read without any tensor
+    bytes (the part files memory-mapped, their tensors never touched)."""
+    d = _step_dir(ckpt_dir, step)
+    with open(os.path.join(d, INDEX)) as f:
+        index = json.load(f)
+    tree = {part: abstract_like(_load_mapped(os.path.join(d, f"{part}.pt")))
+            for part in index["parts"]}
+    return tree, index["step"]
 
 
 def prefix_predicate(*prefixes: str) -> Callable[[str], bool]:

@@ -1,5 +1,6 @@
-"""Import hygiene: the port, chip_smoke.py and chip_kernel_times.py import
-no JAX, no flax and nothing of the JAX package."""
+"""Import hygiene: the port, chip_smoke.py, chip_kernel_times.py and
+chip_parallel.py import no JAX, no flax and nothing of the JAX package
+(tests/torch_parallel_workers.py neither: spawned processes load it)."""
 
 import json
 import pkgutil
@@ -52,8 +53,12 @@ def test_port_and_chip_smoke_import_no_jax():
         "conversation", "mm_tokens", "preprocess", "collator", "datasets",
         "sampler", "loader", "anyres")} | {
         "setok_tpu_torch.utils.logging"} <= set(modules)
+    # the parallel item
+    assert {f"setok_tpu_torch.parallel.{m}" for m in (
+        "mesh", "sharding", "ring_attention", "comm")} <= set(modules)
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, "setok_tpu_torch", *modules,
-         "chip_smoke", "chip_kernel_times"],
+         "chip_smoke", "chip_kernel_times", "chip_parallel",
+         "tests.torch_parallel_workers"],
         cwd=ROOT, capture_output=True, text=True, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []

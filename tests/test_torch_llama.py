@@ -114,11 +114,31 @@ def test_attention_mask_matches_jax(with_cache):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_options_not_ported_raise():
-    # use_flash and remat are ported (tests/test_torch_stage2.py)
+def test_options_not_ported_raise(tmp_path):
+    """Every option of the JAX LlamaForCausalLM runs: use_flash and remat
+    (tests/test_torch_stage2.py), calibrated int4
+    (tests/test_torch_calibrate.py) and `ring_mesh`, whose forward over a
+    (1, 1) sequence-parallel mesh (ring attention, no global mask) gives
+    the masked forward's logits (the ring over more ranks:
+    tests/test_torch_parallel_ring.py)."""
+    from setok_tpu_torch.parallel.mesh import make_sp_mesh
+    from tests.torch_parallel_workers import one_rank_group
     LlamaForCausalLM(tcfg.tiny_llama(), device="cpu", use_flash=True,
                      remat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LlamaForCausalLM(tcfg.tiny_llama(), device="cpu", ring_mesh=object())
-    # calibrated int4 is ported (tests/test_torch_calibrate.py)
     assert quantize_trunk_weights({}, bits=4, row_weights={("a",): 1}) == {}
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        1, 500, (2, 12)))
+    valid = torch.ones_like(ids, dtype=torch.bool)
+    valid[1, 4:6] = False
+    dense = LlamaForCausalLM(tcfg.tiny_llama(), device="cpu")
+    torch.manual_seed(0)
+    for p in dense.parameters():
+        p.data.normal_(0, 0.05)
+    with one_rank_group(tmp_path):
+        ring = LlamaForCausalLM(tcfg.tiny_llama(), device="cpu",
+                                ring_mesh=make_sp_mesh(1, 1))
+        ring.load_state_dict(dense.state_dict())
+        got, _, cache = ring(ids, valid)
+    want = dense(ids, valid)[0]
+    assert cache is None
+    assert (got - want)[valid].abs().max() <= 1e-5

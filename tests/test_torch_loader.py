@@ -400,11 +400,12 @@ def test_train_setok_still_refuses(argv, match, data_files):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--tensor-parallel", "2"], ["--sequence-parallel", "2"],
+    ["--tensor-parallel", "2", "--sequence-parallel", "2"],
     ["--synthetic"], []])
 def test_train_setokim_still_refuses(argv, data_files):
-    """The parallel flags stay refused; --synthetic and --data-path are
-    exclusive; the instruction task wants a --dataset-name per path."""
+    """The parallel flags together are refused (one trunk mesh, as in
+    JAX); --synthetic and --data-path are exclusive; the instruction task
+    wants a --dataset-name per path."""
     base = stage2_argv(data_files, "edit")
     if not argv:
         base = stage2_argv(data_files, "instruction")
@@ -412,3 +413,29 @@ def test_train_setokim_still_refuses(argv, data_files):
         base.remove("llava")
     with pytest.raises(SystemExit):
         train_setokim.parse_args([*base, *argv])
+
+
+@pytest.mark.parametrize("argv", [["--tensor-parallel", "2"],
+                                  ["--sequence-parallel", "2"]])
+def test_train_setokim_parallel_flags_run(argv, data_files, capsys):
+    """Each parallel flag runs over the real-data stream; in one process
+    its mesh has size 1 (under torchrun: tests/test_torch_parallel_cli.py;
+    a data rank's rows: BatchLoader(shard=))."""
+    train_setokim.main(stage2_argv(data_files, "edit", "--steps", "1",
+                                   *argv))
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [x["step"] for x in lines] == [0]
+
+
+def test_batch_loader_shard_takes_a_data_ranks_rows():
+    col = Collator(max_len=8, k_max=2)
+    whole = list(loader.BatchLoader(ToyDataset(8), 4, col, num_workers=1))
+    parts = [list(loader.BatchLoader(ToyDataset(8), 4, col, num_workers=1,
+                                     shard=(r, 2))) for r in range(2)]
+    for i, b in enumerate(whole):
+        got = np.concatenate([parts[r][i]["input_ids"] for r in range(2)])
+        np.testing.assert_array_equal(got, b["input_ids"])
+    rows = loader.batch_rows({"x": np.arange(8), "s": "keep"}, 1, 4)
+    assert rows["x"].tolist() == [2, 3] and rows["s"] == "keep"
+    assert loader.host_shard(range(10), 1, 3) == [1, 4, 7]

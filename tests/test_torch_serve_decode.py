@@ -269,14 +269,35 @@ def test_serve_cli_takes_decode_block(capsys):
     assert "4 requests, 24 tokens" in out and "TTFT mean" in out
 
 
-@pytest.mark.parametrize("script,flag", [
-    (cli, ["--tensor-parallel", "2"]), (eval_recon, ["--compile-cache", "x"]),
-    (train_cli, ["--tensor-parallel", "2"]),
-    (train_cli, ["--sequence-parallel", "2"])])
-def test_flags_not_ported_refuse(script, flag, capsys):
+@pytest.mark.parametrize("script,flag,match", [
+    (eval_recon, ["--compile-cache", "x"], "ROADMAP.md"),
+    (train_cli, ["--synthetic", "--tensor-parallel", "2",
+                 "--sequence-parallel", "2"], "mutually exclusive")])
+def test_flags_not_ported_refuse(script, flag, match, capsys):
+    """The flags the port still refuses, and the combination the JAX CLI
+    refuses (one trunk mesh)."""
     with pytest.raises(SystemExit):
         script.parse_args(flag)
-    assert "ROADMAP.md" in capsys.readouterr().err
+    assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("script,flag", [
+    (cli, ["--tensor-parallel", "2"]),
+    (train_cli, ["--tensor-parallel", "2"]),
+    (train_cli, ["--sequence-parallel", "2"])])
+def test_parallel_flags_run(script, flag, capsys):
+    """The parallel flags run; in one process the mesh has size 1, as the
+    JAX CLI's on one device (under torchrun:
+    tests/test_torch_parallel_cli.py)."""
+    if script is cli:
+        cli.main(["--cpu", "--tiny", "--bits", "8", "--max-new-tokens",
+                  "2", "--prompt-len", "16", "--max-len", "24", *flag])
+        assert "4 requests, 8 tokens" in capsys.readouterr().out
+    else:
+        train_cli.main(["--cpu", "--tiny", "--synthetic", "--steps", "1",
+                        "--batch-size", "2", "--model-max-length", "48",
+                        *flag])
+        assert '"updates": 1' in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags,expect", [

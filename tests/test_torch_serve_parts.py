@@ -93,10 +93,30 @@ def test_stops_cancel_and_capacity(model8):
     assert eng.stats()["requests_done"] == 3
 
 
-def test_engine_refuses_what_is_not_ported(model8):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeEngine(model8, max_batch=1, prompt_len=8, max_len=16,
-                    mesh=object())
+def test_engine_refuses_what_is_not_ported(model8, tmp_path):
+    """`mesh` runs: over a (1, 1) mesh the engine takes the
+    tensor-parallel forms over one rank (the row-parallel layers' absmax
+    column, the broadcast tokens) and streams the same greedy tokens; TP
+    over more ranks in tests/test_torch_parallel_serve.py."""
+    import copy
+    from setok_tpu_torch.parallel.mesh import make_mesh
+    from tests.torch_parallel_workers import one_rank_group
+
+    def run(model, mesh=None):
+        eng = ServeEngine(model, max_batch=2, prompt_len=16, max_len=24,
+                          eos_id=-1, cache_dtype=torch.int8, mesh=mesh)
+        reqs = [eng.submit(_prompt(5), max_new_tokens=4),
+                eng.submit(_prompt(9), max_new_tokens=4)]
+        eng.run()
+        return [r.tokens for r in reqs]
+
+    want = run(model8)
+    with one_rank_group(tmp_path):
+        model = copy.deepcopy(model8)
+        got = run(model, make_mesh(cfgs.MeshConfig(data=1, model=1)))
+        assert model.llama.tp_group is not None
+        assert model.llama.model.layer_0.mlp.down_proj.k_pad == 64
+    assert got == want
 
 
 def test_cli_serves_on_the_cpu(capsys):
@@ -108,7 +128,8 @@ def test_cli_serves_on_the_cpu(capsys):
 
 
 def test_cli_refuses_flags_it_does_not_run():
-    with pytest.raises(SystemExit):
-        cli.parse_args(["--tensor-parallel", "2"])
+    # --tensor-parallel is ported: one process gives a mesh of size 1
+    # (tests/test_torch_parallel_cli.py runs it under torchrun)
+    assert cli.parse_args(["--tensor-parallel", "2"]).tensor_parallel == 2
     with pytest.raises(SystemExit):
         cli.parse_args(["--system-prompt", "x"])      # needs --prefill-chunk

@@ -292,7 +292,7 @@ def test_sampled_spec_is_seeded_and_stays_in_vocab(flax_params, monkeypatch):
     assert all(0 <= t < VOCAB for toks in forced for t in toks)
 
 
-def test_spec_config_errors(flax_params):
+def test_spec_config_errors(flax_params, tmp_path):
     model = port_model(flax_params)
     kw = dict(max_batch=1, prompt_len=8, max_len=16)
     for bad, match in (({"spec_len": -1}, "spec_len must be >= 0"),
@@ -305,5 +305,22 @@ def test_spec_config_errors(flax_params):
                         "per_request_sampling")):
         with pytest.raises(ValueError, match=match):
             ServeEngine(model, **kw, **bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeEngine(model, mesh=object(), **kw)
+    # a mesh runs, speculative decoding included: over a (1, 1) mesh the
+    # tensor-parallel forms over one rank stream the same tokens
+    import copy
+    from setok_tpu_torch.config import MeshConfig
+    from setok_tpu_torch.parallel.mesh import make_mesh
+    from tests.torch_parallel_workers import one_rank_group
+
+    def run(m, mesh=None):
+        eng = ServeEngine(m, max_batch=1, prompt_len=8, max_len=24,
+                          spec_len=2, eos_id=-1, mesh=mesh)
+        req = eng.submit(np.arange(1, 7), max_new_tokens=6)
+        eng.run()
+        return req.tokens
+
+    want = run(model)
+    with one_rank_group(tmp_path):
+        got = run(copy.deepcopy(model),
+                  make_mesh(MeshConfig(data=1, model=1)))
+    assert got == want and len(got) == 6

@@ -9,7 +9,8 @@ numpy batches. Bars:
     GAN factor, the contrastive loss and the pre-clip `grad_norm`
     included; two frameworks' float32 sums in other orders, through a
     clustering that must come out identical);
-  * after the first update (lr 0) every generator parameter is unchanged,
+  * (tests/test_torch_stage1_updates.py) after the first update (lr 0)
+    every generator parameter is unchanged,
     bit for bit, and every discriminator weight has moved; after the
     second both have moved; every Adam first moment (the clipped
     gradients' running mean) is within 1e-4 of the largest of its tensor,
@@ -195,43 +196,6 @@ def check_moments(named, opt, mu):
 def tree_state(tree, prefix=""):
     return {f"{prefix}{k}": v for k, v in from_flax(
         jax.tree.map(np.asarray, tree)).items()}
-
-
-@pytest.mark.parametrize("use_lpips", [False, True], ids=["l1", "lpips"])
-def test_two_updates_match_jax_trainer(use_lpips):
-    # with LPIPS, the generator's factor ramps: 0 at step 0, 1/2 at step 1
-    jt, tt = trainers(use_lpips=use_lpips, warm_up_end=2 if use_lpips else 0)
-    batches = [make_batch(s) for s in (3, 4)]
-    state = paired(jt, tt, batches[0])
-    gen0 = {k: p.detach().clone() for k, p in gen_named(tt).items()}
-    disc0 = {n: p.detach().clone() for n, p in tt.disc.named_parameters()}
-    keys = jax.random.split(jax.random.PRNGKey(7), 2)
-    for i, batch in enumerate(batches):
-        state, jm = jt.train_step(state, jbatch(batch), keys[i])
-        tm = tt.train_step(tbatch(batch))
-        check_metrics(tm, jm)
-        assert float(tm["disc_factor"]) == (0.5 * i if use_lpips else 1.0)
-        assert float(tm["d_weight"]) > 0 and float(tm["g_loss"]) != 0
-        if i == 0:     # the generator's first update runs at lr 0
-            assert all(torch.equal(p.detach(), gen0[k])
-                       for k, p in gen_named(tt).items())
-            # (the logit bias's hinge gradient is 0 inside the margins)
-            assert all(not torch.equal(p.detach(), disc0[n])
-                       for n, p in tt.disc.named_parameters()
-                       if n.endswith("weight"))
-    assert tt.updates == 2 and tt.step == 2
-    named = gen_named(tt)
-    frozen = {id(p) for p in tt.model.tokenizer.frozen_parameters()}
-    moved = [k for k, p in named.items() if id(p) not in frozen
-             and not torch.equal(p.detach(), gen0[k])]
-    assert len(moved) > 0.9 * (len(named) - len(frozen))
-    check_params(named, gen_state(state.gen_params), 1e-3, updates=1)
-    check_moments(named, tt.gen_opt,
-                  gen_state(adam_mu(state.gen_opt_state)))
-    disc = dict(tt.disc.named_parameters())
-    check_params(disc, tree_state(state.disc_params), 1e-3)
-    check_moments(disc, tt.disc_opt,
-                  tree_state(adam_mu(state.disc_opt_state)))
 
 
 def test_frozen_backbone_stays_bit_identical():
@@ -449,13 +413,25 @@ def test_cli_clamps_like_the_jax_cli():
 
 @pytest.mark.parametrize("argv", [
     ["--data-path", "x.json"], ["--compile-cache", "cache"],
-    ["--lpips-weights", "vgg.npz"], ["--offload-optimizer"]])
+    ["--lpips-weights", "vgg.npz"]])
 def test_cli_refuses_unported_flags(argv):
     """Flags the port does not run, and --data-path beside --synthetic
     (one data source)."""
     with pytest.raises((NotImplementedError, SystemExit),
                        match="ROADMAP.md|not ported|one of"):
         train_setok.main(["--cpu", "--tiny", "--synthetic", "4", *argv])
+
+
+def test_cli_runs_offload_optimizer(capsys):
+    """--offload-optimizer runs (both optimizers' moments in pinned host
+    memory between steps on the card; on the CPU they are there already;
+    the same update: tests/test_torch_parallel_stage1.py)."""
+    train_setok.main(["--cpu", "--tiny", "--synthetic", "4", "--steps", "1",
+                      "--batch-size", "2", "--image-size", "32",
+                      "--offload-optimizer"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [x["updates"] for x in lines] == [1]
 
 
 def test_cli_runs_on_the_card_by_default(monkeypatch):

@@ -39,7 +39,8 @@ from setok_tpu_torch.models.setokim import (DiffusionDraws, ForwardDraws,
 from setok_tpu_torch.ops.blocks import dropout
 from setok_tpu_torch.train.lora import apply_lora
 from setok_tpu_torch.utils.from_flax import (flax_state_key, lora_from_flax,
-                                             load_flax_params)
+                                             load_flax_params, to_flax_tree)
+from setok_tpu_torch.utils.init import init_setokim_random_
 
 L = 40
 TGT = 3
@@ -114,12 +115,12 @@ def max_rel(got, want):
 
 @pytest.fixture(scope="module")
 def flax_params():
-    model = JSetokim(jax_cfg(), target_token_id=TGT)
-    b = make_batch(0)
-    params = jax.jit(lambda r: model.init(
-        r, b["input_ids"], b["comp_image"], b["labels"], b["gen_image"],
-        jax.random.PRNGKey(1), method=model.init_all))(jax.random.PRNGKey(0))
-    return jax.tree.map(np.asarray, params)
+    """The tiny Setokim's weights in the flax layout, drawn by the port from
+    a seed (`to_flax_tree`): the tree a flax init returns, without
+    compiling one."""
+    model = init_setokim_random_(Setokim(port_cfg(), target_token_id=TGT,
+                                         device="cpu"), 0)
+    return to_flax_tree(model)
 
 
 @pytest.fixture(scope="module")

@@ -13,10 +13,11 @@ tests/test_torch_stage2.py). Bars:
   * the labels of every parameter and adapter, for each freezing flag,
     equal the JAX trainer's, and exactly the 'frozen' ones have
     requires_grad off;
-  * ring attention raises `NotImplementedError` naming its ROADMAP.md
-    entry (QLoRA, 8-bit moments, bf16 parameters and the vision tower's
+  * ring attention over a (1, 1) mesh gives the dense path's losses
+    (QLoRA, 8-bit moments, bf16 parameters and the vision tower's
     training are held to the JAX trainer in
-    tests/test_torch_stage2_options.py).
+    tests/test_torch_stage2_options.py; the meshes over more ranks in
+    tests/test_torch_parallel_stage2.py).
 """
 
 import numpy as np
@@ -118,7 +119,25 @@ def test_labels_match_jax_trainer(flax_params, flags):
     assert frozen == {n for n, lab in want.items() if lab == "frozen"}
 
 
-@pytest.mark.parametrize("option", [{"ring_mesh": object()}])
-def test_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Stage2Trainer(port_cfg(), device="cpu", **option)
+@pytest.mark.parametrize("option", ["ring_mesh"])
+def test_options_not_ported_raise(option, tmp_path, flax_params):
+    """`ring_mesh` runs: over a (1, 1) sequence-parallel mesh a step's
+    losses are the dense path's (1e-5); over more ranks,
+    tests/test_torch_parallel_stage2.py. A mesh and a ring mesh at once
+    are refused (one trunk mesh)."""
+    from setok_tpu_torch.parallel.mesh import make_sp_mesh
+    from tests.torch_parallel_workers import one_rank_group
+    batch = torch_batch(make_batch(10))
+    draws = jax_draws(jax.random.PRNGKey(5), jax_cfg(), 2)
+    losses = []
+    with one_rank_group(tmp_path):
+        for kw in ({}, {option: make_sp_mesh(1, 1)}):
+            tt = Stage2Trainer(port_cfg(), train_cfg=tcfg.TrainConfig(
+                **TRAIN_CFG), device="cpu", **TRAINER_KW, **kw)
+            load_flax_params(tt.model, flax_params)
+            tt.init_state(seed=0)
+            losses.append(tt.train_step(batch, draws)["total_loss"])
+        with pytest.raises(ValueError, match="exclusive"):
+            Stage2Trainer(port_cfg(), device="cpu", mesh=object(),
+                          **{option: object()})
+    assert max_rel(losses[1], losses[0]) <= 1e-5
