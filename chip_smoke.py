@@ -249,12 +249,35 @@ the last line:
                 path at sp = 1, and ServeEngine(mesh=...) at bits 8, each
                 against the same run without a mesh (after train_parity).
 
+  weights       (after checkpoint) the offline scripts from state dicts in
+                the HF key layout that the phase writes from the seed
+                (nothing is fetched): SigLIP at
+                google/siglip-base-patch16-256's geometry (.safetensors,
+                the post-layernorm and head included), BERT at
+                bert-base-uncased's (.bin), torchvision vgg16's features
+                with the LPIPS heads (.pth), LLaMA at vicuna-7b-v1.5's
+                width with the trunk cut to 2 layers (fp16 .bin);
+                port_weights on each, train_setok 2 updates (B=24) with
+                --lpips --lpips-weights, extract_components,
+                assemble_pretrained into base_setokim()'s width with a
+                2-layer trunk (every spliced tensor equal to its source,
+                max abs 0), one stage-2 update with --use-flash from
+                --pretrain-vision-tokenizer and the assembled files, the
+                assembled files through load_pretrained_model(bits=8)
+                serving 4 requests of 8 tokens; the ViT with the ported
+                SigLIP and LPIPS with the ported VGG, card against CPU;
+                a --compile-cache directory built by one process (it runs
+                beside the phase) and loaded by a second without nvcc
+                (each one's seconds to its first launch); rows 1, 8, 10
+                and 11 counted.
+
 Then the kernels summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no JAX: it imports setok_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import os
@@ -4750,6 +4773,580 @@ def phase_parallel(cfg) -> dict:
             "int8_cache_decode_attention": serve["cache_launches"]}
 
 
+# ----------------------------------------------------------------------------
+# the pretrained-weights path: HF-layout state dicts → port_weights →
+# train_setok --lpips-weights → extract_components → assemble_pretrained →
+# a stage-2 update → a served model
+
+# the public geometries of the reference's checkpoints (random values, from
+# the seed; no tensor's shape depends on a head count):
+# google/siglip-base-patch16-256 (base_tokenizer()'s ViT, 12 heads),
+# bert-base-uncased (the reference's detokenizer.py:27; the mapper takes 6
+# layers) and lmsys/vicuna-7b-v1.5's width with its trunk cut to 2 layers
+SIGLIP_GEOM = dict(width=768, layers=12, mlp=3072, patch=16, image=256)
+BERT_GEOM = dict(width=768, layers=12, mlp=3072, vocab=30522, positions=512)
+LLAMA_GEOM = dict(vocab=32000, hidden=4096, mlp=11008, layers=2)
+# torchvision vgg16 `features`: the index of each conv (the ReLUs and pools
+# between them hold no weights) and its output channels
+VGG16_CONVS = ((0, 64), (2, 64), (5, 128), (7, 128), (10, 256), (12, 256),
+               (14, 256), (17, 512), (19, 512), (21, 512), (24, 512),
+               (26, 512), (28, 512))
+LPIPS_CHANNELS = (64, 128, 256, 512, 512)
+WEIGHTS_DIR = Path(__file__).resolve().parent / "build" / "chip_weights"
+WEIGHTS_SERVE_TOKENS = 8
+LPIPS_TOL = 1e-4                 # max-rel, float32 on both sides (TF32 off)
+# safetensors dtype names
+SAFETENSORS_DTYPES = {torch.float32: "F32", torch.float16: "F16",
+                      torch.bfloat16: "BF16", torch.int64: "I64",
+                      torch.int32: "I32", torch.int8: "I8",
+                      torch.uint8: "U8", torch.bool: "BOOL",
+                      torch.float64: "F64"}
+
+
+def _normal(gen, shape, std, device, dtype=torch.float32):
+    return (torch.randn(shape, generator=gen, device=device)
+            * std).to(dtype)
+
+
+def _norm_pair(sd, name, n, gen, device, bias=True, dtype=torch.float32):
+    """A norm's weight near 1 and (with `bias`) a small bias."""
+    sd[name + ".weight"] = (1.0 + _normal(gen, (n,), 0.1, device)).to(dtype)
+    if bias:
+        sd[name + ".bias"] = _normal(gen, (n,), 0.02, device, dtype)
+
+
+def _linear(sd, name, n_out, n_in, gen, device, bias=True,
+            dtype=torch.float32):
+    sd[name + ".weight"] = _normal(gen, (n_out, n_in), 0.02, device, dtype)
+    if bias:
+        sd[name + ".bias"] = _normal(gen, (n_out,), 0.02, device, dtype)
+
+
+def hf_siglip_state(gen, device="cpu", width=768, layers=12, mlp=3072,
+                    patch=16, image=256) -> dict:
+    """A SiglipVisionModel state dict (HF keys under `vision_model.`, the
+    post-layernorm and the attention-pooling head included), random."""
+    p, sd = "vision_model.", {}
+    e = p + "embeddings."
+    sd[e + "patch_embedding.weight"] = _normal(
+        gen, (width, 3, patch, patch), 0.02, device)
+    sd[e + "patch_embedding.bias"] = _normal(gen, (width,), 0.02, device)
+    sd[e + "position_embedding.weight"] = _normal(
+        gen, ((image // patch) ** 2, width), 0.02, device)
+    for i in range(layers):
+        q = f"{p}encoder.layers.{i}."
+        _norm_pair(sd, q + "layer_norm1", width, gen, device)
+        for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+            _linear(sd, q + "self_attn." + proj, width, width, gen, device)
+        _norm_pair(sd, q + "layer_norm2", width, gen, device)
+        _linear(sd, q + "mlp.fc1", mlp, width, gen, device)
+        _linear(sd, q + "mlp.fc2", width, mlp, gen, device)
+    _norm_pair(sd, p + "post_layernorm", width, gen, device)
+    h = p + "head."
+    sd[h + "probe"] = _normal(gen, (1, 1, width), 0.02, device)
+    sd[h + "attention.in_proj_weight"] = _normal(
+        gen, (3 * width, width), 0.02, device)
+    sd[h + "attention.in_proj_bias"] = _normal(gen, (3 * width,), 0.02,
+                                               device)
+    _linear(sd, h + "attention.out_proj", width, width, gen, device)
+    _norm_pair(sd, h + "layernorm", width, gen, device)
+    _linear(sd, h + "mlp.fc1", mlp, width, gen, device)
+    _linear(sd, h + "mlp.fc2", width, mlp, gen, device)
+    return sd
+
+
+def hf_bert_state(gen, device="cpu", width=768, layers=12, mlp=3072,
+                  vocab=30522, positions=512) -> dict:
+    """A BertModel state dict (HF keys, the pooler included), random."""
+    sd = {}
+    for name, rows in (("word_embeddings", vocab),
+                       ("position_embeddings", positions),
+                       ("token_type_embeddings", 2)):
+        sd[f"embeddings.{name}.weight"] = _normal(gen, (rows, width), 0.02,
+                                                  device)
+    _norm_pair(sd, "embeddings.LayerNorm", width, gen, device)
+    for i in range(layers):
+        q = f"encoder.layer.{i}."
+        for proj in ("query", "key", "value"):
+            _linear(sd, q + "attention.self." + proj, width, width, gen,
+                    device)
+        _linear(sd, q + "attention.output.dense", width, width, gen, device)
+        _norm_pair(sd, q + "attention.output.LayerNorm", width, gen, device)
+        _linear(sd, q + "intermediate.dense", mlp, width, gen, device)
+        _linear(sd, q + "output.dense", width, mlp, gen, device)
+        _norm_pair(sd, q + "output.LayerNorm", width, gen, device)
+    _linear(sd, "pooler.dense", width, width, gen, device)
+    return sd
+
+
+def hf_vgg_lpips_state(gen, device="cpu") -> dict:
+    """torchvision vgg16's `features` (He-normal kernels, small biases) and
+    the LPIPS heads `lin0..lin4.model.1.weight` (1 × C × 1 × 1, positive as
+    trained heads are), random."""
+    sd, c_in = {}, 3
+    for idx, c in VGG16_CONVS:
+        sd[f"features.{idx}.weight"] = _normal(
+            gen, (c, c_in, 3, 3), (2.0 / (9 * c_in)) ** 0.5, device)
+        sd[f"features.{idx}.bias"] = _normal(gen, (c,), 0.02, device)
+        c_in = c
+    for i, c in enumerate(LPIPS_CHANNELS):
+        sd[f"lin{i}.model.1.weight"] = _normal(
+            gen, (1, c, 1, 1), 0.1, device).abs()
+    return sd
+
+
+def hf_llama_state(gen, device="cpu", vocab=32000, hidden=4096, mlp=11008,
+                   layers=2, dtype=torch.float16) -> dict:
+    """A LlamaForCausalLM state dict (HF keys, untied lm_head), random, in
+    `dtype`."""
+    sd = {"model.embed_tokens.weight": _normal(gen, (vocab, hidden), 0.02,
+                                               device, dtype)}
+    for i in range(layers):
+        q = f"model.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _linear(sd, q + "self_attn." + proj, hidden, hidden, gen,
+                    device, bias=False, dtype=dtype)
+        _linear(sd, q + "mlp.gate_proj", mlp, hidden, gen, device,
+                bias=False, dtype=dtype)
+        _linear(sd, q + "mlp.up_proj", mlp, hidden, gen, device, bias=False,
+                dtype=dtype)
+        _linear(sd, q + "mlp.down_proj", hidden, mlp, gen, device,
+                bias=False, dtype=dtype)
+        _norm_pair(sd, q + "input_layernorm", hidden, gen, device,
+                   bias=False, dtype=dtype)
+        _norm_pair(sd, q + "post_attention_layernorm", hidden, gen, device,
+                   bias=False, dtype=dtype)
+    _norm_pair(sd, "model.norm", hidden, gen, device, bias=False,
+               dtype=dtype)
+    sd["lm_head.weight"] = _normal(gen, (vocab, hidden), 0.02, device, dtype)
+    return sd
+
+
+def write_safetensors(path, sd: dict) -> None:
+    """`sd` in the safetensors format (an 8-byte little-endian header
+    length, the JSON header padded with spaces to 8 bytes, the raw
+    little-endian bytes in the header's order)."""
+    header, blobs, offset = {}, [], 0
+    for name, t in sd.items():
+        raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+        header[name] = {"dtype": SAFETENSORS_DTYPES[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + raw.numel()]}
+        blobs.append(raw.numpy())
+        offset += raw.numel()
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(len(text).to_bytes(8, "little"))
+        f.write(text)
+        for blob in blobs:
+            f.write(blob.tobytes())
+
+
+def spliced_sources(siglip: dict = None, llama: dict = None,
+                    bert: dict = None, mapper_layers: int = 6) -> dict:
+    """{Setokim state key: tensor}: what each spliced entry must hold, the
+    HF tensors with the layout change applied in torch (HF's q/k/v
+    concatenated into qkv, the patch convolution (C, 3, p, p) as the
+    patchify weight (C, p·p·3) in (kh, kw, in) order), written apart from
+    the porters so that it checks them."""
+    out = {}
+    if siglip is not None:
+        v, r = "vision_model.", "vision_tower.image_feature_encoder."
+        w = siglip[v + "embeddings.patch_embedding.weight"]
+        out[r + "patch_embed.weight"] = w.permute(0, 2, 3, 1).reshape(
+            w.shape[0], -1)
+        out[r + "patch_embed.bias"] = siglip[
+            v + "embeddings.patch_embedding.bias"]
+        out[r + "pos_embed"] = siglip[
+            v + "embeddings.position_embedding.weight"][None]
+        i = 0
+        while f"{v}encoder.layers.{i}.layer_norm1.weight" in siglip:
+            q, b = f"{v}encoder.layers.{i}.", f"{r}block_{i}."
+            for ours, theirs in (("norm1", "layer_norm1"),
+                                 ("norm2", "layer_norm2"),
+                                 ("attn.proj", "self_attn.out_proj"),
+                                 ("mlp.fc1", "mlp.fc1"),
+                                 ("mlp.fc2", "mlp.fc2")):
+                for leaf in ("weight", "bias"):
+                    out[f"{b}{ours}.{leaf}"] = siglip[f"{q}{theirs}.{leaf}"]
+            for leaf in ("weight", "bias"):
+                out[f"{b}attn.qkv.{leaf}"] = torch.cat(
+                    [siglip[f"{q}self_attn.{x}_proj.{leaf}"]
+                     for x in "qkv"], 0)
+            i += 1
+    if llama is not None:
+        out["llama.embed_tokens.weight"] = llama["model.embed_tokens.weight"]
+        out["llama.lm_head.weight"] = llama["lm_head.weight"]
+        out["llama.model.final_norm.weight"] = llama["model.norm.weight"]
+        i = 0
+        while f"model.layers.{i}.input_layernorm.weight" in llama:
+            q, b = f"model.layers.{i}.", f"llama.model.layer_{i}."
+            out[b + "input_norm.weight"] = llama[q + "input_layernorm.weight"]
+            out[b + "post_attn_norm.weight"] = llama[
+                q + "post_attention_layernorm.weight"]
+            for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                out[f"{b}attn.{proj}.weight"] = llama[
+                    f"{q}self_attn.{proj}.weight"]
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                out[f"{b}mlp.{proj}.weight"] = llama[f"{q}mlp.{proj}.weight"]
+            i += 1
+    if bert is not None:
+        r = "vision_generator.mapper."
+        for leaf in ("weight", "bias"):
+            out[f"{r}embed_norm.{leaf}"] = bert[f"embeddings.LayerNorm.{leaf}"]
+        for i in range(mapper_layers):
+            q, b = f"encoder.layer.{i}.", f"{r}layer_{i}."
+            for ours, theirs in (
+                    ("self_attn.query", "attention.self.query"),
+                    ("self_attn.key", "attention.self.key"),
+                    ("self_attn.value", "attention.self.value"),
+                    ("self_attn.out", "attention.output.dense"),
+                    ("self_attn.out_norm", "attention.output.LayerNorm"),
+                    ("ffn_in", "intermediate.dense"),
+                    ("ffn_out", "output.dense"),
+                    ("ffn_norm", "output.LayerNorm")):
+                for leaf in ("weight", "bias"):
+                    out[f"{b}{ours}.{leaf}"] = bert[f"{q}{theirs}.{leaf}"]
+    return out
+
+
+def lpips_sources(vgg: dict) -> dict:
+    """{LPIPS state key: tensor} of torchvision vgg16 + the LPIPS heads
+    (the same OIHW layout: nothing changes but the names)."""
+    out = {}
+    for i, (idx, _) in enumerate(VGG16_CONVS):
+        out[f"vgg.conv_{i}.weight"] = vgg[f"features.{idx}.weight"]
+        out[f"vgg.conv_{i}.bias"] = vgg[f"features.{idx}.bias"]
+    for i in range(len(LPIPS_CHANNELS)):
+        out[f"lin_{i}.weight"] = vgg[f"lin{i}.model.1.weight"]
+    return out
+
+
+def spliced_gap(model, sources: dict) -> dict:
+    """Each source against the model's entry, on the entry's device in
+    float32 (the sources are float32 or fp16, which widens exactly): the
+    entries compared, the largest absolute difference, the keys that
+    differ."""
+    state = model.state_dict()
+    worst, differ = 0.0, []
+    for key, want in sources.items():
+        got = state[key]
+        gap = float((got.float() - want.to(got.device).float()).abs().max()) \
+            if got.shape == want.shape else float("inf")
+        worst = max(worst, gap)
+        if gap != 0.0:
+            differ.append(key)
+    return {"entries": len(sources), "max_abs": worst, "differ": differ[:8]}
+
+
+# the second process of the build-cache check: times its way to the first
+# launch of row 1 with the given --compile-cache directory; "no-nvcc" takes
+# nvcc away, so that a build would fail
+CACHE_PROBE = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from setok_tpu_torch import config as cfgs
+from setok_tpu_torch.kernels import _build, cluster_dpc
+from setok_tpu_torch.utils.compile_cache import enable_compilation_cache
+d = enable_compilation_cache(sys.argv[1])
+if sys.argv[2] == "no-nvcc":
+    _build.NVCC_CANDIDATES = ()
+tok = cfgs.base_tokenizer()
+x = torch.randn(2, tok.vit.num_patches, tok.vit.width, device="cuda")
+cluster_dpc.dpc_density_parent(x, tok.knn)
+torch.cuda.synchronize()
+print(json.dumps({"dir": d, "first_launch_s": time.perf_counter() - t0,
+                  "launches": cluster_dpc.LAUNCHES,
+                  "libraries": len(list(_build.BUILD_DIR.glob("*.so")))}))
+"""
+
+
+def start_cache_probe(cache_dir: Path, mode: str) -> subprocess.Popen:
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return subprocess.Popen([sys.executable, "-c", CACHE_PROBE,
+                             str(cache_dir), mode], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=root)
+
+
+def finish_cache_probe(proc: subprocess.Popen, mode: str) -> dict:
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    check(proc.returncode == 0, f"weights: the cache probe ({mode}) failed: "
+          f"{err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def cache_probe(cache_dir: Path, mode: str) -> dict:
+    return finish_cache_probe(start_cache_probe(cache_dir, mode), mode)
+
+
+def run_quiet(fn, *args):
+    """fn(*args) with its printed lines kept: (result, lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue().splitlines()
+
+
+def phase_weights(cfg) -> dict:
+    """HF-layout state dicts at the reference checkpoints' geometries
+    (random, from the seed) through the port's offline scripts to a served
+    model: port_weights on each file; train_setok 2 updates with --lpips
+    --lpips-weights; extract_components; assemble_pretrained into
+    base_setokim()'s width with a 2-layer trunk (every spliced tensor equal
+    to its source); one stage-2 update from the files with --use-flash;
+    the assembled files through load_pretrained_model(bits=8) served by
+    ServeEngine; the ViT with the ported SigLIP and the LPIPS with the
+    ported VGG on the card against the CPU; a second --compile-cache
+    process that loads row 1's library without nvcc. Counts are reset
+    before each run and read after it. Returns the launches of rows 1, 8,
+    10 and 11."""
+    from setok_tpu_torch.losses.lpips import LPIPS
+    from setok_tpu_torch.models.vit import ViT
+    from setok_tpu_torch.scripts import (assemble_pretrained,
+                                         extract_components, port_weights)
+    from setok_tpu_torch.utils.porting import load_flat_into
+    t0 = time.perf_counter()
+    d = WEIGHTS_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    small = cfgs.replace(cfg, llama=cfgs.replace(
+        cfg.llama, num_layers=LLAMA_GEOM["layers"]))
+    # the build cache's first process (a fresh directory: it runs nvcc)
+    # works beside the phase; the second, after it, must find the libraries
+    cache_dir = d / "kernel_cache"
+    first_probe = start_cache_probe(cache_dir, "build")
+    atexit.register(lambda: first_probe.poll() is None and first_probe.kill())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    cpu = lambda sd: {k: v.cpu() for k, v in sd.items()}
+    srcs = {"siglip": cpu(hf_siglip_state(gen, "cuda", **SIGLIP_GEOM)),
+            "bert": cpu(hf_bert_state(gen, "cuda", **BERT_GEOM)),
+            "vgg": cpu(hf_vgg_lpips_state(gen, "cuda")),
+            "llama": cpu(hf_llama_state(gen, "cuda", **LLAMA_GEOM))}
+    files = {"siglip": d / "siglip.safetensors", "bert": d / "bert.bin",
+             "vgg": d / "vgg16_lpips.pth", "llama": d / "llama.bin"}
+    write_safetensors(files["siglip"], srcs["siglip"])
+    for name in ("bert", "vgg", "llama"):
+        torch.save(srcs[name], files[name])
+    times = {"write_s": time.perf_counter() - t0}
+    files_gb = {k: v.stat().st_size / 1e9 for k, v in files.items()}
+
+    # 1. port_weights on each file
+    t = time.perf_counter()
+    ported = {}
+    for kind, src in (("siglip", "siglip"), ("qformer", "bert"),
+                      ("vgg16", "vgg"), ("lpips_lins", "vgg"),
+                      ("llama", "llama")):
+        out = d / f"{kind}.npz"
+        run_quiet(port_weights.main, [kind, str(files[src]), str(out)])
+        ported[kind] = out
+    ported_arrays = {k: len(np.load(v).files) for k, v in ported.items()}
+    lpips_npz = d / "lpips.npz"
+    np.savez(lpips_npz, **np.load(ported["vgg16"]),
+             **np.load(ported["lpips_lins"]))
+    times["port_s"] = time.perf_counter() - t
+
+    # the ported SigLIP in the ViT and the ported VGG in LPIPS, card
+    # against CPU
+    siglip_flat = dict(np.load(ported["siglip"]))
+    vit_cfg = cfg.tokenizer.vit
+    vits = {dev: ViT(vit_cfg, device=dev) for dev in ("cuda", "cpu")}
+    rs = np.random.RandomState(SEED + 22)
+    img = rs.uniform(-1, 1, (2, vit_cfg.image_size, vit_cfg.image_size,
+                             3)).astype(np.float32)
+    feats = {}
+    for dev, vit in vits.items():
+        unmatched = load_flat_into(vit, siglip_flat)
+        check(not unmatched, f"weights: SigLIP keys unmatched {unmatched}")
+        with torch.no_grad():
+            feats[dev] = vit(torch.from_numpy(img).to(dev))
+    vit_gap = max_rel(feats["cuda"], feats["cpu"])
+    lpips_flat = dict(np.load(lpips_npz))
+    lp = {}
+    for dev in ("cuda", "cpu"):
+        net = LPIPS(device=dev)
+        check(not load_flat_into(net, lpips_flat), "weights: LPIPS keys")
+        with torch.no_grad():
+            x = torch.from_numpy(img).to(dev)
+            lp[dev] = net(x, torch.flip(x, dims=(1,)))
+    lpips_gap = max_rel(lp["cuda"], lp["cpu"])
+    del vits, feats, net, siglip_flat
+    torch.cuda.empty_cache()
+
+    # 2. stage 1 with the ported LPIPS weights: 2 updates at B=24
+    stage1 = d / "stage1"
+    argv = ["--synthetic", "64", "--synthetic-structured", "--steps", "2",
+            "--disc-start", "0", "--lpips", "--lpips-weights",
+            str(lpips_npz), "--output-dir", str(stage1)]
+    t = time.perf_counter()
+    args = train_setok.parse_args(argv)
+    tr, stream = train_setok.build(args)
+    lpips_loaded = spliced_gap(tr.lpips, lpips_sources(srcs["vgg"]))
+    gen1 = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    _, lines = run_quiet(train_setok.run_steps, args, tr, iter(stream),
+                         gen1, "dropout", tr.device)
+    torch.cuda.synchronize()
+    s1_launches = cluster_dpc.LAUNCHES
+    del tr, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    s1 = [json.loads(x) for x in lines if x.startswith("{")]
+    times["stage1_s"] = time.perf_counter() - t
+    s1_losses = [{k: v for k, v in r.items()
+                  if k not in ("step", "updates", "seconds")} for r in s1]
+
+    # 3. extract the tokenizer
+    t = time.perf_counter()
+    comps = d / "components"
+    written, _ = run_quiet(extract_components.main, [str(stage1),
+                                                     str(comps)])
+    times["extract_s"] = time.perf_counter() - t
+
+    # 4. assemble: SigLIP, BERT and the 2-layer LLaMA into base_setokim()
+    t = time.perf_counter()
+    model, report = assemble_pretrained.assemble(
+        str(files["siglip"]), str(files["llama"]), str(files["bert"]),
+        model_cfg=small)
+    spliced = spliced_gap(model, spliced_sources(
+        srcs["siglip"], srcs["llama"], srcs["bert"],
+        small.detokenizer.mapper_layers))
+    assembled = d / "assembled"
+    assemble_pretrained.write_components(model, str(assembled))
+    del model
+    torch.cuda.empty_cache()
+    times["assemble_s"] = time.perf_counter() - t
+
+    # 5. one stage-2 update from the files, flash attention on
+    t = time.perf_counter()
+    args = train_setokim.parse_args([
+        "--synthetic", "--steps", "1", "--batch-size", str(TRAIN_BATCH),
+        "--model-max-length", str(TRAIN_LEN), "--lora-enable", "--lora-r",
+        "128", "--lora-alpha", "256", "--use-flash", "--warmup-steps", "1",
+        "--pretrain-vision-tokenizer", str(comps / "vision_tower.npz"),
+        "--pretrain-vision-detokenizer",
+        str(assembled / "vision_generator.npz"),
+        "--pretrain-mm-in-mlp-adapter", str(assembled / "mm_in_projector.npz"),
+        "--pretrain-mm-out-mlp-adapter",
+        str(assembled / "mm_out_projector.npz")])
+    with mock.patch.object(cfgs, "base_setokim", lambda: small):
+        tr, stream = train_setokim.build(args)
+    # the trunk: the CLIs load no LLaMA file (the JAX CLI neither)
+    llama_unmatched = load_flat_into(tr.model, dict(np.load(
+        assembled / "llama.npz")))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
+    step_gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    torch.cuda.synchronize()
+    reset_counts()
+    m = tr.train_step(batch, step_gen)
+    torch.cuda.synchronize()
+    s2_launches = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+    s2_losses = {k: float(v) for k, v in m.items()}
+    del tr, stream, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["stage2_s"] = time.perf_counter() - t
+
+    # 6. the assembled files served at bits 8
+    t = time.perf_counter()
+    served = load_pretrained_model(
+        "", small, projector_path=[str(assembled / f"{c}.npz") for c in
+                                   assemble_pretrained.COMPONENTS],
+        bits=8, cache_kernel=True)
+    tower = spliced_gap(served, spliced_sources(
+        srcs["siglip"], None, srcs["bert"], small.detokenizer.mapper_layers))
+    reqs = serve_requests(small, SEED + 24, n_image=2, n_text=2)
+    reset_counts()
+    _, handles, _, _, wall, _ = run_engine(served, reqs,
+                                           WEIGHTS_SERVE_TOKENS)
+    counts = serve_counts()
+    served_streams = streams(handles)
+    del served, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["serve_s"] = time.perf_counter() - t
+
+    # 7. the build cache: the first process's libraries loaded by a second
+    # without nvcc
+    t = time.perf_counter()
+    first = finish_cache_probe(first_probe, "build")
+    second = cache_probe(cache_dir, "no-nvcc")
+    times["cache_s"] = time.perf_counter() - t
+    shutil.rmtree(d, ignore_errors=True)
+
+    launches = {"dpc_density_parent": {"stage1": s1_launches,
+                                       "stage2": s2_launches[
+                                           "dpc_density_parent"],
+                                       "serve": counts["cluster"]},
+                "flash": {k: s2_launches[k] for k in fa.LAUNCHES},
+                "quant_matmul": counts["quant_matmul_launches"][
+                    "quant_matmul"],
+                "int8_cache_decode_attention": counts["cache_attention"]}
+    res = {"phase": "weights",
+           "geometries": {"siglip": SIGLIP_GEOM, "bert": BERT_GEOM,
+                          "llama": LLAMA_GEOM},
+           "files_gb": files_gb, "ported_arrays": ported_arrays,
+           "vit_card_vs_cpu_max_rel": vit_gap,
+           "lpips": {"card": float(lp["cuda"]), "cpu": float(lp["cpu"]),
+                     "max_rel": lpips_gap},
+           "stage1_lpips_loaded": lpips_loaded,
+           "stage1_losses": s1_losses, "extracted": written,
+           "assemble_report": {k: {"arrays": n, "unmatched": u}
+                               for k, (n, u) in report.items()},
+           "spliced": spliced, "served_tower_and_mapper": tower,
+           "llama_unmatched": len(llama_unmatched),
+           "stage2_losses": s2_losses, "served_streams": served_streams,
+           "serve_wall_s": wall, "launches": launches,
+           "cache": {"first": first, "second": second},
+           "seconds": times, "phase_seconds": time.perf_counter() - t0}
+    emit(res)
+    check(vit_gap <= FWD_REL_TOL, f"weights: ViT card vs CPU {vit_gap}")
+    check(lpips_gap <= LPIPS_TOL, f"weights: LPIPS card vs CPU {lpips_gap}")
+    check(len(s1) == 2 and all(np.isfinite(v) for r in s1_losses
+                               for v in r.values()),
+          f"weights: stage-1 losses {s1_losses}")
+    check(set(written) == {"vision_tower", "vision_generator"},
+          f"weights: extracted {written}")
+    check(all(u == 0 for _, u in report.values()),
+          f"weights: unmatched splices {report}")
+    check(spliced["max_abs"] == 0.0 and tower["max_abs"] == 0.0
+          and lpips_loaded["max_abs"] == 0.0,
+          f"weights: spliced tensors differ {spliced} {tower} "
+          f"{lpips_loaded}")
+    check(not llama_unmatched, f"weights: llama.npz unmatched "
+          f"{llama_unmatched[:4]}")
+    check(all(np.isfinite(v) for v in s2_losses.values()),
+          f"weights: stage-2 losses {s2_losses}")
+    check(s1_launches == 2 * cluster_dpc.LAUNCHES_PER_CALL,
+          f"weights: stage-1 clustering launches {s1_launches}")
+    check(s2_launches["dpc_density_parent"] > 0
+          and all(s2_launches[k] > 0 for k in fa.LAUNCHES),
+          f"weights: stage-2 launches {s2_launches}")
+    check(launches["quant_matmul"] > 0
+          and launches["int8_cache_decode_attention"] > 0,
+          f"weights: serving launches {launches}")
+    check(all(len(s) == WEIGHTS_SERVE_TOKENS for s in served_streams),
+          f"weights: streams {served_streams}")
+    check(first["launches"] == cluster_dpc.LAUNCHES_PER_CALL
+          and second["launches"] == cluster_dpc.LAUNCHES_PER_CALL
+          and first["dir"] == second["dir"] == str(cache_dir),
+          f"weights: cache probes {first} {second}")
+    return launches
+
+
 # the phases that run alone (`python3 chip_smoke.py PHASE ...`): each
 # needs only the device and the build
 SELECTABLE = {
@@ -4760,6 +5357,7 @@ SELECTABLE = {
     "param_dtype": phase_param_dtype,
     "checkpoint": phase_checkpoint,
     "builder": lambda: phase_builder(cfgs.base_setokim()),
+    "weights": lambda: phase_weights(cfgs.base_setokim()),
 }
 
 
@@ -4906,6 +5504,12 @@ def main(argv=None) -> int:
     for name, e in int8_entries.items():
         e["checkpoint_eval_quant8_launches"] = \
             evals["quant8"]["launches"][name]
+    wts = phase_weights(setokim)
+    entry["weights_launches"] = wts["dpc_density_parent"]
+    for name, e in flash_entries.items():
+        e["weights_launches"] = wts["flash"][name]
+    for row in ("quant_matmul", "int8_cache_decode_attention"):
+        serve_entries[row]["weights_launches"] = wts[row]
 
     emit({"kernels": [entry, *int8_entries.values(),
                       *unfused_entries.values(), *serve_entries.values(),

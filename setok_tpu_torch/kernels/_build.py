@@ -1,9 +1,13 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each `setok_tpu_torch/csrc/<name>.cu` becomes its own shared library with a
-plain C interface, `build/torch_kernels/lib<name>-<hash>.so` in the checkout,
-built at first use. The hash covers the sources and the flags, so an edited
-source is rebuilt. `build_all()` starts one nvcc per source, all at once,
+plain C interface, `lib<name>-<hash>.so` in `BUILD_DIR`
+(`build/torch_kernels` in the checkout unless `set_build_dir` or the CLIs'
+`--compile-cache`, utils/compile_cache.py, chose another), built at first
+use. The hash covers the sources and the flags, so an edited source is
+rebuilt and a library already in the directory is loaded as it is. A
+library loaded once stays loaded: a new directory serves the libraries
+loaded after it is set. `build_all()` starts one nvcc per source, all at once,
 and keeps each nvcc's output (ptxas's registers, spills and stack per
 kernel, from `-Xptxas -v`) beside its library; `build_log()` reads it.
 Nothing here falls back: a missing nvcc, a failed build or a failed load
@@ -22,7 +26,9 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
+                     / "torch_kernels")
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -30,6 +36,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_CANDIDATES = ("nvcc", "/usr/local/cuda/bin/nvcc")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def set_build_dir(path) -> Path:
+    """Build into and load from `path` from now on (created if missing)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(os.path.abspath(os.path.expanduser(path)))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
 
 
 def _nvcc() -> str:

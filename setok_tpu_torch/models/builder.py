@@ -11,7 +11,9 @@ with its signature and defaults, plus `device`. Its sources, in order:
     parameter of the right shape is taken, as the JAX builder takes it,
     then the adapters are merged (W + alpha/r·(A@B)ᵀ);
   * `projector_path`: an `.npz` of flax-keyed arrays (`load_subtree`:
-    a file written by either package's `save_subtree`);
+    a file written by either package's `save_subtree`), or a sequence of
+    them loaded in turn (the six component files of
+    `scripts/assemble_pretrained.py`: the JAX builder takes one);
   * `lora_path`: a flat {'<flax kernel path>/a', '.../b'} `.npz` in the
     JAX layout (`lora_from_flax`), merged at `lora_alpha / lora_r`;
   * `bits` 8 or 4: the trunk quantised at rest after every splice and
@@ -66,7 +68,7 @@ def load_pretrained_model(model_path: str,
                           model_cfg: Optional[cfgs.SetokimConfig] = None,
                           lora_path: Optional[str] = None,
                           lora_r: int = 64, lora_alpha: float = 16.0,
-                          projector_path: Optional[str] = None,
+                          projector_path=None,
                           target_token_id: int = 3,
                           pad_token_id: int = 0,
                           tiny: bool = False,
@@ -100,8 +102,10 @@ def load_pretrained_model(model_path: str,
                 model.load_state_dict(merge_lora(model.state_dict(), lora,
                                                  lora_alpha, lora_r))
 
-    if projector_path:
-        ckpt.load_subtree(projector_path, model)
+    paths = ([projector_path] if isinstance(projector_path, str)
+             else projector_path or [])
+    for path in paths:
+        ckpt.load_subtree(path, model)
 
     if lora_path and os.path.exists(lora_path):
         data = np.load(lora_path)

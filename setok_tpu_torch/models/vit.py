@@ -21,6 +21,12 @@ The forward carries gradients; `freeze_pre_merge` runs the blocks up to
 the merge without them (the JAX package's stop-gradient there), which the
 tokenizer asks for when a frozen backbone meets a randomly initialised
 merge projection.
+
+`ViTConfig.use_class_token` adds the (1, 1, width) parameter `cls_token`,
+prepended to the patches after the position embedding (which covers the
+patches only), as the JAX ViT does; with `select_feature == "patch"` the
+tapped features drop it again, with "cls_patch" they keep it (N + 1 rows).
+The configuration refuses it together with `merge_layer`.
 """
 
 from __future__ import annotations
@@ -73,10 +79,6 @@ class ViT(nn.Module):
                  freeze_pre_merge: bool = False, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
         super().__init__()
-        if cfg.use_class_token:
-            raise NotImplementedError(
-                "ViTConfig.use_class_token is not ported: no configuration "
-                "uses it")
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
@@ -87,6 +89,11 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(
             1, cfg.num_patches, c, dtype=param_dtype, device=device))
         nn.init.normal_(self.pos_embed, std=0.02)
+        self.cls_token = None
+        if cfg.use_class_token:
+            self.cls_token = nn.Parameter(torch.zeros(
+                1, 1, c, dtype=param_dtype, device=device))
+            nn.init.normal_(self.cls_token, std=0.02)
         for i in range(cfg.depth):
             self.add_module(f"block_{i}", ViTEncoderBlock(
                 c, cfg.num_heads, cfg.mlp_ratio, quant8=quant8, **kw))
@@ -145,10 +152,15 @@ class ViT(nn.Module):
             x = self.patch_embed(patchify(images.to(self.dtype),
                                           cfg.patch_size))
             x = x + self.pos_embed.to(self.dtype)
+            if self.cls_token is not None:
+                cls = self.cls_token.to(self.dtype).expand(x.shape[0], -1, -1)
+                x = torch.cat([cls, x], dim=1)
             for i in range(pre + 1):
                 x = getattr(self, f"block_{i}")(x)
         if merge_at is not None:
             x = self.merge_proj(self.merge(x))
         for i in range(pre + 1, tap + 1):
             x = getattr(self, f"block_{i}")(x)
+        if self.cls_token is not None and cfg.select_feature == "patch":
+            x = x[:, 1:]
         return x

@@ -343,6 +343,48 @@ class Attention(nn.Module):
                                      sm_scale=self.scale, ln_eps=norm.eps)
 
 
+class CrossAttention(nn.Module):
+    """Multi-head cross-attention: queries attend to a context sequence.
+
+    The JAX `CrossAttention` (`q`, `kv` and `proj` linears, so the flax
+    paths match; `context_dim` is the context's width, which flax reads
+    from the input). `context_mask` (B, M) boolean over the context keys:
+    a masked score takes -1e30 before the f32 softmax, so a fully masked
+    row weighs every key evenly and returns proj(mean of v), as in JAX.
+    Nothing in either package calls it.
+    """
+
+    def __init__(self, dim: int, num_heads: int, *,
+                 context_dim: Optional[int] = None, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.scale = (dim // num_heads) ** -0.5
+        self.dtype = dtype
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.q = Dense(dim, dim, bias=qkv_bias, **kw)
+        self.kv = Dense(context_dim or dim, 2 * dim, bias=qkv_bias, **kw)
+        self.proj = Dense(dim, dim, **kw)
+
+    def forward(self, x, context, context_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        *batch, n, c = x.shape
+        m, h = context.shape[-2], self.num_heads
+        q = self.q(x).reshape(*batch, n, h, c // h).transpose(-3, -2)
+        kv = self.kv(context).reshape(*batch, m, 2, h, c // h)
+        k, v = (t.transpose(-3, -2) for t in kv.unbind(-3))   # (.., H, m, hd)
+        scores = torch.matmul(q, k.transpose(-1, -2)) * self.scale
+        mask = (None if context_mask is None
+                else context_mask[..., None, None, :])
+        attn = dropout(masked_softmax(scores, mask).to(self.dtype),
+                       self.attn_drop, generator)
+        out = torch.matmul(attn, v).transpose(-3, -2).reshape(*batch, n, c)
+        return dropout(self.proj(out), self.proj_drop, generator)
+
+
 def fused_int8_fits(attn: Attention, mlp: Mlp, x: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> bool:
     """The JAX blocks' gate of the whole-sublayer int8 kernels: one batch

@@ -31,6 +31,8 @@ import torch
 from setok_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from setok_tpu_torch.models.builder import load_pretrained_model
 from setok_tpu_torch.models.generate import generate_image, generate_text
+from setok_tpu_torch.utils.compile_cache import (add_cli_flag,
+                                                 enable_compilation_cache)
 from setok_tpu_torch.utils.metrics import psnr
 
 SEED = 0
@@ -45,11 +47,13 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", default="",
                    help="a stage-2 run directory (models/builder.py)")
     p.add_argument("--image", default=None, help="an image file")
+    add_cli_flag(p)
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    enable_compilation_cache(args.compile_cache)
     model = load_pretrained_model(args.checkpoint, tiny=args.tiny,
                                   device="cpu" if args.cpu else None)
     cfg = model.cfg

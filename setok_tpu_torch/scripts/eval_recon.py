@@ -24,8 +24,8 @@ seed 0) or the PNG / JPEG files of `--image-folder` through
 reconstructions, each image's feature the mean of its valid concept tokens
 (`SeTok.tokenize`). Prints one JSON line: n, precision, psnr, ssim,
 mean_clusters[, fid_vitfeat]. Unlike the JAX script it appends nothing to
-`perf/history.jsonl`, whose rows are TPU numbers. `--compile-cache` is
-refused: the port has no compilation cache (ROADMAP.md, Queue A).
+`perf/history.jsonl`, whose rows are TPU numbers. `--compile-cache` chooses
+the directory of the built kernels (utils/compile_cache.py).
 """
 
 from __future__ import annotations
@@ -41,6 +41,8 @@ import torch
 from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.models.setok import SeTok
 from setok_tpu_torch.utils import checkpoint as ckpt
+from setok_tpu_torch.utils.compile_cache import (add_cli_flag,
+                                                 enable_compilation_cache)
 from setok_tpu_torch.utils.init import init_random_
 from setok_tpu_torch.utils.metrics import compute_fid, psnr, ssim
 
@@ -82,11 +84,8 @@ def parse_args(argv=None):
     p.add_argument("--eval-seed", type=int, default=10_000,
                    help="seed of the structured synthetic eval set")
     p.add_argument("--precision", default="fp32", choices=list(PRECISIONS))
-    p.add_argument("--compile-cache", default=None, help=argparse.SUPPRESS)
+    add_cli_flag(p)
     args = p.parse_args(argv)
-    if args.compile_cache is not None:
-        p.error("--compile-cache is not ported: the compilation cache, "
-                "ROADMAP.md, Queue A (remaining scripts and utils)")
     if not args.synthetic and not args.image_folder:
         p.error("give --synthetic N or --image-folder")
     return args
@@ -210,6 +209,7 @@ def evaluate(model: SeTok, images: np.ndarray, batch_size: int,
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    enable_compilation_cache(args.compile_cache)
     model = build_model(args, "cpu" if args.cpu else None)
     images = eval_images(args, model.tokenizer.cfg.vit.image_size)
     res = evaluate(model, images, args.batch_size, args.fid)

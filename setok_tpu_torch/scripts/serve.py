@@ -50,6 +50,8 @@ from setok_tpu_torch.models.llama import valid_quant_group
 from setok_tpu_torch.models.setokim import Setokim
 from setok_tpu_torch.scripts.train_setok import main_rank, parallel_setup
 from setok_tpu_torch.serve import ServeEngine
+from setok_tpu_torch.utils.compile_cache import (add_cli_flag,
+                                                 enable_compilation_cache)
 from setok_tpu_torch.utils.init import init_setokim_random_
 
 DEMO_PROMPTS = ["Describe the image.", "What color is the sky?",
@@ -98,6 +100,7 @@ def parse_args(argv=None):
                    help="a stage-2 run directory (models/builder.py)")
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="TP-shard the trunk over T ranks (torchrun)")
+    add_cli_flag(p)
     args = p.parse_args(argv)
     if args.system_prompt and args.prefill_chunk <= 0:
         p.error("--system-prompt requires --prefill-chunk")
@@ -106,6 +109,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    enable_compilation_cache(args.compile_cache)
     device, mesh, _ = parallel_setup(args.cpu, args.tensor_parallel)
     show = main_rank()
     cfg = cfgs.tiny_setokim() if args.tiny else cfgs.base_setokim()

@@ -43,12 +43,16 @@ batch stream skips the batches already taken), unless `--no-resume`.
 Without `--output-dir` nothing is written (the JAX CLI defaults to a
 directory under /tmp).
 
-The flags are the JAX CLI's (`scripts/train_setok.py`). Those that need
-modules the port lacks raise `NotImplementedError` naming their ROADMAP.md
-entry: LPIPS weights and the compilation cache. `--optim-bits 8` gives the
-generator int8 Adam moments (train/opt8.py); `--offload-optimizer` keeps
-both optimizers' moments in pinned host memory between steps
-(parallel/sharding.HostOffload).
+The flags are the JAX CLI's (`scripts/train_setok.py`). `--lpips-weights`
+(an `.npz` of `scripts/port_weights.py`'s `vgg16` and `lpips_lins`
+porters, either package's) is loaded into the LPIPS net by path suffix
+(`utils/porting.load_flat_into`, a warning for unmatched keys) when
+`--lpips` is given, and ignored without it, as in JAX; a resume restores
+the checkpoint's LPIPS weights over it. `--compile-cache` chooses the
+directory of the built kernels (utils/compile_cache.py). `--optim-bits 8`
+gives the generator int8 Adam moments (train/opt8.py);
+`--offload-optimizer` keeps both optimizers' moments in pinned host memory
+between steps (parallel/sharding.HostOffload).
 
 Data parallelism, as the JAX CLI's mesh over every device: run under
 `torchrun --nproc-per-node N` (one process per card; with `--cpu`, gloo
@@ -83,16 +87,12 @@ from setok_tpu_torch.parallel.mesh import (initialize_multihost,
 from setok_tpu_torch.train.stage1 import Stage1Trainer
 from setok_tpu_torch.utils.checkpoint import (CheckpointRunner,
                                               restore_sharded)
+from setok_tpu_torch.utils.compile_cache import (add_cli_flag,
+                                                 enable_compilation_cache)
 from setok_tpu_torch.utils.logging import MetricsLogger
+from setok_tpu_torch.utils.porting import load_flat_into
 from setok_tpu_torch.utils.synthetic import structured_images
 
-# the JAX CLI's flags that this port does not run
-REFUSED = {
-    "lpips_weights": "LPIPS weights (scripts/port_weights.py): ROADMAP.md, "
-                     "Queue A (remaining scripts and utils)",
-    "compile_cache": "the compilation cache: ROADMAP.md, Queue A "
-                     "(remaining scripts and utils)",
-}
 # the contrastive text tower's vocabulary (stage-1 text feeds only it)
 TEXT_VOCAB = 32000
 # the collator's static text length: CLIP's context
@@ -129,7 +129,11 @@ def parse_args(argv=None):
     p.add_argument("--detok-depth", type=int, default=None)
     p.add_argument("--disc-start", type=int, default=5000)
     p.add_argument("--lpips", action="store_true",
-                   help="the LPIPS term (random VGG-16 weights)")
+                   help="the LPIPS term (random VGG-16 weights unless "
+                        "--lpips-weights)")
+    p.add_argument("--lpips-weights", default=None,
+                   help="an .npz of ported VGG-16 + LPIPS lin weights "
+                        "(scripts/port_weights.py), with --lpips")
     p.add_argument("--optim-bits", type=int, default=32, choices=[32, 8],
                    help="8: the generator's Adam moments int8 in blocks "
                         "of 256 (train/opt8.py)")
@@ -155,17 +159,11 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true", default=True,
                    help="resume from the newest checkpoint (the default)")
     p.add_argument("--no-resume", dest="resume", action="store_false")
-    for name in REFUSED:
-        p.add_argument("--" + name.replace("_", "-"), default=None,
-                       help=argparse.SUPPRESS)
+    add_cli_flag(p)
     return p.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    for name, why in REFUSED.items():
-        if getattr(args, name) not in (None, False):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported: {why}")
+def check_args(args) -> None:
     if bool(args.synthetic) == bool(args.data_path):
         raise SystemExit("give one of --synthetic N and --data-path")
 
@@ -323,7 +321,8 @@ def build(args):
     """The trainer of the parsed flags (random weights from --seed, its
     optimizers ready) and its batch stream: the `DeviceLoader` of
     `--data-path`, or the synthetic numpy batches."""
-    check_ported(args)
+    check_args(args)
+    enable_compilation_cache(args.compile_cache)
     dev, mesh, _ = parallel_setup(args.cpu)
     tok, det = configs(args)
     train_cfg = cfgs.TrainConfig(
@@ -340,6 +339,12 @@ def build(args):
         use_text_encoder=args.data_path is not None, mesh=mesh,
         device=dev)
     trainer.init_weights_(args.seed)
+    if args.lpips and args.lpips_weights:
+        unmatched = load_flat_into(trainer.lpips,
+                                   dict(np.load(args.lpips_weights)))
+        if unmatched:
+            logger.warning("lpips weights: %d unmatched keys",
+                           len(unmatched))
     trainer.init_state()
     if args.data_path:
         return trainer, data_loader(

@@ -98,6 +98,8 @@ from setok_tpu_torch.scripts.train_setok import (data_loader,
                                                  parallel_setup, run_steps,
                                                  shard_stream)
 from setok_tpu_torch.train.stage2 import Stage2Trainer
+from setok_tpu_torch.utils.compile_cache import (add_cli_flag,
+                                                 enable_compilation_cache)
 from setok_tpu_torch.utils.init import init_setokim_random_
 from setok_tpu_torch.utils.porting import load_flat_into
 
@@ -198,6 +200,7 @@ def parse_args(argv=None):
         p.add_argument(f"--pretrain-{name.replace('_', '-')}", default=None,
                        help="an .npz of flat weights, loaded by path "
                             "suffix")
+    add_cli_flag(p)
     args = p.parse_args(argv)
     if args.sequence_parallel > 1 and args.tensor_parallel > 1:
         p.error("--sequence-parallel and --tensor-parallel are mutually "
@@ -300,6 +303,7 @@ def build(args):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    enable_compilation_cache(args.compile_cache)
     trainer, batches = build(args)
     batches = iter(batches)
     dev = trainer.model.device

@@ -172,10 +172,10 @@ def flax_entries(model: nn.Module) -> Dict[tuple, tuple]:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a numpy array on the host, bf16 widened to float32
-    (exact)."""
+    (exact); a 0-d tensor stays 0-d."""
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return np.ascontiguousarray(t.cpu().numpy())
+    return np.array(t.cpu().numpy(), order="C", copy=None)
 
 
 def to_flax_tree(model: nn.Module) -> dict:

@@ -12,7 +12,7 @@ from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
 from setok_tpu_torch.train.lora import Lora, init_lora
 
 # parameters drawn from N(0, 0.02²), as their flax initializers are
-_EMBEDDINGS = ("pos_embed", "mask_tokens")
+_EMBEDDINGS = ("pos_embed", "mask_tokens", "cls_token")
 _NORMAL_002 = ("time_embed.fc1.weight", "time_embed.fc2.weight")
 # the diffusion head's zero-initialised layers (its adaLN modulations and
 # its final projection)

@@ -38,6 +38,7 @@ from setok_tpu_torch.utils.from_flax import to_flax_tree
 from setok_tpu_torch.utils.init import init_setokim_random_
 from setok_tpu_torch.utils.porting import load_flat_into
 from tests.test_torch_setokim import MAX_LEN, prompts
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BARS = {16: 1e-4, 8: 2e-3, 4: 2e-3}
 # the int4 scales by plain absmax (clip search 0): the default search over

@@ -34,6 +34,7 @@ from setok_tpu_torch.kernels.cluster_dpc import (cluster_dpc_knn_kernel,
                                                  dpc_density_parent,
                                                  gram_f64)
 from tests.test_clustering import make_clustered_data
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TILE = ca.TILE
 

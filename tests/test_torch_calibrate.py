@@ -31,6 +31,7 @@ from setok_tpu_torch.serve import ServeEngine, collect_row_weights
 from setok_tpu_torch.serve.calibrate import lookup_row_weight
 from test_torch_serve_chunked import text_prompts, tiny_flax_params
 from test_torch_setokim import MAX_LEN, port_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

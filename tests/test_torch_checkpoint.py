@@ -46,6 +46,7 @@ from setok_tpu_torch.utils import checkpoint as ckpt
 from setok_tpu_torch.utils.from_flax import load_flax_params, to_flax_tree
 from setok_tpu_torch.utils.init import init_random_, init_setokim_random_
 from tests.test_torch_stage2 import make_batch, port_cfg, torch_batch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 X = np.random.RandomState(0).uniform(-1, 1, (2, 32, 32, 3)).astype(

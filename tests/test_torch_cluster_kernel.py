@@ -19,6 +19,7 @@ from setok_tpu_torch.kernels.cluster_dpc import (cluster_dpc_knn_kernel,
                                                  dpc_density_parent,
                                                  dpc_density_parent_reference)
 from tests.test_clustering import make_clustered_data
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _check_scores(got_score, ref_score, threshold=0.55):

@@ -33,6 +33,7 @@ from setok_tpu_torch.data.tokenizer import WordTokenizer, load_text_tokenizer
 from setok_tpu_torch.models.setokim import Setokim
 from setok_tpu_torch.serve import ServeEngine
 from setok_tpu_torch.utils.init import init_setokim_random_
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 IGNORE = constants.IGNORE_INDEX
 BPE_TEXT = [

@@ -25,6 +25,7 @@ import setok_tpu.data.sampler as jsampler
 import setok_tpu.data.tokenizer as jtok
 from setok_tpu_torch.data import anyres, datasets, image_processing, sampler
 from setok_tpu_torch.data.tokenizer import WordTokenizer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIZES = [(40, 24), (24, 40), (32, 32), (50, 30), (30, 50), (36, 28)]
 

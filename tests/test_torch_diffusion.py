@@ -26,6 +26,7 @@ from setok_tpu_torch.diffusion import gaussian as tg
 from setok_tpu_torch.losses.diffloss import DiffLoss
 from setok_tpu_torch.models.diffmlp import SimpleMLPAdaLN, timestep_embedding
 from setok_tpu_torch.utils.from_flax import load_flax_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TABLES = ("betas", "alphas_cumprod", "alphas_cumprod_prev",
           "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",

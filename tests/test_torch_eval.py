@@ -48,6 +48,7 @@ from setok_tpu_torch.utils import metrics as tmetrics
 from setok_tpu_torch.utils.from_flax import load_flax_params, to_flax_tree
 from setok_tpu_torch.utils.init import init_random_
 from tests.test_torch_builder import SETOKIM_TREE
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 IMAGE_SIZE = 64

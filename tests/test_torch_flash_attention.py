@@ -19,6 +19,7 @@ import torch
 from setok_tpu.kernels.flash_attention import _fwd as j_fwd
 from setok_tpu.kernels.flash_attention import flash_attention as j_flash
 from setok_tpu_torch.kernels import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FWD_TOL = 1e-5
 GRAD_TOL = 2e-4

@@ -32,6 +32,7 @@ from setok_tpu.kernels.flash_attention import _fwd as j_fwd
 from setok_tpu.kernels.flash_attention import flash_attention as j_flash
 from setok_tpu_torch import config as cfgs
 from tests.test_torch_flash_attention import CASES, holes_mask, qkv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GRAD_TOL = 2e-4
 

@@ -34,6 +34,7 @@ from setok_tpu.kernels.flash_attention import _fwd as j_fwd
 from setok_tpu_torch.kernels.flash_attention import NEG_INF
 from tests.test_torch_flash_attention import qkv
 from tests.test_torch_flash_backward_design import DESIGN_CASES, bf16
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FWD_TOL = 1e-5
 

@@ -11,12 +11,14 @@ from setok_tpu.models.setok import SeTok as JSeTok
 from setok_tpu_torch import config as tcfg
 from setok_tpu_torch.models.setok import SeTok
 from setok_tpu_torch.utils.from_flax import from_flax, load_flax_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")
 def flax_params():
     model = JSeTok(jcfg.tiny_tokenizer(), jcfg.tiny_detokenizer())
-    params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    params = jax.jit(model.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, 32, 32, 3)))
     return jax.tree.map(np.asarray, params)
 
 
@@ -87,7 +89,8 @@ def llama_trees():
     from setok_tpu.models.llama import quantize_trunk_weights
 
     ids = jnp.zeros((1, 4), jnp.int32)
-    params = JLlama(jcfg.tiny_llama()).init(jax.random.PRNGKey(0), ids)
+    params = jax.jit(JLlama(jcfg.tiny_llama()).init)(jax.random.PRNGKey(0),
+                                                     ids)
     return {bits: jax.tree.map(np.asarray, quantize_trunk_weights(
         params, bits=bits, group_size=16 if bits == 4 else 0))
         for bits in (8, 4)}

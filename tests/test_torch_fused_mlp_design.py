@@ -29,6 +29,7 @@ from setok_tpu_torch.kernels import fused_mlp as fm
 from setok_tpu_torch.kernels.fused_sublayer import gelu_tanh
 from setok_tpu_torch.kernels.quant import (QuantizedWeight, int8_dense,
                                            quant_rows, quantize_weight)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 JAX_TOL = 1e-5
 TILE_N = 256          # columns of a GEMM tile

@@ -46,6 +46,7 @@ from setok_tpu_torch.models.setokim import ImageDraws
 from setok_tpu_torch.utils.from_flax import load_flax_params
 from test_torch_models import TOL
 from test_torch_setokim import flax_params, port_model, prompts
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 __all__ = ["flax_params"]          # the shared module-scoped fixture
 

@@ -56,6 +56,12 @@ def test_port_and_chip_smoke_import_no_jax():
     # the parallel item
     assert {f"setok_tpu_torch.parallel.{m}" for m in (
         "mesh", "sharding", "ring_attention", "comm")} <= set(modules)
+    # the remaining scripts and utils
+    assert {"setok_tpu_torch.utils.tokens",
+            "setok_tpu_torch.utils.compile_cache",
+            "setok_tpu_torch.scripts.port_weights",
+            "setok_tpu_torch.scripts.assemble_pretrained",
+            "setok_tpu_torch.scripts.extract_components"} <= set(modules)
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, "setok_tpu_torch", *modules,
          "chip_smoke", "chip_kernel_times", "chip_parallel",

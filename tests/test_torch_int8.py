@@ -49,6 +49,7 @@ from setok_tpu_torch.ops import blocks
 from setok_tpu_torch.ops.clustering import same_cluster_mask
 from setok_tpu_torch.utils.from_flax import load_flax_params
 from setok_tpu_torch.utils.init import init_random_
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KERNEL_TOL = 1e-5
 ATTN_TOL = 2e-3
@@ -241,7 +242,7 @@ def test_int8_module_matches_jax(name):
     jm, tm, args, kw = _module_case(name)
     jargs = [jnp.asarray(a) for a in args]
     jkw = {k: jnp.asarray(v) for k, v in kw.items()}
-    params = jm.init(jax.random.PRNGKey(0), *jargs, **jkw)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), *jargs, **jkw)
     want = np.asarray(jm.apply(params, *jargs, **jkw))
     load_flax_params(tm, to_np(params))
     with torch.inference_mode():
@@ -288,7 +289,7 @@ def test_int8_setok_forward_matches_jax(seed):
     """
     x = images(seed)
     jm = JSeTok(jcfg.tiny_tokenizer(), jcfg.tiny_detokenizer(), quant8=True)
-    params = jm.init(jax.random.PRNGKey(seed), jnp.asarray(x))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(seed), jnp.asarray(x))
     want = jm.apply(params, jnp.asarray(x))
     tm = load_flax_params(SeTok(tcfg.tiny_tokenizer(), tcfg.tiny_detokenizer(),
                                 device="cpu", quant8=True), to_np(params))
@@ -314,7 +315,7 @@ def test_int8_group_encode_on_blobs_with_empty_clusters():
                       + rs.randn(16, cfg.hidden_dim) * 0.05
                       for _ in range(2)]).astype(np.float32)
     jm = JTok(cfg, quant8=True)
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(images(0)))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(images(0)))
     want = jm.apply(params, jnp.asarray(feats), method=JTok.tokenize_features)
     tm = load_flax_params(SetokTokenizer(tcfg.tiny_tokenizer(), quant8=True,
                                          device="cpu"), to_np(params))

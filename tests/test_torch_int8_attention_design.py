@@ -45,6 +45,7 @@ from setok_tpu_torch.kernels import fused_bert_attention_int8 as fba
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.kernels.quant import (int8_dense, int_dot, quant_rows,
                                            quantize_weight)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATTN_TOL = 2e-3           # chip_smoke.INT8_ATTN_TOL
 ATTN_SHARE = 0.99         # chip_smoke.INT8_ATTN_SHARE

@@ -17,6 +17,7 @@ from setok_tpu_torch.models.vit import ViTEncoderBlock
 from setok_tpu_torch.ops import blocks
 from setok_tpu_torch.utils.from_flax import load_flax_params
 from tests.test_torch_int8 import MODULE_TOL, close_share, max_rel, t, to_np
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SO400M_BLOCK_TOL = 4.5e-3
 SO400M_NOISE = 2e-7

@@ -52,6 +52,7 @@ from setok_tpu.kernels.fused_sublayer import mlp_sublayer_int8 as j_mlp
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.kernels.quant import (QuantizedWeight, int8_dense,
                                            quant_rows, quantize_weight)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATTN_TOL = 2e-3           # chip_smoke.INT8_ATTN_TOL
 ATTN_SHARE = 0.99         # chip_smoke.INT8_ATTN_SHARE

@@ -48,6 +48,7 @@ from setok_tpu_torch.kernels.quant import quantize_weight
 from setok_tpu_torch.models.vit import ViTEncoderBlock
 from setok_tpu_torch.ops import blocks
 from setok_tpu_torch.utils.from_flax import load_flax_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfs = importlib.import_module("setok_tpu.kernels.fused_sublayer")
 

@@ -29,6 +29,7 @@ from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.kernels import quant_matmul as qm
 from setok_tpu_torch.models.setok import INT8_KERNELS, SeTok, expected_calls
 from setok_tpu_torch.utils.from_flax import flax_state_key, load_flax_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FORWARD_TOL = 5e-2
 

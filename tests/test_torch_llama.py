@@ -25,6 +25,7 @@ from setok_tpu_torch.models.llama import (LlamaForCausalLM,
                                           quantize_trunk_weights,
                                           valid_quant_group)
 from setok_tpu_torch.utils.from_flax import from_flax, load_flax_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = {"bits16": (16, 0, 1e-4), "bits8": (8, 0, 2e-3),
          "bits4": (4, 0, 2e-3), "bits4-g16": (4, 16, 2e-3)}

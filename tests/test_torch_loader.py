@@ -42,6 +42,7 @@ from setok_tpu_torch.data.collator import Collator
 from setok_tpu_torch.data.sampler import LengthGroupedSampler
 from setok_tpu_torch.scripts import train_setok, train_setokim
 from setok_tpu_torch.utils import logging as plogging
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 class ToyDataset:
@@ -391,12 +392,60 @@ def test_epochs_refuse_a_dataset_smaller_than_a_batch():
     assert first["input_ids"].shape == second["input_ids"].shape == (4, 8)
 
 
+@pytest.fixture(scope="module")
+def lpips_npz(tmp_path_factory):
+    """torchvision vgg16 + LPIPS heads in the HF layout, through the
+    port's `vgg16` and `lpips_lins` porters into one .npz; and the
+    state dict."""
+    import chip_smoke
+    from setok_tpu_torch.scripts import port_weights
+    sd = chip_smoke.hf_vgg_lpips_state(torch.Generator().manual_seed(9))
+    np_sd = {k: v.numpy() for k, v in sd.items()}
+    path = tmp_path_factory.mktemp("lpips") / "lpips.npz"
+    np.savez(path, **port_weights.port_vgg16(np_sd),
+             **port_weights.port_lpips_lins(np_sd))
+    return str(path), sd
+
+
+# the names of the refusal cases are kept: both flags run now
 @pytest.mark.parametrize("argv,match", [
     (["--lpips-weights", "vgg.npz"], "not ported"),
     (["--compile-cache", "cache"], "not ported")])
-def test_train_setok_still_refuses(argv, match, data_files):
-    with pytest.raises(NotImplementedError, match=match):
-        train_setok.main(stage1_argv(data_files, *argv))
+def test_train_setok_still_refuses(argv, match, data_files, lpips_npz,
+                                   tmp_path, monkeypatch):
+    """The real-data CLI's build: --lpips --lpips-weights loads the ported
+    VGG and heads into the trainer's LPIPS (every tensor equal to its
+    torchvision / LPIPS source), and a resume without the flag restores
+    them from the checkpoint; --compile-cache sets the kernels' build
+    directory. (Without --lpips the file is ignored, as in JAX: the
+    synthetic case in tests/test_torch_stage1.py; trained steps with the
+    flags: chip_smoke.py's `weights` phase.)"""
+    import chip_smoke
+    from setok_tpu_torch.kernels import _build
+    from setok_tpu_torch.utils import checkpoint as ckpt
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    if argv[0] == "--compile-cache":
+        train_setok.build(train_setok.parse_args(stage1_argv(
+            data_files, "--compile-cache", str(tmp_path / "cache"))))
+        assert _build.BUILD_DIR == tmp_path / "cache"
+        assert (tmp_path / "cache").is_dir()
+        return
+    path, sd = lpips_npz
+    out = str(tmp_path / "run")
+    trainer, _ = train_setok.build(train_setok.parse_args(stage1_argv(
+        data_files, "--lpips", "--lpips-weights", path)))
+    sources = chip_smoke.lpips_sources(sd)
+    assert chip_smoke.spliced_gap(trainer.lpips, sources)["max_abs"] == 0.0
+    gen = torch.Generator().manual_seed(1)
+    ckpt.save_checkpoint(os.path.join(out, "checkpoints"), 1,
+                         trainer.full_state_dict({"dropout": gen}))
+    args = train_setok.parse_args(stage1_argv(data_files, "--lpips",
+                                              "--output-dir", out))
+    fresh, _ = train_setok.build(args)
+    assert chip_smoke.spliced_gap(fresh.lpips, sources)["max_abs"] > 0.0
+    train_setok.resume(fresh, os.path.join(out, "checkpoints"),
+                       {"dropout": torch.Generator()}, fresh.device)
+    assert chip_smoke.spliced_gap(fresh.lpips, sources)["max_abs"] == 0.0
 
 
 @pytest.mark.parametrize("argv", [

@@ -32,6 +32,7 @@ from setok_tpu_torch.models.text_encoder import TextEncoder
 from setok_tpu_torch.utils import metrics as tmet
 from setok_tpu_torch.utils import synthetic as tsyn
 from setok_tpu_torch.utils.from_flax import load_flax_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

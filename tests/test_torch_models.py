@@ -26,6 +26,7 @@ from setok_tpu_torch.models.setok import SeTok
 from setok_tpu_torch.models.tokenizer import SetokTokenizer
 from setok_tpu_torch.models.vit import ViT
 from setok_tpu_torch.utils.from_flax import load_flax_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 
@@ -188,10 +189,32 @@ def test_entry_points_default_to_the_card(build, monkeypatch):
 
 
 # the merge_layer case (option0) went with the code that raised: the token
-# merge is ported (tests/test_torch_token_merge.py)
-@pytest.mark.parametrize("option", [{"use_class_token": True}],
-                         ids=["option1"])
+# merge is ported (tests/test_torch_token_merge.py); the class token
+# (option1, and option2 keeping it in the features) runs now
+@pytest.mark.parametrize("option", [
+    {"use_class_token": True},
+    {"use_class_token": True, "select_feature": "cls_patch"}],
+    ids=["option1", "option2"])
 def test_unported_vit_options_raise(option):
-    vit = tcfg.replace(tcfg.tiny_tokenizer().vit, **option)
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        ViT(vit, device="cpu")
+    """The class token: a (1, 1, width) `cls_token` prepended after the
+    position embedding, dropped from the tapped features with
+    select_feature "patch", kept with "cls_patch"; the JAX ViT on the same
+    weights (flax tree from the port model) within 1e-5."""
+    from setok_tpu_torch.utils.from_flax import to_flax_tree
+    from setok_tpu_torch.utils.init import init_random_
+    cfg_t = tcfg.replace(tcfg.tiny_tokenizer().vit, **option)
+    cfg_j = jcfg.replace(jcfg.tiny_tokenizer().vit, **option)
+    tm = init_random_(ViT(cfg_t, device="cpu"), 2)
+    tree = to_flax_tree(tm)
+    assert tree["params"]["cls_token"].shape == (1, 1, cfg_t.width)
+    x = images(6)
+    n = cfg_t.num_patches + (option.get("select_feature") == "cls_patch")
+    for sel in (None, 0):
+        want = np.asarray(JViT(cfg_j).apply(tree, jnp.asarray(x),
+                                            select_layer=sel))
+        with torch.no_grad():
+            got = tm(torch.from_numpy(x), select_layer=sel).numpy()
+        assert got.shape == want.shape == (2, n, cfg_t.width)
+        assert max_abs(got, want) <= 1e-5
+    with pytest.raises(ValueError, match="use_class_token"):
+        tcfg.replace(cfg_t, merge_layer=0)

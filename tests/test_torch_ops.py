@@ -23,6 +23,7 @@ from setok_tpu_torch.ops.clustering import (cluster_dpc_knn, same_cluster_mask,
 from setok_tpu_torch.ops.posenc import posenc_2d_flat
 from setok_tpu_torch.utils.from_flax import load_flax_params
 from tests.test_clustering import make_clustered_data
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BLOCK_TOL = 1e-5
 
@@ -42,7 +43,7 @@ def _x(seed, shape):
 def _compare(jmod, tmod, *args, **kw):
     jargs = [jnp.asarray(a) for a in args]
     jkw = {k: jnp.asarray(v) for k, v in kw.items()}
-    params = jmod.init(jax.random.PRNGKey(0), *jargs, **jkw)
+    params = jax.jit(jmod.init)(jax.random.PRNGKey(0), *jargs, **jkw)
     want = np.asarray(jmod.apply(params, *jargs, **jkw))
     load_flax_params(tmod, jax.tree.map(np.asarray, params))
     with torch.inference_mode():

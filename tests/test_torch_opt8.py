@@ -39,6 +39,7 @@ from setok_tpu_torch.train.stage1 import Stage1Trainer
 from setok_tpu_torch.train.stage2 import (AdamWOptax, Stage2Trainer,
                                           clip_by_global_norm_, warmup_cosine)
 from tests.test_torch_stage2 import port_cfg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR = 2.0 ** -7       # exact in float32: the schedule adds no rounding
 

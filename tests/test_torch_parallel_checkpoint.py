@@ -9,6 +9,7 @@ import torch
 
 from setok_tpu_torch.utils import checkpoint as ckpt
 from tests import torch_parallel_workers as W
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _equal(got, want, path=""):

@@ -10,6 +10,7 @@ import sys
 from pathlib import Path
 
 from tests import torch_parallel_workers as W
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from tests import torch_parallel_workers as W
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, L, D = 2, 2, 32, 16
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tests import torch_parallel_workers as W
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TWO = [dict(bits=8), dict(bits=4, group=16), dict(bits=8, chunk=8),
        dict(bits=4, group=16, chunk=8)]

@@ -14,6 +14,7 @@ from setok_tpu_torch.models.setokim import Setokim
 from setok_tpu_torch.parallel import sharding as ps
 from setok_tpu_torch.train.opt8 import flax_perm
 from setok_tpu_torch.utils.from_flax import flax_entries
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _norm(spec):

@@ -20,6 +20,7 @@ Adam's bound of 2·lr an update.
 import torch
 
 from tests import torch_parallel_workers as W
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = [dict(), dict(optim_bits=8, multi_label=0), dict(offload=True)]
 LR, UPDATES = 1e-3, 2

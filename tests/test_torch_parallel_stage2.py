@@ -25,6 +25,7 @@ from torch import nn
 from setok_tpu_torch.parallel.sharding import fsdp_dim
 from setok_tpu_torch.train.opt8 import Adam8bit, flax_perm
 from tests import torch_parallel_workers as W
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LORA = dict(lora_enable=True, lora_r=4, lora_alpha=8.0,
             mm_in_projector_lr=2e-3, mm_out_projector_lr=5e-4)

@@ -33,6 +33,7 @@ from setok_tpu_torch.models.setok import SeTok
 from setok_tpu_torch.ops.blocks import LayerNorm, param_f32
 from setok_tpu_torch.utils.from_flax import load_flax_params, to_flax_tree
 from setok_tpu_torch.utils.init import init_random_
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 X = np.random.RandomState(1).uniform(-1, 1, (2, 32, 32, 3)).astype(
     np.float32)

@@ -59,6 +59,7 @@ from tests.test_torch_opt8 import bf16_ulp
 from tests.test_torch_stage2 import (TGT, jax_cfg, jax_draws, make_batch,
                                      max_rel, port_cfg, torch_batch)
 from tests.test_torch_stage2_trainer import TRAIN_CFG
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the file's tiny Setokim flax tree (numpy leaves)
 TREE = to_flax_tree(init_setokim_random_(

@@ -40,6 +40,7 @@ from setok_tpu_torch.kernels.quant import (Quant4Weight, QuantizedWeight,
                                            quantize_weight,
                                            quantize_weight_int4,
                                            unpack_nibbles)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the modules themselves (setok_tpu.kernels re-exports functions of
 # these names)

@@ -41,6 +41,7 @@ from setok_tpu_torch.kernels.quant import (Quant4Weight, int_dot,
                                            quant4_matmul_plain, quant_rows,
                                            quantize_weight_int4,
                                            unpack_nibbles)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jqm = importlib.import_module("setok_tpu.kernels.quant_matmul")
 

@@ -20,6 +20,7 @@ from setok_tpu.serve import ServeEngine as JServeEngine
 from setok_tpu_torch.serve import ServeEngine
 from test_torch_setokim import (IMAGE_TOKEN_INDEX, K_MAX, L, MAX_LEN,
                                 flax_params, port_model)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MAX_NEW = 10
 EOS, PAD = 2, 0

@@ -15,8 +15,6 @@ engine, on `tiny_setokim()` (2 trunk layers) with the same flax weights:
     and the `ValueError`s.
 """
 
-import functools
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -28,23 +26,18 @@ from setok_tpu.models.setokim import Setokim as JSetokim
 from setok_tpu.serve import ServeEngine as JServeEngine
 from setok_tpu_torch.serve import ServeEngine
 from test_torch_serve import EOS, PAD, compare_streams, requests
-from test_torch_setokim import L, MAX_LEN, port_model, prompts
+from test_torch_setokim import (L, MAX_LEN, port_model, prompts,
+                                seeded_flax_params)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MAX_NEW = 6
 CACHES = {"f32": (torch.float32, jnp.float32), "int8": (torch.int8, jnp.int8)}
 
 
-@functools.lru_cache(maxsize=1)
 def tiny_flax_params():
     """The flax weights of tests/test_torch_setokim.py's fixture, made once
     per process for the serving-feature test files."""
-    model = JSetokim(jcfg.tiny_setokim(), target_token_id=3)
-    ids, images = prompts(0, 1)
-    ids, images = jnp.asarray(ids), jnp.asarray(images)
-    params = jax.jit(lambda r: model.init(
-        r, ids, images, ids, images, jax.random.PRNGKey(1),
-        method=model.init_all))(jax.random.PRNGKey(0))
-    return jax.tree.map(np.asarray, params)
+    return seeded_flax_params()
 
 
 @pytest.fixture(scope="module")

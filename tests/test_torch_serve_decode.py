@@ -37,6 +37,7 @@ from setok_tpu_torch.serve import ServeEngine
 from setok_tpu_torch.serve.engine import sample_rows
 from test_torch_serve import EOS, PAD, compare_streams, requests
 from test_torch_setokim import L, MAX_LEN, flax_params, port_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 __all__ = ["flax_params"]          # the shared module-scoped fixture
 
@@ -269,13 +270,25 @@ def test_serve_cli_takes_decode_block(capsys):
     assert "4 requests, 24 tokens" in out and "TTFT mean" in out
 
 
+# the case names are kept: eval_recon's --compile-cache runs now
 @pytest.mark.parametrize("script,flag,match", [
     (eval_recon, ["--compile-cache", "x"], "ROADMAP.md"),
     (train_cli, ["--synthetic", "--tensor-parallel", "2",
                  "--sequence-parallel", "2"], "mutually exclusive")])
-def test_flags_not_ported_refuse(script, flag, match, capsys):
-    """The flags the port still refuses, and the combination the JAX CLI
-    refuses (one trunk mesh)."""
+def test_flags_not_ported_refuse(script, flag, match, capsys, tmp_path,
+                                 monkeypatch):
+    """eval_recon --compile-cache DIR evaluates with the kernels' build
+    directory set to DIR; the combination the JAX CLI refuses (one trunk
+    mesh) is refused."""
+    if script is eval_recon:
+        from setok_tpu_torch.kernels import _build
+        monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+        res = eval_recon.main(["--cpu", "--tiny", "--synthetic", "4",
+                               "--batch-size", "2", "--image-size", "32",
+                               flag[0], str(tmp_path / flag[1])])
+        assert res["n"] == 4 and np.isfinite(res["psnr"])
+        assert _build.BUILD_DIR == tmp_path / flag[1]
+        return
     with pytest.raises(SystemExit):
         script.parse_args(flag)
     assert match in capsys.readouterr().err

@@ -17,6 +17,7 @@ from setok_tpu_torch.models.setokim import Setokim
 from setok_tpu_torch.scripts import serve as cli
 from setok_tpu_torch.serve import ServeEngine
 from setok_tpu_torch.utils.init import init_setokim_random_
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -46,6 +46,7 @@ from test_torch_serve import EOS, PAD, compare_streams, requests
 from test_torch_serve_chunked import tiny_flax_params
 from test_torch_setokim import L, MAX_LEN, max_rel, port_model
 from test_torch_setokim import prompts as image_prompts
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 D = 4
 MAX_NEW = 9

@@ -18,6 +18,8 @@ runs them. Bars, max-rel = max|got - want| / max|want|:
     one step apart (a last-bit difference upstream flips a rounding).
 """
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -30,7 +32,9 @@ from setok_tpu.models.llama import quantize_trunk_weights
 from setok_tpu.models.setokim import Setokim as JSetokim
 from setok_tpu_torch import config as tcfg
 from setok_tpu_torch.models.setokim import Setokim
-from setok_tpu_torch.utils.from_flax import load_flax_params
+from setok_tpu_torch.utils.from_flax import load_flax_params, to_flax_tree
+from setok_tpu_torch.utils.init import init_setokim_random_
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 L = 24
 MAX_LEN = 40
@@ -57,15 +61,19 @@ def prompts(seed, b=2):
     return ids, images
 
 
+@functools.lru_cache(maxsize=1)
+def seeded_flax_params():
+    """The tiny Setokim's weights in the flax layout, drawn by the port
+    from seed 0 (`to_flax_tree`): the tree a flax init returns, without
+    compiling one (some 13 s a process). Made once per process."""
+    model = init_setokim_random_(Setokim(tcfg.tiny_setokim(),
+                                         target_token_id=3, device="cpu"), 0)
+    return to_flax_tree(model)
+
+
 @pytest.fixture(scope="module")
 def flax_params():
-    model = JSetokim(jcfg.tiny_setokim(), target_token_id=3)
-    ids, images = prompts(0, 1)
-    ids, images = jnp.asarray(ids), jnp.asarray(images)
-    params = jax.jit(lambda r: model.init(
-        r, ids, images, ids, images, jax.random.PRNGKey(1),
-        method=model.init_all))(jax.random.PRNGKey(0))
-    return jax.tree.map(np.asarray, params)
+    return seeded_flax_params()
 
 
 def port_model(params, bits=16, group=0, cache_kernel=False):

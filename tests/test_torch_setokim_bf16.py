@@ -30,6 +30,7 @@ from setok_tpu_torch.utils.init import init_lora_random, init_setokim_random_
 from tests.test_torch_setokim import MAX_LEN, prompts
 from tests.test_torch_stage2 import (TGT, jax_cfg, jax_draws, make_batch,
                                      max_rel, port_cfg, torch_batch)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TREE = to_flax_tree(init_setokim_random_(
     Setokim(port_cfg(), target_token_id=TGT, device="cpu"), 8))

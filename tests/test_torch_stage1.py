@@ -51,7 +51,9 @@ from setok_tpu_torch import config as tcfg
 from setok_tpu_torch.ops import blocks
 from setok_tpu_torch.scripts import train_setok
 from setok_tpu_torch.train.stage1 import Stage1Trainer, eval_step, psnr
-from setok_tpu_torch.utils.from_flax import from_flax, load_stage1_flax
+from setok_tpu_torch.utils.from_flax import (from_flax, load_stage1_flax,
+                                            to_flax_tree)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REL = 1e-4
 PARAM_TOL = 1e-5
@@ -102,14 +104,28 @@ def tbatch(batch):
 
 
 def paired(jt, tt, batch, seed=0):
-    """A JAX state from `seed` and the port trainer holding its weights."""
-    state = jt.create_state(jax.random.PRNGKey(seed), jbatch(batch))
+    """The port trainer with its weights drawn from `seed`
+    (`init_weights_`) and a JAX state holding the same weights: the
+    trees of `create_state` (`to_flax_tree`; `load_stage1_flax` checks
+    them strictly against the port's modules), its optimizers'
+    states by `jt`'s own `init`. No flax init runs: its eager draws
+    compile once per parameter (some 30 s a trainer)."""
+    del batch                     # create_state's shapes; the trees have them
+    tt.init_weights_(seed)
+    tree = lambda m: jax.tree.map(jnp.asarray, to_flax_tree(m))
+    gen = {"setok": tree(tt.model), "contrastive": tree(tt.contrastive)}
+    if tt.text_encoder is not None:
+        gen["text_encoder"] = tree(tt.text_encoder)
+    disc = tree(tt.disc)
+    lpips = None if tt.lpips is None else tree(tt.lpips)
     np_ = lambda t: jax.tree.map(np.asarray, t)
-    load_stage1_flax(tt, np_(state.gen_params), np_(state.disc_params),
-                     None if state.lpips_params is None
-                     else np_(state.lpips_params))
+    load_stage1_flax(tt, np_(gen), np_(disc),
+                     None if lpips is None else np_(lpips))
     tt.init_state()
-    return state
+    return jstage1.Stage1State(
+        step=jnp.zeros((), jnp.int32), gen_params=gen, disc_params=disc,
+        lpips_params=lpips, gen_opt_state=jt.gen_opt.init(gen),
+        disc_opt_state=jt.disc_opt.init(disc))
 
 
 def rel(got, want):
@@ -414,12 +430,28 @@ def test_cli_clamps_like_the_jax_cli():
 @pytest.mark.parametrize("argv", [
     ["--data-path", "x.json"], ["--compile-cache", "cache"],
     ["--lpips-weights", "vgg.npz"]])
-def test_cli_refuses_unported_flags(argv):
-    """Flags the port does not run, and --data-path beside --synthetic
-    (one data source)."""
-    with pytest.raises((NotImplementedError, SystemExit),
-                       match="ROADMAP.md|not ported|one of"):
-        train_setok.main(["--cpu", "--tiny", "--synthetic", "4", *argv])
+def test_cli_refuses_unported_flags(argv, tmp_path, capsys, monkeypatch):
+    """--data-path beside --synthetic is refused (one data source); the
+    other two run: --compile-cache builds the kernels into its directory,
+    --lpips-weights without --lpips is ignored, as in JAX (the file need
+    not exist; loaded with --lpips: tests/test_torch_loader.py)."""
+    from setok_tpu_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    base = ["--cpu", "--tiny", "--synthetic", "4"]
+    if argv[0] == "--data-path":
+        with pytest.raises(SystemExit, match="one of"):
+            train_setok.main([*base, *argv])
+        return
+    path = str(tmp_path / argv[1])
+    train_setok.main([*base, "--steps", "1", "--batch-size", "2",
+                      "--image-size", "32", argv[0], path])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [x["updates"] for x in lines] == [1]
+    if argv[0] == "--compile-cache":
+        assert str(_build.BUILD_DIR) == path and (tmp_path / "cache").is_dir()
+    else:
+        assert not (tmp_path / "vgg.npz").exists()
 
 
 def test_cli_runs_offload_optimizer(capsys):

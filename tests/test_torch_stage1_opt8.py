@@ -37,6 +37,7 @@ from setok_tpu_torch.utils.from_flax import flax_state_key
 from tests.test_torch_stage1 import (check_metrics, gen_named, gen_state,
                                      jbatch, key_bias, make_batch,
                                      no_dropout, paired, tbatch)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR = 1e-3
 

@@ -11,6 +11,7 @@ from tests.test_torch_stage1 import (adam_mu, check_metrics, check_moments,
                                      check_params, gen_named, gen_state,
                                      jbatch, make_batch, paired, tbatch,
                                      trainers, tree_state)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("use_lpips", [False, True], ids=["l1", "lpips"])

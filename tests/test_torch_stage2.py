@@ -41,6 +41,7 @@ from setok_tpu_torch.train.lora import apply_lora
 from setok_tpu_torch.utils.from_flax import (flax_state_key, lora_from_flax,
                                              load_flax_params, to_flax_tree)
 from setok_tpu_torch.utils.init import init_setokim_random_
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 L = 40
 TGT = 3

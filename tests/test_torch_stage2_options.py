@@ -61,6 +61,7 @@ from tests.test_torch_stage2 import (TGT, jax_cfg, jax_draws, make_batch,
 from tests.test_torch_opt8 import bf16_ulp
 from tests.test_torch_qlora import payload_agreement
 from tests.test_torch_stage2_trainer import TRAIN_CFG
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TREE = to_flax_tree(init_setokim_random_(
     Setokim(port_cfg(), target_token_id=TGT, device="cpu"), 6))

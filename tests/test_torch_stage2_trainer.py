@@ -28,6 +28,8 @@ import torch
 
 from setok_tpu import config as jcfg
 from setok_tpu.train.lora import init_lora as j_init_lora
+from setok_tpu.train.lora import default_target_filter
+from setok_tpu.train.stage2 import Stage2State
 from setok_tpu.train.stage2 import Stage2Trainer as JTrainer
 from setok_tpu_torch import config as tcfg
 from setok_tpu_torch.train.stage2 import Stage2Trainer, warmup_cosine
@@ -36,6 +38,7 @@ from setok_tpu_torch.utils.from_flax import (flax_state_key, from_flax,
 from tests.test_torch_stage2 import (  # noqa: F401 (flax_params: fixture)
     TGT, flax_params, jax_cfg, jax_draws, make_batch, max_rel, port_cfg,
     torch_batch)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 TRAIN_CFG = dict(learning_rate=1e-3, max_grad_norm=0.05, warmup_steps=1,
@@ -50,8 +53,14 @@ def test_two_updates_match_jax_trainer(flax_params):
     batches = [make_batch(10 + i) for i in range(4)]
     jt = JTrainer(jax_cfg(), train_cfg=jcfg.TrainConfig(**TRAIN_CFG),
                   **TRAINER_KW)
-    state = jt.create_state(jax.random.PRNGKey(0),
-                            {k: jnp.asarray(v) for k, v in batches[0].items()})
+    # create_state without its flax init: the port's seeded weights, the
+    # LoRA tree and optimizer state as create_state makes them
+    params = jax.tree.map(jnp.asarray, flax_params)
+    lora = j_init_lora(params, jax.random.split(jax.random.PRNGKey(0), 3)[1],
+                       jt.lora_r, default_target_filter)
+    state = Stage2State(step=jnp.zeros((), jnp.int32), params=params,
+                        lora=lora, opt_state=jt._tx.init(
+                            {"params": params, "lora": lora}))
     params0 = jax.tree.map(np.asarray, state.params)
     lora0 = jax.tree.map(np.asarray, state.lora)
     keys = jax.random.split(jax.random.PRNGKey(21), 4)

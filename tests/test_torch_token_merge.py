@@ -27,6 +27,7 @@ from setok_tpu_torch.models.vit import ViT
 from setok_tpu_torch.train.stage1 import Stage1Trainer
 from setok_tpu_torch.utils.from_flax import load_flax_params
 from setok_tpu_torch.utils.init import init_random_
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 
