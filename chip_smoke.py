@@ -4,6 +4,7 @@ versions.
 
     python3 chip_smoke.py
     python3 chip_smoke.py parallel data     # those phases alone (a check)
+    python3 chip_smoke.py recipes
 
 Phases, each printed as one JSON line; any failure exits non-zero before
 the last line:
@@ -14,7 +15,9 @@ the last line:
                 each, in parallel) into build/torch_kernels/;
   kernels       each hand-written kernel against its plain PyTorch version
                 on the card, at every shape the main paths give it (the
-                clustering at N=256, 576 and 729), and its time (the
+                clustering at N=256, 576 and 729, the merged recipe's N=64
+                with k = k_max = 64, and N=1296 and 2304 past the rows
+                held in registers, those three timed), and its time (the
                 clustering's device time split into its two kernels) at the
                 throughput batch; the int8 attentions' shares
                 beside their float32-score twins', row 4 with every key of
@@ -189,7 +192,23 @@ the last line:
                 and on the CPU; the clusters, the metrics of one step's
                 terms (no update), and the gradients of the pixel head and
                 the inner Block.
-  data          (after train_setok_parity) the data pipeline from files
+  recipes       (after train_setok_parity) the fast token-merge recipe of
+                stage 1 (train_setok --merge-layer 1 --detok-depth 8: the
+                CLI clamps k_max, min_cluster_num and knn to the 64 merged
+                tokens): 3 updates at full width as train_setok reports
+                them (the whole pool-init ViT bit for bit unchanged, the
+                merge's LayerNorm moved, row 1 2 an update); its step cut
+                to ViT depth 3 card vs CPU as train_setok_parity; rows 2
+                and 4 at the merged shapes (a ViT block of 64 tokens, the
+                cross-attention over 64 keys) at B=64 against their plain
+                versions, two more calls equal to the bit; the
+                merged forward at B=64, float (FWD_REL_TOL) and int8
+                (FWD_INT8_TOL, identical clusters, calls = expected_calls)
+                card vs CPU stage by stage; scripts/eval_recon.py's main
+                with the recipe's flags over 64 structured images, float
+                with --cluster-dist-norm (the plain clustering: row 1 not
+                launched) and quant8 (row 1 once a batch).
+  data          (after recipes) the data pipeline from files
                 that the phase writes from the seed (96 PNGs of 320 x 240,
                 a cc3m-style caption json, a LLaVA-form instruction json,
                 an editing json, a BPE tokenizer trained with `tokenizers`
@@ -460,17 +479,27 @@ def phase_build() -> None:
           "libraries": sorted(libs)})
 
 
+# row 1's cases: (B, N, C, k, k_max, min_cluster_num, timed). The main
+# paths' shapes (base @256: N=256, C=768; @384: N=576; so400m: N=729,
+# C=1152; k=64), one uneven case (N=50, k=8), the merged recipe's (N=64 =
+# k = k_max = min_cluster_num, at its forward's batch) and two past the
+# 1024 rows held in registers (ViT-B/16 at 576 and 768 px), those three
+# also timed.
+CLUSTER_CASES = ((4, 256, 768, 64, 80, 64, False),
+                 (2, 576, 768, 64, 80, 64, False),
+                 (2, 729, 1152, 64, 80, 64, False),
+                 (2, 50, 768, 8, 16, 4, False),
+                 (64, 64, 768, 64, 64, 64, True),
+                 (8, 1296, 768, 64, 80, 64, True),
+                 (2, 2304, 768, 64, 80, 64, True))
+
+
 def phase_kernels() -> dict:
-    """dpc_density_parent against its plain version at the main paths'
-    shapes (base @256: N=256, C=768; @384: N=576; so400m: N=729, C=1152;
-    k=64) and one uneven case (N=50, k=8); its time and device split at the
-    throughput batch."""
+    """dpc_density_parent against its plain version at CLUSTER_CASES; its
+    time and device split at the throughput batch."""
     threshold = 0.55
     errs = []
-    for b, n, c, k, k_max, min_cn in ((4, 256, 768, 64, 80, 64),
-                                      (2, 576, 768, 64, 80, 64),
-                                      (2, 729, 1152, 64, 80, 64),
-                                      (2, 50, 768, 8, 16, 4)):
+    for b, n, c, k, k_max, min_cn, timed in CLUSTER_CASES:
         x = torch.from_numpy(np.stack([clustered(SEED + i, n, c)
                                        for i in range(b)])).cuda()
         dens, parent, rowmax = cluster_dpc.dpc_density_parent(x, k)
@@ -481,8 +510,14 @@ def phase_kernels() -> dict:
                            .max())
         got_s, ref_s = dens * parent, rd * rp
         close = torch.isclose(got_s, ref_s, rtol=1e-3, atol=1e-3)
+        # the peaks: the scores above the threshold. At k = N (the merged
+        # recipe) the density is exp of the mean of the whole row, at most
+        # ~0.4 on these blobs, so no score clears it: the selection falls
+        # back to min_cluster_num, and density near-ties between tokens of
+        # a blob may flip a parent (the score-close share)
         peaks = ref_s > threshold
-        peak_rel = float(((got_s - ref_s).abs() / ref_s.abs())[peaks].max())
+        peak_rel = (float(((got_s - ref_s).abs() / ref_s.abs())[peaks].max())
+                    if bool(peaks.any()) else 0.0)
         got = cluster_dpc.cluster_dpc_knn_kernel(x, k, k_max, min_cn,
                                                  threshold)
         ref = cluster_dpc.select_and_assign(x, ref_s, k_max, min_cn,
@@ -490,17 +525,23 @@ def phase_kernels() -> dict:
         same = (torch.equal(got.num_clusters, ref.num_clusters)
                 and torch.equal(got.center_idx, ref.center_idx)
                 and torch.equal(got.idx_cluster, ref.idx_cluster))
-        case = {"B": b, "N": n, "C": c, "k": k, "density_max_rel": dens_rel,
+        case = {"B": b, "N": n, "C": c, "k": k, "k_max": k_max,
+                "min_cluster_num": min_cn, "density_max_rel": dens_rel,
                 "rowmax_max_rel": rowmax_rel,
                 "density_max_abs": float((dens - rd).abs().max()),
                 "score_close_frac": float(close.float().mean()),
-                "peaks": int(peaks.sum()), "peak_score_max_rel": peak_rel,
+                "peaks": int(peaks.sum()),
+                "peak_score_max_rel": peak_rel,
                 "num_clusters": got.num_clusters.tolist(),
                 "clusters_identical": same}
+        if timed:
+            case["ms"] = time_ms(lambda: cluster_dpc.dpc_density_parent(x, k))
+            case["plain_ms"] = time_ms(
+                lambda: cluster_dpc.dpc_density_parent_reference(x, k))
         emit({"phase": "kernels", "kernel": "dpc_density_parent", **case})
         check(dens_rel <= 1e-5, f"density rel err {dens_rel} > 1e-5")
         check(rowmax_rel <= 1e-5, f"rowmax rel err {rowmax_rel} > 1e-5")
-        check(bool(peaks.any()) and peak_rel <= 1e-4,
+        check((bool(peaks.any()) or k >= n) and peak_rel <= 1e-4,
               f"peak score rel err {peak_rel} > 1e-4")
         check(case["score_close_frac"] >= 0.9, "scores close on < 90 %")
         check(same, "cluster_dpc_knn_kernel differs from the plain route")
@@ -569,7 +610,10 @@ def int8_cases(b: int, device, seed: int = SEED, shapes: str = "path"):
     kernel at each shape of the base forward, B images: the ViT, decoder,
     inner and inter attention sublayers, the MLPs at N=256 and N=80 rows per
     image, the post-norm MLP, the Q-Former's self- and cross-attention.
-    shapes="timing" gives one case per kernel, the unmasked N=256 one."""
+    shapes="timing" gives one case per kernel, the unmasked N=256 one;
+    shapes="merged" the attentions at the token-merge recipe's shapes that
+    no other case has: a ViT block past the merge (64 tokens) and the
+    cross-attention over 64 keys, each one key tile."""
     rs = np.random.RandomState(seed)
     c, hid = 768, 3072
 
@@ -614,6 +658,10 @@ def int8_cases(b: int, device, seed: int = SEED, shapes: str = "path"):
     if shapes == "timing":
         return [attn("vit", 256, 12, None, 1e-6), mlp("vit", 256, 1e-6),
                 bert("self", 256, None, None), post("mapper", 256)]
+    if shapes == "merged":
+        return [attn("vit merged", 64, 12, None, 1e-6),
+                bert("cross merged", 256, 64,
+                     torch.ones(b, 64, dtype=torch.bool, device=device))]
     inner, inter, valid = blob_masks(b, device)
     return [attn("vit", 256, 12, None, 1e-6),
             attn("decoder", 256, 16, None, 1e-5),
@@ -902,16 +950,18 @@ def staged_forward(cpu_model: SeTok, gpu_model: SeTok, seed: int,
            "recon_max_rel": max_rel(det_g.image, det_c.image),
            "forward_vs_staged_recon_max_rel": max_rel(out.recon,
                                                       det_g.image)}
+    clusters = compare_clusters(res_gc, res_p, f_gc, tok_cfg)
     emit({"phase": name, "config": config,
           "params": sum(p.numel() for p in gpu_model.parameters()),
           "batch": batch, "calls": calls, "launches": launches,
-          "clusters": compare_clusters(res_gc, res_p, f_gc, tok_cfg),
+          "clusters": clusters,
           "num_clusters": res_g.num_clusters.tolist(),
           "plain_vs_ops_route": compare_clusters(res_p, res_x, f_gc, tok_cfg),
           **rel})
     for key, value in rel.items():
         check(value <= tol, f"{name}: {key} {value} > {tol}")
-    return {"calls": calls, "launches": launches}
+    return {"calls": calls, "launches": launches,
+            "clusters_identical": clusters["identical"]}
 
 
 def phase_forward(cpu_model: SeTok, gpu_model: SeTok) -> int:
@@ -3664,13 +3714,16 @@ def moved(params, before) -> int:
     return sum(not torch.equal(p.detach(), b) for p, b in zip(params, before))
 
 
-def phase_train_setok() -> int:
-    """Three updates at full width, every count reset just before them and
-    read just after; then one profiled update. Returns the clustering
+def phase_train_setok(*extra: str, name: str = "train_setok") -> dict:
+    """Three updates at full width (the stage-1 CLI's flags plus `extra`),
+    every count reset just before them and read just after; then one
+    profiled update. With a token merge, also the merge's LayerNorm (the
+    first trainable parameters past the merge) moved by the third update.
+    Returns the phase's record: `cluster_launches` are the clustering
     kernel's launches in the three."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    args = setok_train_args()
+    args = setok_train_args(*extra)
     tr, stream = train_setok.build(args)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -3679,6 +3732,11 @@ def phase_train_setok() -> int:
     vit = list(tr.model.tokenizer.image_feature_encoder.parameters())
     vit_before = [p.detach().clone() for p in vit]
     gen_before = [p.detach().clone() for p in tr.gen_params]
+    names = {id(p): f"{part}.{n}" for part in ("model", "contrastive")
+             for n, p in getattr(tr, part).named_parameters()}
+    norm = tr.model.tokenizer.merge_out_norm
+    post = [] if norm is None else list(norm.parameters())
+    post_before = [p.detach().clone() for p in post]
     disc_names = [n for n, _ in tr.disc.named_parameters()]
     disc_before = [p.detach().clone() for p in tr.disc_params]
     losses, times = [], []
@@ -3698,17 +3756,26 @@ def phase_train_setok() -> int:
     torch.cuda.synchronize()
     launches = cluster_dpc.LAUNCHES
     gen_moved_3 = moved(tr.gen_params, gen_before)
+    gen_still = [names.get(id(p), "text_encoder")
+                 for p, b in zip(tr.gen_params, gen_before)
+                 if torch.equal(p.detach(), b)]
+    post_moved = moved(post, post_before)
     vit_unchanged = moved(vit, vit_before) == 0
     checksum = float(sum(p.detach().double().sum() for p in vit))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del vit_before, gen_before, disc_before
+    del vit_before, gen_before, disc_before, post_before
     profile = device_time_breakdown(lambda: tr.train_step(batches[-1], gen))
     b = args.batch_size
     steady = times[1:]
     tok = tr.tokenizer_cfg
-    res = {"phase": "train_setok",
-           "config": "base_tokenizer/base_detokenizer (scripts/train_setok.sh)",
+    res = {"phase": name,
+           "config": "base_tokenizer/base_detokenizer (scripts/train_setok.sh)"
+                     + "".join(f" {f}" for f in extra),
            "batch": b, "image_size": tok.vit.image_size,
+           "merge_layer": tok.vit.merge_layer,
+           "tokens_clustered": tok.vit.num_output_patches,
+           "k_max": tok.k_max, "min_cluster_num": tok.min_cluster_num,
+           "knn": tok.knn, "decoder_depth": tr.detokenizer_cfg.decoder_depth,
            "compute_dtype": tr.train_cfg.compute_dtype,
            "disc_start": tr.gan_cfg.disc_start,
            "trainable_params": sum(p.numel() for p in tr.gen_params),
@@ -3729,6 +3796,8 @@ def phase_train_setok() -> int:
            "generator_params_moved_by_update_1": gen_moved_1,
            "generator_params_moved_by_update_3": [gen_moved_3,
                                                   len(tr.gen_params)],
+           "generator_params_unmoved_by_update_3": gen_still,
+           "merge_out_norm_moved_by_update_3": [post_moved, len(post)],
            "disc_params_moved_by_update_1": [len(disc_moved_1),
                                              len(disc_names)],
            "profiled_update": profile,
@@ -3748,10 +3817,12 @@ def phase_train_setok() -> int:
           "moved by the third update")
     check(all(n in disc_moved_1 for n in disc_names if n.endswith("weight")),
           f"the first update moved only {disc_moved_1} of the discriminator")
+    check(post_moved == len(post), f"the third update moved {post_moved} "
+          f"of the merge's {len(post)} LayerNorm parameters")
     check(peak_gb < 80.0, f"peak memory {peak_gb} GB")
     del tr, batches
     torch.cuda.empty_cache()
-    return launches
+    return res
 
 
 def setok_step_terms(tr: Stage1Trainer, batch) -> tuple:
@@ -3772,15 +3843,17 @@ def setok_step_terms(tr: Stage1Trainer, batch) -> tuple:
             dict(zip(named, grads)))
 
 
-def phase_train_setok_parity() -> None:
-    """The stage-1 step cut to ViT depth 2, Q-Former 2 and decoder depth 2
-    at full width, float32, dropout 0, LPIPS on: the card against the CPU
-    on the same weights and batch."""
+def phase_train_setok_parity(*extra: str, vit_depth: int = 2,
+                             name: str = "train_setok_parity") -> None:
+    """The stage-1 step (the CLI's flags plus `extra`) cut to ViT depth
+    `vit_depth`, Q-Former 2 and decoder depth 2 at full width, float32,
+    dropout 0, LPIPS on: the card against the CPU on the same weights and
+    batch."""
     t0 = time.perf_counter()
     args = setok_train_args("--batch-size", str(SETOK_PARITY_BATCH),
-                            "--lpips")
+                            "--lpips", *extra)
     tok, det = train_setok.configs(args)
-    tok = cfgs.replace(tok, vit=cfgs.replace(tok.vit, depth=2),
+    tok = cfgs.replace(tok, vit=cfgs.replace(tok.vit, depth=vit_depth),
                        proj_drop=0.0, attn_drop=0.0)
     det = cfgs.replace(det, decoder_depth=2, mapper_layers=2, proj_drop=0.0,
                        attn_drop=0.0)
@@ -3791,9 +3864,9 @@ def phase_train_setok_parity() -> None:
         train_cfg=cfgs.TrainConfig(compute_dtype="float32"), use_lpips=True,
         device=dev) for dev in ("cuda", "cpu")]
     trainers[1].init_weights_(SEED + 3)
-    for name in ("model", "disc", "contrastive", "lpips"):
-        getattr(trainers[0], name).load_state_dict(
-            getattr(trainers[1], name).state_dict())
+    for part in ("model", "disc", "contrastive", "lpips"):
+        getattr(trainers[0], part).load_state_dict(
+            getattr(trainers[1], part).state_dict())
     for tr in trainers:
         tr.init_state()
     host = next(train_setok.synthetic_batches(args, tok.token_feat_dim))
@@ -3811,8 +3884,10 @@ def phase_train_setok_parity() -> None:
                 for k, (a, b) in metrics.items()}
     grad_rel = {n: max_rel(g_g[n], g_c[n]) for n in g_c}
     worst = max(grad_rel, key=grad_rel.get)
-    res = {"phase": "train_setok_parity", "vit_depth": 2, "mapper_layers": 2,
-           "decoder_depth": 2, "batch": SETOK_PARITY_BATCH,
+    res = {"phase": name, "flags": list(extra), "vit_depth": vit_depth,
+           "merge_layer": tok.vit.merge_layer,
+           "tokens_clustered": tok.vit.num_output_patches,
+           "mapper_layers": 2, "decoder_depth": 2, "batch": SETOK_PARITY_BATCH,
            "compute_dtype": "float32", "lpips": True,
            "clusters_identical": same,
            "num_clusters": toks[1].num_clusters.tolist(),
@@ -3824,16 +3899,147 @@ def phase_train_setok_parity() -> None:
            "pixel_head_grad_max_rel": grad_rel["pixel_head.weight"],
            "phase_seconds": time.perf_counter() - t0}
     emit(res)
-    check(same, "train_setok_parity: the card's clusters differ from the "
-          "CPU's")
+    check(same, f"{name}: the card's clusters differ from the CPU's")
     check(res["metric_max_rel"] <= SETOK_PARITY_LOSS_TOL,
-          f"train_setok_parity: {res['metric_worst']} "
-          f"{metrics[res['metric_worst']]}")
+          f"{name}: {res['metric_worst']} {metrics[res['metric_worst']]}")
     check(res["grad_max_rel"] <= SETOK_PARITY_GRAD_TOL,
-          f"train_setok_parity: gradient {worst} {grad_rel[worst]} > "
+          f"{name}: gradient {worst} {grad_rel[worst]} > "
           f"{SETOK_PARITY_GRAD_TOL}")
     del trainers, batches
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
+# the stage-1 token-merge recipes
+
+# the fast recipe (a 2x2 merge after ViT block 1, a decoder of depth 8): the
+# stage-1 CLI clamps k_max, min_cluster_num and knn to the 64 merged tokens
+RECIPE_FLAGS = ("--merge-layer", "1", "--detok-depth", "8")
+RECIPE_BATCH = 64                 # the merged forward, card against CPU
+RECIPE_PARITY_VIT_DEPTH = 3       # blocks 0, 1, the merge, block 2
+RECIPE_EVAL_IMAGES = 64
+
+
+def recipe_forwards(tok, det) -> dict:
+    """The merged SeTok forward at B=RECIPE_BATCH, float then int8, card
+    against CPU stage by stage (staged_forward: every count reset just
+    before the card's forward and read just after); int8 calls per forward
+    against expected_calls and identical clusters."""
+    config = "base, merge_layer 1, decoder depth 8 (train_setok " \
+             + " ".join(RECIPE_FLAGS) + ")"
+    cpu = init_random_(SeTok(tok, det, device="cpu"), SEED)
+    gpu = SeTok(tok, det)
+    gpu.load_state_dict(cpu.state_dict())
+    runs = {"float32": staged_forward(cpu, gpu, SEED + 5, FWD_REL_TOL,
+                                      "recipes_forward", RECIPE_BATCH,
+                                      config)}
+    check(not any(runs["float32"]["calls"].values()),
+          "recipes: the float forward launched an int8 kernel")
+    cpu8 = SeTok(tok, det, device="cpu", quant8=True)
+    cpu8.load_state_dict(cpu.state_dict())
+    gpu8 = SeTok(tok, det, quant8=True)
+    gpu8.load_state_dict(cpu.state_dict())
+    del cpu, gpu
+    runs["int8"] = staged_forward(cpu8, gpu8, SEED + 6, FWD_INT8_TOL,
+                                  "recipes_forward_int8", RECIPE_BATCH,
+                                  config)
+    expect_calls("recipes int8", runs["int8"], tok, det)
+    check(runs["int8"]["clusters_identical"],
+          "recipes: the int8 forward's clusters differ from the plain "
+          "route's")
+    for form, run in runs.items():
+        check(run["launches"]["dpc_density_parent"]
+              == cluster_dpc.LAUNCHES_PER_CALL,
+              f"recipes {form}: clustering launches {run['launches']}")
+    del cpu8, gpu8
+    torch.cuda.empty_cache()
+    return runs
+
+
+def recipe_evals() -> dict:
+    """scripts/eval_recon.py's main with the recipe's flags over 64
+    structured synthetic images: float32 with --cluster-dist-norm (the plain
+    clustering: no launch of row 1) and quant8 (row 1 once a batch, the int8
+    kernels expected_calls a batch). Every count reset just before each run
+    and read just after."""
+    runs = {}
+    for precision, extra in (("fp32", ["--cluster-dist-norm"]),
+                             ("quant8", [])):
+        argv = ["--synthetic", str(RECIPE_EVAL_IMAGES),
+                "--synthetic-structured", *RECIPE_FLAGS,
+                "--precision", precision, *extra]
+        args = eval_recon.parse_args(argv)
+        batches = RECIPE_EVAL_IMAGES // args.batch_size
+        tok, det = eval_recon.configs(args)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        out = eval_recon.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        calls, launches = int8_counts()
+        launches["dpc_density_parent"] = cluster_dpc.LAUNCHES
+        runs[precision] = {"calls": calls, "launches": launches}
+        emit({"phase": "recipes_eval", "argv": argv, **out,
+              "tokens_clustered": tok.vit.num_output_patches,
+              "cluster_dist_norm": tok.cluster_dist_norm, "seconds": wall,
+              "calls": calls, "launches": launches})
+        check(all(np.isfinite(out[k]) for k in ("psnr", "ssim",
+                                                 "mean_clusters")),
+              f"recipes_eval {precision}: a metric is not finite")
+        want_row1 = 0 if extra else batches * cluster_dpc.LAUNCHES_PER_CALL
+        check(launches["dpc_density_parent"] == want_row1,
+              f"recipes_eval {precision}: clustering launches "
+              f"{launches['dpc_density_parent']}, expected {want_row1}")
+        want = {k: (batches * v if precision == "quant8" else 0)
+                for k, v in expected_calls(tok, det).items()}
+        check(calls == want, f"recipes_eval {precision}: int8 calls {calls}, "
+              f"expected {want}")
+        torch.cuda.empty_cache()
+    return runs
+
+
+def recipe_kernels() -> None:
+    """Rows 2 and 4 at the merged shapes (int8_cases "merged") at the
+    recipe's forward batch against their plain versions, each called twice
+    more: the calls equal to the bit."""
+    for case in int8_cases(RECIPE_BATCH, torch.device("cuda"),
+                           shapes="merged"):
+        name, label, kernel, _, args, kw = case
+        check_int8_case(*case, phase="recipes_kernels")
+        first, second = kernel(*args, **kw), kernel(*args, **kw)
+        same = torch.equal(first, second)
+        emit({"phase": "recipes_kernels", "kernel": name, "shape": label,
+              "batch": RECIPE_BATCH, "repeat_identical": same})
+        check(same, f"{name} {label}: two calls on the same input differ")
+
+
+def phase_recipes() -> dict:
+    """The stage-1 token-merge recipe on the card: (a) three updates at
+    full width through train_setok.build with RECIPE_FLAGS (N = 64 after
+    the merge, k_max = min_cluster_num = knn = 64); (b) its step cut to ViT
+    depth 3 (the merge after block 1, one block past it), card against CPU
+    at train_setok_parity's bars; (c) rows 2 and 4 at the merged shapes,
+    B=64, against their plain versions and repeated (recipe_kernels), then
+    the merged forward at B=64, float and int8, card against CPU; (d)
+    eval_recon with the recipe's flags, float with --cluster-dist-norm and
+    quant8. Returns the counts of each run."""
+    t0 = time.perf_counter()
+    train = phase_train_setok(*RECIPE_FLAGS, name="recipes_train")
+    check(train["tokens_clustered"] == 64 and train["k_max"] == 64
+          and train["min_cluster_num"] == 64 and train["knn"] == 64
+          and train["decoder_depth"] == 8,
+          f"recipes: the CLI's clamps gave {train}")
+    phase_train_setok_parity(*RECIPE_FLAGS,
+                             vit_depth=RECIPE_PARITY_VIT_DEPTH,
+                             name="recipes_parity")
+    tok, det = train_setok.configs(setok_train_args(*RECIPE_FLAGS))
+    recipe_kernels()
+    forwards = recipe_forwards(tok, det)
+    evals = recipe_evals()
+    emit({"phase": "recipes_seconds", "seconds": time.perf_counter() - t0})
+    return {"train": train["cluster_launches"], "forward": forwards,
+            "eval": evals}
 
 
 # ----------------------------------------------------------------------------
@@ -5353,6 +5559,7 @@ SELECTABLE = {
     "parallel": lambda: phase_parallel(cfgs.base_setokim()),
     "train_options": lambda: phase_train_options(cfgs.base_setokim()),
     "train_setok": phase_train_setok,
+    "recipes": phase_recipes,
     "data": phase_data,
     "param_dtype": phase_param_dtype,
     "checkpoint": phase_checkpoint,
@@ -5490,10 +5697,21 @@ def main(argv=None) -> int:
                                        for run, c in options.items()}
     entry["train_options_launches"] = {
         run: c["dpc_density_parent"] for run, c in options.items()}
-    entry["train_setok_launches"] = phase_train_setok()
+    entry["train_setok_launches"] = phase_train_setok()["cluster_launches"]
     entry["train_setok_launches_per_update"] = \
         entry["train_setok_launches"] / SETOK_TRAIN_UPDATES
     phase_train_setok_parity()
+    recipes = phase_recipes()
+    entry["recipes_launches"] = {
+        "train": recipes["train"],
+        **{f"forward_{form}": run["launches"]["dpc_density_parent"]
+           for form, run in recipes["forward"].items()},
+        **{f"eval_{p}": run["launches"]["dpc_density_parent"]
+           for p, run in recipes["eval"].items()}}
+    for name, e in int8_entries.items():
+        e["recipes_launches"] = {
+            "forward_int8": recipes["forward"]["int8"]["launches"][name],
+            "eval_quant8": recipes["eval"]["quant8"]["launches"][name]}
     data = phase_data()
     entry["data_launches"] = data["dpc_density_parent"]
     for name, e in flash_entries.items():

@@ -257,9 +257,13 @@ attn_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
+  // the prologue commits stages - 1 groups (1 at stages = 1), empty ones
+  // past the last unit: arrive(u) counts on unit u's group having exactly
+  // stages - 1 newer ones once it has committed its own, also where a call
+  // has fewer units than that (64 keys of a 64-wide head: 2 units)
   if constexpr (!F32) load_bf16(base, qrows, ldq, Nq, q0, D, L.row_bytes);
-  for (int u = 0; u < (stages > 1 ? stages - 1 : 1) && u < units; ++u) {
-    issue(u);
+  for (int u = 0; u < (stages > 1 ? stages - 1 : 1); ++u) {
+    if (u < units) issue(u);
     cp_async_commit();
   }
 

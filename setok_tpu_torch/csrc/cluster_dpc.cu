@@ -42,7 +42,9 @@
 //                lanes a row up to N = 256 (4 rows a warp at once: fewer
 //                shuffles a row and more independent work), 16 up to 512,
 //                else 32: the row of d2 from G and the diagonal, held in
-//                registers; the exact k-th smallest value by a radix select
+//                registers up to N = 1024 (past it, recomputed from G, read
+//                again from L1/L2, at every step of the select below); the
+//                exact k-th smallest value by a radix select
 //                on the float bits (d2 >= +0, so the bits order like the
 //                values; from the top bit of the row max down, 31 steps at
 //                most), and the values below it plus the k-th value times
@@ -56,8 +58,11 @@
 //                one sqrt (monotone, so the same value as the least sqrt),
 //                against the least row max of the others.
 //
-// The Gram scratch is B*N*N floats (16.8 MB at B=64, N=256). Shapes: any C,
-// 1 <= N <= 1024, 1 <= k <= N.
+// Each CTA keeps sq, the densities and the row maxes of all N rows in
+// dynamic shared memory, 12 bytes a row: 227 KB, the most a block may opt in
+// to on the H100, holds N <= 19370. The Gram scratch is B*N*N floats (16.8
+// MB at B=64, N=256; 1.5 GB an image at N = 19370). Shapes: any C,
+// 1 <= N <= kMaxN, 1 <= k <= N.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -70,7 +75,10 @@ namespace {
 
 using mma16::dmma;
 
-constexpr int kMaxN = 1024;
+constexpr int kSmemOptIn = 232448;             // 227 KB a block (H100)
+constexpr int kRowBytes = 3 * sizeof(float);   // sq, dens, rmax
+constexpr int kMaxN = kSmemOptIn / kRowBytes;  // 19370
+constexpr int kMaxRegN = 1024;                 // rows held in registers
 constexpr int kGT = 64;          // rows of a Gram tile
 constexpr int kKC = 16;          // features a staged chunk
 constexpr int kLdF = kKC + 8;    // floats a staged row (16-byte aligned rows)
@@ -218,18 +226,64 @@ gram_kernel(const float* __restrict__ x, float* __restrict__ gram, int N,
       }
 }
 
+// The density and row max of row i of a streamed row (N > kMaxRegN): one
+// warp a row, lane l the values j = l + 32 t, each d2 recomputed from the
+// Gram row (L1/L2) wherever the register path reads its copy; the same
+// values, the same select and the same order of sums as LPR = 32.
+__device__ __forceinline__ void stream_density(const float* row,
+                                               const float* sq, int i, int N,
+                                               int k, float inv_c, int lane,
+                                               float* di, float* rm) {
+  const float sqi = sq[i];
+  float m = 0.f;
+  for (int j = lane; j < N; j += 32)
+    m = fmaxf(m, d2_of(sqi, sq[j], row[j], i == j, inv_c));
+  m = warp_max(m);
+  const unsigned top = __float_as_uint(m);
+  unsigned int kth = 0u;
+  for (int bit = top ? 31 - __clz(top) : -1; bit >= 0; --bit) {
+    const unsigned int cand = kth | (1u << bit);
+    int cnt = 0;
+    for (int j = lane; j < N; j += 32)
+      cnt += __float_as_uint(d2_of(sqi, sq[j], row[j], i == j, inv_c)) < cand;
+    for (int o = 16; o > 0; o >>= 1)
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+    if (cnt < k) kth = cand;
+  }
+  const float kv = __uint_as_float(kth);
+  float s = 0.f;
+  int below = 0;
+  for (int j = lane; j < N; j += 32) {
+    const float v = d2_of(sqi, sq[j], row[j], i == j, inv_c);
+    if (v < kv) {
+      s += v;
+      ++below;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    below += __shfl_xor_sync(0xffffffffu, below, o);
+  }
+  s += kv * (float)(k - below);
+  *di = expf(-(s / (float)k)) + ((float)i + 0.5f) / (float)N * 1e-6f;
+  *rm = sqrtf(m);
+}
+
 // Grid (B * CS), clusters of CS: CTA r of an image's cluster owns rows
 // r * ceil(N / CS) ..; a row takes LPR lanes (a warp 32 / LPR rows at a
-// time), each lane NPL values of it (NPL * LPR >= N).
+// time), each lane NPL values of it (NPL * LPR >= N); NPL = 0 streams the
+// row (LPR = 32, N > kMaxRegN). Dynamic shared memory: sq, dens and rmax,
+// N floats each.
 template <int LPR, int NPL>
 __global__ void __launch_bounds__(kPThreads)
 density_parent_kernel(const float* __restrict__ gram,
                       float* __restrict__ density, float* __restrict__ parent,
                       float* __restrict__ rowmax, int N, int k, float inv_c) {
   constexpr int kRows = 32 / LPR;   // rows a warp at a time
-  __shared__ float sq[kMaxN];
-  __shared__ float dens[kMaxN];
-  __shared__ float rmax[kMaxN];
+  extern __shared__ float smem[];
+  float* sq = smem;
+  float* dens = smem + N;
+  float* rmax = smem + 2 * N;
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -242,63 +296,76 @@ density_parent_kernel(const float* __restrict__ gram,
   const int per = (N + CS - 1) / CS;
   const int r0 = rank * per, r1 = min(N, r0 + per);
 
-  for (int base = r0 + warp * kRows; base < r1; base += kPWarps * kRows) {
-    const int i = base + seg;
-    const bool own = i < r1;
-    const float* row = gb + (size_t)(own ? i : r0) * N;
-    const float sqi = sq[own ? i : r0];
-    float v[NPL];
-    float m = 0.f;
-#pragma unroll
-    for (int t = 0; t < NPL; ++t) {
-      const int j = l + LPR * t;
-      v[t] = INFINITY;   // past N: never below the k-th value
-      if (own && j < N) {
-        v[t] = d2_of(sqi, sq[j], row[j], i == j, inv_c);
-        m = fmaxf(m, v[t]);
+  if constexpr (NPL == 0) {
+    for (int i = r0 + warp; i < r1; i += kPWarps) {
+      float di, rm;
+      stream_density(gb + (size_t)i * N, sq, i, N, k, inv_c, lane, &di, &rm);
+      if (lane == 0) {
+        dens[i] = di;
+        rmax[i] = rm;
+        density[(size_t)b * N + i] = di;
+        rowmax[(size_t)b * N + i] = rm;
       }
     }
+  } else {
+    for (int base = r0 + warp * kRows; base < r1; base += kPWarps * kRows) {
+      const int i = base + seg;
+      const bool own = i < r1;
+      const float* row = gb + (size_t)(own ? i : r0) * N;
+      const float sqi = sq[own ? i : r0];
+      float v[NPL];
+      float m = 0.f;
 #pragma unroll
-    for (int o = LPR / 2; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    // largest bit pattern t with #{v < t} < k: the k-th smallest value (at
-    // most the row max, so the bits above the warp's largest max are 0)
-    const unsigned top = __float_as_uint(warp_max(m));
-    unsigned int kth = 0u;
-    for (int bit = top ? 31 - __clz(top) : -1; bit >= 0; --bit) {
-      const unsigned int cand = kth | (1u << bit);
-      int cnt = 0;
-#pragma unroll
-      for (int t = 0; t < NPL; ++t) cnt += __float_as_uint(v[t]) < cand;
+      for (int t = 0; t < NPL; ++t) {
+        const int j = l + LPR * t;
+        v[t] = INFINITY;   // past N: never below the k-th value
+        if (own && j < N) {
+          v[t] = d2_of(sqi, sq[j], row[j], i == j, inv_c);
+          m = fmaxf(m, v[t]);
+        }
+      }
 #pragma unroll
       for (int o = LPR / 2; o > 0; o >>= 1)
-        cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-      if (cnt < k) kth = cand;
-    }
-    const float kv = __uint_as_float(kth);
-    float s = 0.f;
-    int below = 0;
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      // largest bit pattern t with #{v < t} < k: the k-th smallest value (at
+      // most the row max, so the bits above the warp's largest max are 0)
+      const unsigned top = __float_as_uint(warp_max(m));
+      unsigned int kth = 0u;
+      for (int bit = top ? 31 - __clz(top) : -1; bit >= 0; --bit) {
+        const unsigned int cand = kth | (1u << bit);
+        int cnt = 0;
 #pragma unroll
-    for (int t = 0; t < NPL; ++t) {
-      if (v[t] < kv) {
-        s += v[t];
-        ++below;
+        for (int t = 0; t < NPL; ++t) cnt += __float_as_uint(v[t]) < cand;
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+        if (cnt < k) kth = cand;
       }
-    }
+      const float kv = __uint_as_float(kth);
+      float s = 0.f;
+      int below = 0;
 #pragma unroll
-    for (int o = LPR / 2; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      below += __shfl_xor_sync(0xffffffffu, below, o);
-    }
-    if (own && l == 0) {
-      s += kv * (float)(k - below);
-      const float di =
-          expf(-(s / (float)k)) + ((float)i + 0.5f) / (float)N * 1e-6f;
-      const float rm = sqrtf(m);
-      dens[i] = di;
-      rmax[i] = rm;
-      density[(size_t)b * N + i] = di;
-      rowmax[(size_t)b * N + i] = rm;
+      for (int t = 0; t < NPL; ++t) {
+        if (v[t] < kv) {
+          s += v[t];
+          ++below;
+        }
+      }
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        below += __shfl_xor_sync(0xffffffffu, below, o);
+      }
+      if (own && l == 0) {
+        s += kv * (float)(k - below);
+        const float di =
+            expf(-(s / (float)k)) + ((float)i + 0.5f) / (float)N * 1e-6f;
+        const float rm = sqrtf(m);
+        dens[i] = di;
+        rmax[i] = rm;
+        density[(size_t)b * N + i] = di;
+        rowmax[(size_t)b * N + i] = rm;
+      }
     }
   }
 
@@ -323,10 +390,19 @@ density_parent_kernel(const float* __restrict__ gram,
     const float* row = gb + (size_t)(own ? i : r0) * N;
     const float sqi = sq[own ? i : r0], di = dens[own ? i : r0];
     float near = INFINITY, fill = INFINITY;
+    if constexpr (NPL > 0) {
 #pragma unroll
-    for (int t = 0; t < NPL; ++t) {
-      const int j = l + LPR * t;
-      if (own && j < N) {
+      for (int t = 0; t < NPL; ++t) {
+        const int j = l + LPR * t;
+        if (own && j < N) {
+          if (dens[j] > di)
+            near = fminf(near, d2_of(sqi, sq[j], row[j], i == j, inv_c));
+          else
+            fill = fminf(fill, rmax[j]);
+        }
+      }
+    } else {   // the streamed row, in steps of LPR (= 32) lanes
+      for (int j = l; own && j < N; j += LPR) {
         if (dens[j] > di)
           near = fminf(near, d2_of(sqi, sq[j], row[j], i == j, inv_c));
         else
@@ -353,15 +429,26 @@ int sm_count(int device) {
   return n;
 }
 
+// Above 48 KB of dynamic shared memory a kernel must opt in: once a device
+// for each instantiation (the static is this template's own).
 template <int LPR, int NPL>
 cudaError_t launch_density_parent(const float* gram, float* density,
                                   float* parent, float* rowmax, int B, int N,
-                                  int k, float inv_c, int CS,
+                                  int k, float inv_c, int CS, int device,
                                   cudaStream_t stream) {
+  static bool raised[32] = {false};
+  const size_t smem = (size_t)N * kRowBytes;
+  if (smem > 48 * 1024 && !raised[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        density_parent_kernel<LPR, NPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+    if (err != cudaSuccess) return err;
+    raised[device] = true;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * CS, 1, 1);
   cfg.blockDim = dim3(kPThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -386,7 +473,8 @@ extern "C" int dpc_density_parent_f32(const float* x, float* density,
                                       float inv_c, int device, void* stream,
                                       int* launched) {
   *launched = 0;
-  if (B < 1 || B > 65535 || N < 1 || N > kMaxN || C < 1 || k < 1 || k > N)
+  if (B < 1 || B > 65535 || N < 1 || N > kMaxN || C < 1 || k < 1 || k > N ||
+      device < 0 || device >= 32)
     return (int)cudaErrorInvalidValue;
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
@@ -408,19 +496,23 @@ extern "C" int dpc_density_parent_f32(const float* x, float* density,
   int cs = 1;
   while (cs < 8 && (long long)B * cs < sms) cs *= 2;
   while (cs > 1 && cs * kPWarps > N) cs /= 2;
-  // lanes a row: 8 (4 rows a warp) up to N = 256, 16 up to 512, else 32
+  // lanes a row: 8 (4 rows a warp) up to N = 256, 16 up to 512, else 32;
+  // the row in registers up to kMaxRegN, streamed past it
   if (N <= 256)
     err = launch_density_parent<8, 32>(gram, density, parent, rowmax, B, N,
-                                       k, inv_c, cs, s);
+                                       k, inv_c, cs, device, s);
   else if (N <= 512)
     err = launch_density_parent<16, 32>(gram, density, parent, rowmax, B, N,
-                                        k, inv_c, cs, s);
+                                        k, inv_c, cs, device, s);
   else if (N <= 768)
     err = launch_density_parent<32, 24>(gram, density, parent, rowmax, B, N,
-                                        k, inv_c, cs, s);
-  else
+                                        k, inv_c, cs, device, s);
+  else if (N <= kMaxRegN)
     err = launch_density_parent<32, 32>(gram, density, parent, rowmax, B, N,
-                                        k, inv_c, cs, s);
+                                        k, inv_c, cs, device, s);
+  else
+    err = launch_density_parent<32, 0>(gram, density, parent, rowmax, B, N,
+                                       k, inv_c, cs, device, s);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ++*launched;

@@ -26,7 +26,11 @@ import torch
 from setok_tpu_torch.ops.clustering import (ClusterResult, assign_to_centers,
                                             density_tie_break, select_centers)
 
-MAX_N = 1024
+# The kernel keeps 12 bytes a row in each CTA's shared memory: 227 KB (the
+# most a block may opt in to on the H100) / 12. Up to N = 1024 it holds
+# each row of d2 in registers; past it, it reads the row again at every step
+# of its select (csrc/cluster_dpc.cu).
+MAX_N = 19370
 
 # Kernel launches on the card since import (or since a caller reset it):
 # one call of `dpc_density_parent` launches LAUNCHES_PER_CALL, the Gram

@@ -29,14 +29,26 @@ Leaves that come from no file are drawn by `utils/init.init_setokim_random_`
 from seed 0, not by flax's initialisers: a model assembled from partial
 files differs from the JAX package's in those leaves. Returns the model
 (its parameters live in it; the JAX builder returns (model, params)).
+
+The component builders and weight helpers of the same JAX module, with its
+names, arguments and errors: `build_vision_tower` (the SeTok tokenizer for
+any SigLIP name, `ValueError` for every other), `build_vision_generator`
+(the SeTok detokenizer), `get_obj_from_str` / `instantiate_from_config`
+(the `{'target', 'params'}` contract), and `make_delta` / `apply_delta` /
+`consolidate`, leaf by leaf over a state dict or any nested dict, list or
+tuple of tensors (PyTorch's pytree `tree_map`, as the JAX functions map a
+parameter tree with `jax.tree.map`).
 """
 
 from __future__ import annotations
 
+import importlib
 import os
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
+import torch
+from torch.utils._pytree import tree_map
 
 from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.models.llama import (quantize_trunk_weights,
@@ -131,3 +143,61 @@ def load_pretrained_model(model_path: str,
                         device=device)
         model.load_state_dict(state)
     return model
+
+
+def build_vision_tower(vision_tower_name: str,
+                       tokenizer_cfg: Optional[cfgs.TokenizerConfig] = None,
+                       **kw):
+    """The SeTok tokenizer for a SigLIP-family name (`tokenizer_cfg`, else
+    `base_tokenizer()`); `kw` goes to `SetokTokenizer` (`device`: None is
+    the card). Any other name raises `ValueError`."""
+    from setok_tpu_torch.models.tokenizer import SetokTokenizer
+    if "siglip" in vision_tower_name.lower():
+        return SetokTokenizer(tokenizer_cfg or cfgs.base_tokenizer(), **kw)
+    raise ValueError(f"Unknown vision tower: {vision_tower_name}")
+
+
+def build_vision_generator(detokenizer_cfg: Optional[
+        cfgs.DetokenizerConfig] = None, **kw):
+    """The SeTok detokenizer (`detokenizer_cfg`, else
+    `base_detokenizer()`); `kw` goes to `SetokDeTokenizer`."""
+    from setok_tpu_torch.models.detokenizer import SetokDeTokenizer
+    return SetokDeTokenizer(detokenizer_cfg or cfgs.base_detokenizer(), **kw)
+
+
+def get_obj_from_str(string: str, reload: bool = False):
+    """The object named by a dotted path, 'package.module.Name'."""
+    module, cls = string.rsplit(".", 1)
+    mod = importlib.import_module(module)
+    if reload:
+        importlib.reload(mod)
+    return getattr(mod, cls)
+
+
+def instantiate_from_config(config: dict):
+    """`target(**params)` of a {'target': ..., 'params': {...}} dict."""
+    if "target" not in config:
+        raise KeyError("Expected key `target` to instantiate.")
+    return get_obj_from_str(config["target"])(**config.get("params", {}))
+
+
+def make_delta(base_params: Any, target_params: Any) -> Any:
+    """target - base, leaf by leaf (trees of another structure raise
+    `ValueError`, as `jax.tree.map`'s do)."""
+    return tree_map(lambda t, b: t - b, target_params, base_params)
+
+
+def apply_delta(base_params: Any, delta: Any) -> Any:
+    """base + delta, leaf by leaf."""
+    return tree_map(lambda b, d: b + d, base_params, delta)
+
+
+def consolidate(params: Any, dtype=torch.float16) -> Any:
+    """Every array leaf (a tensor, or a numpy array, which becomes a
+    tensor) cast to `dtype`, for a single-file export; other leaves as
+    they are."""
+    def cast(x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return x.to(dtype) if isinstance(x, torch.Tensor) else x
+    return tree_map(cast, params)

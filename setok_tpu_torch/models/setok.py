@@ -95,7 +95,8 @@ def expected_calls(tok_cfg: TokenizerConfig,
     The ViT runs up to its tapped block: at so400m (`select_layer=-2`) 26
     of its 27 blocks, 104 `quant_matmul` calls. The JAX package traces the
     27th block too (108 calls under `jax.eval_shape`), and XLA drops it as
-    dead code."""
+    dead code. With a token merge (`merge_layer`), the blocks after it see
+    the merged count, `num_output_patches`."""
     calls = dict.fromkeys(INT8_KERNELS, 0)
 
     def dense(k, n):
@@ -120,8 +121,10 @@ def expected_calls(tok_cfg: TokenizerConfig,
             dense(hidden, c)
 
     vit = tok_cfg.vit
-    for _ in range(vit.select_layer % vit.depth + 1):
-        block(vit.num_patches, vit.width, int(vit.width * vit.mlp_ratio))
+    merge = vit.depth if vit.merge_layer is None else vit.merge_layer
+    for i in range(vit.select_layer % vit.depth + 1):
+        block(vit.num_patches if i <= merge else vit.num_output_patches,
+              vit.width, int(vit.width * vit.mlp_ratio))
     c = tok_cfg.hidden_dim
     block(vit.num_output_patches, c, tok_cfg.dim_feedforward,
           tok_cfg.inner_cluster_layers)

@@ -14,8 +14,9 @@ Axis conventions:
   seq   — the ring of sequence-parallel attention (parallel/ring_attention)
 
 `initialize_multihost` reads torchrun's environment and starts the process
-group: NCCL for a CUDA device, gloo for the CPU, never a CPU group for a
-CUDA model. At one process it does nothing, as in the JAX package.
+group: NCCL for a CUDA device (the default: this process's card), gloo for
+an explicit CPU device, never a CPU group for a CUDA model. At one process
+it does nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -120,14 +121,15 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     ("tcp://host:port" or "file://path") or torchrun's
     `MASTER_ADDR` / `MASTER_PORT`. `device` picks the backend: NCCL for a
     CUDA device (which becomes this process's current card), gloo for the
-    CPU."""
+    CPU. None means this process's card (`local_device()`): without CUDA
+    that raises, and only `device="cpu"` starts a gloo group."""
     if num_processes is None:
         num_processes = int(os.environ.get("WORLD_SIZE", "1"))
     if num_processes <= 1 or dist.is_initialized():
         return
     if process_id is None:
         process_id = int(os.environ["RANK"])
-    device = torch.device("cpu" if device is None else device)
+    device = local_device() if device is None else torch.device(device)
     kw = {}
     if device.type == "cuda":
         if not torch.cuda.is_available():

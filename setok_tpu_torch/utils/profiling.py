@@ -1,15 +1,96 @@
-"""Where the device time goes: a torch.profiler breakdown of one call.
+"""Profiling hooks: traces, completion barriers, step timing, and where
+the device time goes.
 
-The counterpart of `setok_tpu/utils/profiling.py` for the card. Kernel
-names are grouped into a few categories by substring, so that a forward's
-time reads as matmul / attention softmax / LayerNorm / clustering / ...
+The counterpart of `setok_tpu/utils/profiling.py`, with its names:
+
+  trace(log_dir, device=None)  a region under `torch.profiler`, CUDA
+                activity on the card (None: the card; "cpu": the CPU only),
+                written as a Chrome trace (chrome://tracing, Perfetto,
+                TensorBoard's profiler plugin) under `log_dir`;
+  force_completion(result)  waits for the device of the first tensor leaf
+                of `result` and reads one element of it back;
+  StepTimer(warmup=2)  step times after `warmup` steps: `start`,
+                `stop(result=None)`, `mean`, `p50` (nan without times).
+
+and the port's own `device_time_breakdown`: kernel names grouped into a
+few categories by substring, so that a forward's time reads as matmul /
+attention softmax / LayerNorm / clustering / ...
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
 from collections import defaultdict
+from typing import Any, Optional
 
+import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
+
+from setok_tpu_torch.utils.device import resolve_device
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device=None):
+    """`with trace('build/profile'): step(...)`: the region's trace as
+    `<log_dir>/trace-<pid>-<ns>.json`. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device = resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+
+def force_completion(tree: Any) -> None:
+    """A completion barrier: synchronise the device of the first tensor
+    leaf of `tree` and read back one element of it."""
+    leaf = next((x for x in tree_leaves(tree)
+                 if isinstance(x, torch.Tensor)), None)
+    if leaf is None:
+        return
+    if leaf.is_cuda:
+        torch.cuda.synchronize(leaf.device)
+    leaf.detach().reshape(-1)[:1].cpu()
+
+
+class StepTimer:
+    """Rolling step-time statistics with warmup exclusion."""
+
+    def __init__(self, warmup: int = 2):
+        self.warmup = warmup
+        self.times = []
+        self._t = None
+        self._count = 0
+
+    def start(self):
+        self._t = time.perf_counter()
+
+    def stop(self, result: Optional[Any] = None):
+        if result is not None:
+            force_completion(result)
+        dt = time.perf_counter() - self._t
+        self._count += 1
+        if self._count > self.warmup:
+            self.times.append(dt)
+        return dt
+
+    @property
+    def mean(self) -> float:
+        return float(np.mean(self.times)) if self.times else float("nan")
+
+    @property
+    def p50(self) -> float:
+        return float(np.median(self.times)) if self.times else float("nan")
 
 # first match wins; names are CUDA kernel names as the profiler reports them
 CATEGORIES = (

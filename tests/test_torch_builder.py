@@ -16,7 +16,18 @@ serving bar of tests/test_torch_setokim.py (2e-3 max-rel; 1e-4 at bits
 path: a port trainer's checkpoint loads with its adapters merged and no
 read of its optimizer file; and the CLIs: the stage-2 CLI's `--output-dir`
 loaded by the serving CLI and the demo (`--checkpoint`, `--image`).
+
+The module's other helpers against the JAX functions: `make_delta`,
+`apply_delta` and `consolidate` on the same tiny tree (the JAX functions
+over the flax tree, the port's over its state dict from `from_flax`):
+every delta and round-trip leaf equal to the bit (one float32 operation on
+each side), every consolidated leaf float16 and equal to the JAX one; the
+two builders' configurations equal to JAX's for every SigLIP name and a
+`ValueError` for another on both sides; `instantiate_from_config` on a port
+target equal to JAX's on its own, and a `KeyError` without a target.
 """
+
+import dataclasses
 
 import os
 
@@ -30,11 +41,14 @@ from setok_tpu.models import builder as jbuilder
 from setok_tpu.train.lora import init_lora as j_init_lora
 from setok_tpu.utils import checkpoint as jckpt
 from setok_tpu_torch import config as tcfg
+from setok_tpu_torch.models import builder as tbuilder
 from setok_tpu_torch.models.builder import load_pretrained_model
+from setok_tpu_torch.models.detokenizer import SetokDeTokenizer
+from setok_tpu_torch.models.tokenizer import SetokTokenizer
 from setok_tpu_torch.models.setokim import Setokim
 from setok_tpu_torch.train.stage2 import Stage2Trainer
 from setok_tpu_torch.utils import checkpoint as ckpt
-from setok_tpu_torch.utils.from_flax import to_flax_tree
+from setok_tpu_torch.utils.from_flax import from_flax, to_flax_tree
 from setok_tpu_torch.utils.init import init_setokim_random_
 from setok_tpu_torch.utils.porting import load_flat_into
 from tests.test_torch_setokim import MAX_LEN, prompts
@@ -166,3 +180,72 @@ def test_train_save_load_serve_cli(tmp_path, capsys):
                "--max-new-tokens", "2"])
     out = capsys.readouterr().out
     assert "[tokenize]" in out and "[image-gen]" in out
+
+
+def test_delta_round_trip_and_consolidate_match_jax():
+    base_j = jax.tree.map(jnp.asarray, SETOKIM_TREE)
+    target_j = jax.tree.map(lambda x: x * 1.5 + 0.1, base_j)
+    delta_j = jbuilder.make_delta(base_j, target_j)
+    back_j = jbuilder.apply_delta(base_j, delta_j)
+    half_j = jbuilder.consolidate(base_j, np.float16)
+
+    def state(tree):
+        return from_flax(jax.tree.map(np.asarray, tree))
+
+    base, target = state(base_j), state(target_j)
+    delta = tbuilder.make_delta(base, target)
+    back = tbuilder.apply_delta(base, delta)
+    half = tbuilder.consolidate(base)
+    for got, want in ((delta, state(delta_j)), (back, state(back_j))):
+        assert set(got) == set(want)
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+    assert all(t.dtype == torch.float16 for t in half.values())
+    want = state(half_j)       # float16 values widened to float32
+    assert all(torch.equal(half[k].float(), want[k]) for k in want)
+    # nested trees and numpy leaves, as jax.tree.map takes them
+    tree = {"a": [torch.ones(2), np.zeros(3, np.float32)], "b": {"c": 1}}
+    out = tbuilder.consolidate(tree, torch.bfloat16)
+    assert [t.dtype for t in out["a"]] == [torch.bfloat16] * 2
+    assert out["b"] == {"c": 1}
+    with pytest.raises(ValueError):
+        tbuilder.make_delta({"a": torch.ones(1)}, {"b": torch.ones(1)})
+
+
+@pytest.mark.parametrize("name", ["google/siglip-so400m-patch14-384",
+                                  "google/SigLIP-base-patch16-256"])
+def test_builders_dispatch_as_jax(name):
+    tower = tbuilder.build_vision_tower(name, device="meta")
+    assert isinstance(tower, SetokTokenizer)
+    assert dataclasses.asdict(tower.cfg) == dataclasses.asdict(
+        jbuilder.build_vision_tower(name).cfg)
+    tiny = tbuilder.build_vision_tower(name, tcfg.tiny_tokenizer(),
+                                       device="cpu")
+    assert tiny.cfg == tcfg.tiny_tokenizer()
+    assert next(tiny.parameters()).device.type == "cpu"
+    for builder in (tbuilder.build_vision_tower,
+                    jbuilder.build_vision_tower):
+        with pytest.raises(ValueError, match="Unknown vision tower"):
+            builder("openai/clip-vit-large")
+    gen = tbuilder.build_vision_generator(device="meta")
+    assert isinstance(gen, SetokDeTokenizer)
+    assert dataclasses.asdict(gen.cfg) == dataclasses.asdict(
+        jbuilder.build_vision_generator().cfg)
+    assert gen.cfg.decoder_depth == 16
+
+
+def test_instantiate_from_config_as_jax():
+    params = {"width": 99, "merge_layer": 1}
+    got = tbuilder.instantiate_from_config(
+        {"target": "setok_tpu_torch.config.ViTConfig", "params": params})
+    want = jbuilder.instantiate_from_config(
+        {"target": "setok_tpu.config.ViTConfig", "params": params})
+    assert isinstance(got, tcfg.ViTConfig)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert tbuilder.get_obj_from_str(
+        "setok_tpu_torch.models.setok.SeTok").__module__ == \
+        "setok_tpu_torch.models.setok"
+    for fn in (tbuilder.instantiate_from_config,
+               jbuilder.instantiate_from_config):
+        with pytest.raises(KeyError):
+            fn({"params": params})

@@ -20,7 +20,9 @@ also at 240 rows (B=3 images of 80, not a multiple of the GEMM's 128-row
 tile), row 4 with every key of an image masked (LN(bo + x), 0 elements
 differing) and row 7 with fully masked query rows (b_proj exactly), and
 each raising on a shape its chain does not take (rows 4 and 7: more than
-768 keys, a head width not a multiple of 16); an int8 Block at the
+768 keys, a head width not a multiple of 16), rows 2 and 4 at the
+token-merge recipe's single key tile (B=64: 64 tokens, 64 keys), equal
+to the bit over repeated calls; an int8 Block at the
 4096-wide MLP's shape, card against
 CPU, 5e-2 (chip_smoke.py's FWD_INT8_TOL). The serving kernels:
 quant_matmul and quant4_matmul 1e-5 max-rel (exact int products, the same
@@ -30,8 +32,10 @@ of the elements within 1e-5 of the largest, with q in f32, bf16 and f16
 tiles skipped and counted) and at G = 8 past S = 5,085 (up to 8192, where
 the first kernel's shared memory ran out), printing the elements that
 differ from the plain version (expected 0: the same float64 sums rounded
-once). The DPC-KNN kernel also at N = 576, 729 (C = 1152) and 1024, its
-centers and assignments the plain route's. The flash-attention kernels,
+once). The DPC-KNN kernel also at N = 576, 729 (C = 1152) and 1024, and
+past 1024, where each row of d2 is read again at every step of the select
+(N = 1296, ViT-B/16 at 576 px, and 2304, at 768 px), its centers and
+assignments the plain route's. The flash-attention kernels,
 with chip_smoke.flash_case's bars: the forward's o 2e-3 max-rel with ≥ 99 %
 within 1e-5 of the largest (p rounds to the input type before P.V), lse
 1e-5, dq/dk/dv 1e-4 (float32, sums in another order; bf16's f32 operands
@@ -96,12 +100,14 @@ def _blobs(seed, n, c, n_blobs=5):
 @pytest.mark.parametrize("b,n,c,k", [
     (2, 50, 100, 8),        # ragged row tile, C not a multiple of the chunk
     (2, 50, 99, 8),         # C not a multiple of 4: the scalar loads
-    (1, 1024, 64, 1024),    # the largest N, k=N
-    (1, 1024, 768, 64),     # the largest N at the base width
+    (1, 1024, 64, 1024),    # the largest N held in registers, k=N
+    (1, 1024, 768, 64),     # the same N at the base width
     (3, 256, 768, 64),      # the base configuration
     (2, 576, 768, 64),      # base @384
     (1, 729, 1152, 64),     # so400m's token count
     (2, 729, 1152, 64),     # so400m's token count and width
+    (2, 1296, 768, 64),     # ViT-B/16 at 576 px: rows streamed
+    (1, 2304, 768, 64),     # ViT-B/16 at 768 px
 ])
 def test_kernel_matches_reference(card, b, n, c, k):
     x = torch.from_numpy(np.stack([_blobs(s, n, c) for s in range(b)])).to(card)
@@ -260,6 +266,23 @@ def test_int8_attention_at_ragged_rows(card, kind, name, label):
         got = case[2](*args, **case[5])
         assert bool(rows.any()) and torch.equal(
             got[rows], args[4].expand(int(rows.sum()), -1))
+
+
+@pytest.mark.parametrize("label", ["vit merged", "cross merged"])
+def test_int8_attention_at_one_key_tile(card, label):
+    """Rows 2 and 4 at the token-merge recipe's shapes, B=64: a ViT block
+    of 64 tokens (12 heads of 64) and the Q-Former's cross-attention over
+    64 keys, each a single key tile, so the attention has 2 units of work
+    for a ring of up to 4 stages. Against their plain versions, and two
+    more calls equal to the first to the bit (the ring once waited on too
+    few copy groups there, and read tiles still in flight)."""
+    case = next(c for c in chip_smoke.int8_cases(64, card, shapes="merged")
+                if c[1] == label)
+    chip_smoke.check_int8_case(*case)          # raises SystemExit on a miss
+    _, _, kernel, _, args, kw = case
+    first = kernel(*args, **kw)
+    assert torch.equal(first, kernel(*args, **kw))
+    assert torch.equal(first, kernel(*args, **kw))
 
 
 def test_bert_cross_with_every_key_of_an_image_masked(card):

@@ -3,8 +3,9 @@ route, against the JAX package on the CPU (the modules and kernels of the
 route: tests/test_torch_int8_unfused.py).
 
   * `expected_calls` equals the calls of each int8 kernel in the JAX
-    package's own int8 forward, traced under jax.eval_shape, at base @384
-    and with the 4096-wide tokenizer MLP;
+    package's own int8 forward, traced under jax.eval_shape, at base @384,
+    with the 4096-wide tokenizer MLP, and at the fast stage-1 recipe
+    (merge_layer 1, 64 tokens past the merge, decoder depth 8);
   * the JAX parameter trees at 384 px and at so400m name the port's
     parameters one to one, with their shapes;
   * a tiny forward whose real gates take the unfused route, two seeds:
@@ -56,6 +57,10 @@ def _configs(name, pkg):
     if name == "base384":
         return (pkg.replace(tok, vit=pkg.replace(tok.vit, image_size=384)),
                 pkg.replace(det, image_size=384))
+    if name == "merged":    # train_setok --merge-layer 1 --detok-depth 8
+        return (pkg.replace(tok, vit=pkg.replace(tok.vit, merge_layer=1),
+                            k_max=64, min_cluster_num=64, knn=64),
+                pkg.replace(det, decoder_depth=8))
     return pkg.replace(tok, dim_feedforward=4096), det
 
 
@@ -69,7 +74,7 @@ JAX_KERNELS = {"attn_sublayer_int8": "fused_sublayer",
                "quant_matmul": "quant_matmul"}
 
 
-@pytest.mark.parametrize("name", ["base384", "ff4096"])
+@pytest.mark.parametrize("name", ["base384", "ff4096", "merged"])
 def test_expected_calls_match_jax_trace(name, monkeypatch):
     """The calls of each int8 kernel in one forward of the JAX package's
     int8 SeTok (`apply` traced under jax.eval_shape, each kernel function
@@ -92,7 +97,8 @@ def test_expected_calls_match_jax_trace(name, monkeypatch):
     assert calls == expected_calls(*_configs(name, tcfg))
     assert (calls["fused_mlp_int8"], calls["fused_attention_int8"],
             calls["quant_matmul"]) == {"base384": (29, 0, 60),
-                                       "ff4096": (0, 4, 4)}[name]
+                                       "ff4096": (0, 4, 4),
+                                       "merged": (0, 0, 0)}[name]
 
 
 def _state_shape(path, shape):

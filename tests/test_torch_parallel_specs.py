@@ -4,14 +4,19 @@
 rule elsewhere) over every parameter of `tiny_setokim()` and
 `base_setokim()` (the port model on the meta device; the JAX tree its flax
 layout as ShapeDtypeStructs), each port spec taken to the flax layout
-(a Dense weight is the flax kernel transposed)."""
+(a Dense weight is the flax kernel transposed). And `initialize_multihost`
+without a device at WORLD_SIZE 2: it wants this process's card, so without
+CUDA it raises and starts no group (never a gloo one)."""
 
 import numpy as np
 import pytest
+import torch
+import torch.distributed as dist
 
 from setok_tpu_torch import config as tcfg
 from setok_tpu_torch.models.setokim import Setokim
 from setok_tpu_torch.parallel import sharding as ps
+from setok_tpu_torch.parallel.mesh import initialize_multihost
 from setok_tpu_torch.train.opt8 import flax_perm
 from setok_tpu_torch.utils.from_flax import flax_entries
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -89,3 +94,20 @@ def test_setokim_shardings_match_jax(preset, data, model):
         n_tp += "model" in jspec
     if model > 1:
         assert n_tp > 0
+
+
+def test_initialize_multihost_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **k: started.append((a, k)))
+    address = f"file://{tmp_path / 'rendezvous'}"
+    with pytest.raises(RuntimeError, match="NCCL needs a CUDA device"):
+        initialize_multihost(address)
+    assert started == [] and not dist.is_initialized()
+    # an explicit CPU device is what asks for gloo
+    initialize_multihost(address, device="cpu")
+    assert [a[0] for a, _ in started] == ["gloo"]
