@@ -37,9 +37,12 @@ tagged TAG:
           bf16 q with the serving layout (the tail of the cache masked), as
           sublayers reports;
   cluster row 1 (dpc_density_parent, k=64) at B=64 images of 256 and 576
-          tokens of 768, and 8 of 729 of 1152: time by events, device time
-          and its split by kernel (5 calls), the largest relative error of
-          density and row max against the plain version;
+          tokens of 768, and 8 of 729 of 1152; past the 1024 rows held in
+          registers at B=8 of 1296 (ViT-B/16 at 576 px) and 2 of 2304 of
+          768, and 1 of 19370 of 64, those three beside the plain version's
+          time: time by events, device time and its split by kernel (5
+          calls), the largest relative error of density and row max against
+          the plain version;
   forward  the int8 SeTok forward with bf16 glue at B=64 (base @256, and
           base with the 4096-wide tokenizer MLP), and bf16 beside it: img/s
           by chip_smoke's slope method and one profiled int8 forward's
@@ -217,7 +220,8 @@ def cache(dev) -> dict:
 
 def cluster(dev) -> dict:
     res = {}
-    for b, n, c in ((64, 256, 768), (64, 576, 768), (8, 729, 1152)):
+    for b, n, c in ((64, 256, 768), (64, 576, 768), (8, 729, 1152),
+                    (8, 1296, 768), (2, 2304, 768), (1, 19370, 64)):
         x = torch.from_numpy(np.stack([cs.clustered(cs.SEED + i, n, c)
                                        for i in range(b)])).to(dev)
         got = cluster_dpc.dpc_density_parent(x, 64)
@@ -232,6 +236,9 @@ def cluster(dev) -> dict:
             "split": [{"name": k["name"][:60], "ms": k["ms"] / 5}
                       for k in by["top_kernels"]],
             "density_max_rel": rel[0], "rowmax_max_rel": rel[2]}
+        if n > 1024:
+            res[f"B={b} N={n} C={c}"]["plain_ms"] = cs.time_ms(
+                lambda: cluster_dpc.dpc_density_parent_reference(x, 64))
         del x
         torch.cuda.empty_cache()
     return res

@@ -5,6 +5,7 @@ versions.
     python3 chip_smoke.py
     python3 chip_smoke.py parallel data     # those phases alone (a check)
     python3 chip_smoke.py recipes
+    python3 chip_smoke.py large_n
 
 Phases, each printed as one JSON line; any failure exits non-zero before
 the last line:
@@ -16,11 +17,13 @@ the last line:
   kernels       each hand-written kernel against its plain PyTorch version
                 on the card, at every shape the main paths give it (the
                 clustering at N=256, 576 and 729, the merged recipe's N=64
-                with k = k_max = 64, and N=1296 and 2304 past the rows
-                held in registers, those three timed), and its time (the
-                clustering's device time split into its two kernels) at the
-                throughput batch; the int8 attentions' shares
-                beside their float32-score twins', row 4 with every key of
+                with k = k_max = 64, and N=1025, 1296, 2304, 4096 and 19370
+                (C=64) past the rows held in registers, its launches a call
+                at each; N=64, 1296, 2304 and 19370 timed beside their
+                bounds), and its time (the clustering's device time split
+                into its kernels) at the throughput batch; the int8
+                attentions' shares beside their float32-score twins', row
+                4 with every key of
                 an image masked (LN(bo + x)), and the registers and spills
                 of the attention kernel (csrc/attn_mma.cuh);
   forward       the float SeTok forward at the base config (ViT-B/16 @256,
@@ -33,9 +36,10 @@ the last line:
                 int8 with bf16 glue (the form bench.py times on the TPU),
                 and one profiled forward each (device time by kernel kind);
   unfused_kernels  the unfused int8 route's kernels against their plain
-                versions at every path shape: fused_mlp_int8 (576 tokens
-                of 768, hidden 3072) and fused_attention_int8 (2 heads of
-                384, the inner Block's cluster mask at N=256 and the inter
+                versions at every path shape: fused_mlp_int8 (576 and 1296
+                tokens of 768, hidden 3072) and fused_attention_int8 (2
+                heads of 384, the inner Block's cluster mask at N=256 and
+                the inter
                 Block's validity mask with fully masked rows at N=80, those
                 rows exactly b_proj; its share also against a plain version
                 with a float32 P.V, the JAX kernel's), and
@@ -54,6 +58,24 @@ the last line:
   throughput_unfused  img/s of the three configurations, bf16 beside int8
                 with bf16 glue (B=64, 64, 8), a profiled forward each,
                 peak memory;
+  large_n       (after throughput_unfused) the SeTok main path at 576 px
+                (eval_recon --image-size 576: ViT-B/16, N = 1296, past the
+                1024 rows row 1 holds in registers; the int8 ViT, inner
+                Block and decoder on the unfused route, rows 6 and 8; no
+                row 7: the gate sends attentions over 1296 tokens to the
+                Dense route): row 1's cluster_dpc_knn_kernel on blob
+                features at B=8, N=1296 (centers and assignments exact,
+                repeated calls equal); rows 6 and 8 at the path's shapes at
+                B=16 against their plain versions, repeated calls equal;
+                the forward at B=2 card vs CPU stage by stage in float32
+                (FWD_REL_TOL), bf16 (FWD_BF16_TOL) and int8 (FWD_INT8_TOL),
+                clusters identical, row 1's launches cluster_launches, int8
+                calls expected_calls; img/s at B=16 (float32, bf16, int8
+                with bf16 glue), peak memory, a profiled forward each, each
+                int8 form (bf16 and float32 glue) run twice more, equal to
+                the bit; eval_recon's main at 576 px over 16 structured
+                images (fp32, quant8, and --detok-patch 32, the decoder at
+                324 tokens, whose forward is also held card vs CPU);
   serve_kernels quant_matmul (w8) and quant4_matmul (w4, per channel and
                 group 128) at the seven Vicuna-7B trunk linears, decode
                 M=4 and prefill M=512 rows (and, untimed but for their
@@ -181,7 +203,7 @@ the last line:
                 carry weight: 3 updates, every count reset just before them
                 and read just after; ms per update, images/s, peak memory,
                 the losses, the launches of the clustering kernel per update
-                (one tokenize: cluster_dpc.LAUNCHES_PER_CALL), the frozen
+                (one tokenize: models/setok.cluster_launches), the frozen
                 ViT bit for bit unchanged, the generator unchanged by update
                 1 (lr 0) and moved by update 3, the discriminator moved by
                 update 1; then a profiled update (device ms by kind, busy
@@ -337,7 +359,8 @@ from setok_tpu_torch.models.llama import (TRUNK_LINEARS, make_attention_mask,
                                           quantize_trunk_weights,
                                           valid_quant_group)
 from setok_tpu_torch.models.builder import load_pretrained_model
-from setok_tpu_torch.models.setok import SeTok, expected_calls
+from setok_tpu_torch.models.setok import (SeTok, cluster_launches,
+                                          expected_calls)
 from setok_tpu_torch.models.generate import (find_image_spans,
                                              generate_image, generate_text)
 from setok_tpu_torch.models.setokim import (DiffusionDraws, ForwardDraws,
@@ -482,23 +505,43 @@ def phase_build() -> None:
 # row 1's cases: (B, N, C, k, k_max, min_cluster_num, timed). The main
 # paths' shapes (base @256: N=256, C=768; @384: N=576; so400m: N=729,
 # C=1152; k=64), one uneven case (N=50, k=8), the merged recipe's (N=64 =
-# k = k_max = min_cluster_num, at its forward's batch) and two past the
-# 1024 rows held in registers (ViT-B/16 at 576 and 768 px), those three
-# also timed.
+# k = k_max = min_cluster_num, at its forward's batch) and five past the
+# 1024 rows held in registers: the first (N=1025), ViT-B/16 at 576 px
+# (eval_recon's batch) and 768 px, past the 3072 rows held in shared
+# memory (N=4096) and MAX_N at C=64; the merged, 576, 768 px and MAX_N
+# cases also timed, beside their bounds.
 CLUSTER_CASES = ((4, 256, 768, 64, 80, 64, False),
                  (2, 576, 768, 64, 80, 64, False),
                  (2, 729, 1152, 64, 80, 64, False),
                  (2, 50, 768, 8, 16, 4, False),
                  (64, 64, 768, 64, 64, 64, True),
+                 (2, 1025, 768, 64, 80, 64, False),
                  (8, 1296, 768, 64, 80, 64, True),
-                 (2, 2304, 768, 64, 80, 64, True))
+                 (2, 2304, 768, 64, 80, 64, True),
+                 (1, 4096, 768, 64, 80, 64, False),
+                 (1, 19370, 64, 64, 80, 64, True))
+
+
+def cluster_bound(b: int, n: int, c: int) -> dict:
+    """Row 1's least time on the card: the symmetric Gram product (i <= j)
+    at the FP64 tensor cores' rate (= the f32 CUDA-core peak) against the
+    bytes of x in and the three outputs; and, with the Gram scratch the
+    kernel keeps (B*N*N floats written once and read once), that product's
+    time plus those bytes."""
+    flops = 1.0 * b * n * (n + 1) * c
+    nbytes = 4.0 * (b * n * c + 3 * b * n)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_with_gram_ms":
+                1e3 * (t_ops + 8.0 * b * n * n / PEAK_BYTES)}
 
 
 def phase_kernels() -> dict:
     """dpc_density_parent against its plain version at CLUSTER_CASES; its
     time and device split at the throughput batch."""
     threshold = 0.55
-    errs = []
+    errs, timings = [], []
     for b, n, c, k, k_max, min_cn, timed in CLUSTER_CASES:
         x = torch.from_numpy(np.stack([clustered(SEED + i, n, c)
                                        for i in range(b)])).cuda()
@@ -534,10 +577,26 @@ def phase_kernels() -> dict:
                 "peak_score_max_rel": peak_rel,
                 "num_clusters": got.num_clusters.tolist(),
                 "clusters_identical": same}
+        before = cluster_dpc.LAUNCHES
+        cluster_dpc.dpc_density_parent(x, k)
+        case["launches_per_call"] = cluster_dpc.LAUNCHES - before
+        check(case["launches_per_call"] == cluster_dpc.launches_per_call(n),
+              f"dpc_density_parent N={n}: {case['launches_per_call']} "
+              "launches for one call")
         if timed:
             case["ms"] = time_ms(lambda: cluster_dpc.dpc_density_parent(x, k))
             case["plain_ms"] = time_ms(
                 lambda: cluster_dpc.dpc_density_parent_reference(x, k))
+            by = device_time_breakdown(
+                lambda: [cluster_dpc.dpc_density_parent(x, k)
+                         for _ in range(5)])
+            case["device_ms"] = by["device_ms"] / 5
+            case["device_split_ms"] = {kk["name"][:60]: kk["ms"] / 5
+                                       for kk in by["top_kernels"]}
+            case.update(cluster_bound(b, n, c))
+            timings.append({key: case[key] for key in (
+                "B", "N", "C", "ms", "plain_ms", "device_ms", "bound_ms",
+                "bound_by", "bound_with_gram_ms")})
         emit({"phase": "kernels", "kernel": "dpc_density_parent", **case})
         check(dens_rel <= 1e-5, f"density rel err {dens_rel} > 1e-5")
         check(rowmax_rel <= 1e-5, f"rowmax rel err {rowmax_rel} > 1e-5")
@@ -555,18 +614,17 @@ def phase_kernels() -> dict:
     plain_ms = time_ms(lambda: cluster_dpc.dpc_density_parent_reference(x, k))
     by = device_time_breakdown(
         lambda: [cluster_dpc.dpc_density_parent(x, k) for _ in range(5)])
-    flops = 1.0 * b * n * (n + 1) * c    # the symmetric Gram product, i <= j
-    nbytes = 4.0 * (b * n * c + 3 * b * n)          # x in, three outputs
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    bound = cluster_bound(b, n, c)
     entry = {"name": "dpc_density_parent", "route": "cuda",
              "source": "setok_tpu_torch/csrc/cluster_dpc.cu",
              "replaces": "setok_tpu/kernels/cluster_pallas.py:140",
              "launches": None, "max_abs_err": max(errs), "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
-             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+             "bound_by": bound["bound_by"],
              "library_ms": None, "device_ms": by["device_ms"] / 5,
              "device_split_ms": {kk["name"][:60]: kk["ms"] / 5
-                                 for kk in by["top_kernels"]}}
+                                 for kk in by["top_kernels"]},
+             "timed_cases": timings}
     emit({"phase": "kernels", "timing_shape": [b, n, c], "k": k,
           "ms": ms, "plain_ms": plain_ms, "bound_ms": entry["bound_ms"],
           "device_ms": entry["device_ms"],
@@ -934,11 +992,12 @@ def staged_forward(cpu_model: SeTok, gpu_model: SeTok, seed: int,
     f_c = cpu_model.tokenizer.encode_features(img_c)
     res_g = gpu_model.tokenizer.cluster(f_g)
     f_gc = f_g.cpu()
+    f_32 = f_gc.float()           # the clustering's input type (cluster())
     res_p = cluster_dpc.cluster_dpc_knn_kernel(
-        f_gc, k=tok_cfg.knn, k_max=tok_cfg.k_max,
+        f_32, k=tok_cfg.knn, k_max=tok_cfg.k_max,
         min_cluster_num=tok_cfg.min_cluster_num, threshold=tok_cfg.threshold)
     res_gc = ClusterResult(*(t.cpu() for t in res_g))
-    res_x = cluster_dpc_knn(f_gc, k=tok_cfg.knn, k_max=tok_cfg.k_max,
+    res_x = cluster_dpc_knn(f_32, k=tok_cfg.knn, k_max=tok_cfg.k_max,
                             min_cluster_num=tok_cfg.min_cluster_num,
                             threshold=tok_cfg.threshold)
     tok_g = gpu_model.tokenizer.group_encode(f_g, res_g)
@@ -950,13 +1009,13 @@ def staged_forward(cpu_model: SeTok, gpu_model: SeTok, seed: int,
            "recon_max_rel": max_rel(det_g.image, det_c.image),
            "forward_vs_staged_recon_max_rel": max_rel(out.recon,
                                                       det_g.image)}
-    clusters = compare_clusters(res_gc, res_p, f_gc, tok_cfg)
+    clusters = compare_clusters(res_gc, res_p, f_32, tok_cfg)
     emit({"phase": name, "config": config,
           "params": sum(p.numel() for p in gpu_model.parameters()),
           "batch": batch, "calls": calls, "launches": launches,
           "clusters": clusters,
           "num_clusters": res_g.num_clusters.tolist(),
-          "plain_vs_ops_route": compare_clusters(res_p, res_x, f_gc, tok_cfg),
+          "plain_vs_ops_route": compare_clusters(res_p, res_x, f_32, tok_cfg),
           **rel})
     for key, value in rel.items():
         check(value <= tol, f"{name}: {key} {value} > {tol}")
@@ -985,7 +1044,7 @@ def phase_forward_int8(cpu_model: SeTok, gpu_model: SeTok) -> dict:
     check(counts["calls"] == want,
           f"int8 calls per forward {counts['calls']}, expected {want}")
     check(counts["launches"]["dpc_density_parent"]
-          == cluster_dpc.LAUNCHES_PER_CALL,
+          == cluster_launches(gpu_model.tokenizer.cfg),
           "the int8 forward did not launch the cluster kernels once")
     return counts
 
@@ -1077,11 +1136,14 @@ def unfused_configs() -> dict:
 def unfused_cases(b: int, device, seed: int = SEED, shapes: str = "path"):
     """(name, label, kernel, plain version, args, kwargs) for rows 6 and 7
     at their path shapes, B images: fused_mlp_int8 at 576 tokens of 768
-    (the ViT, the inner Block and the decoder at 384 px), and
-    fused_attention_int8 with 2 heads of 384 at the inner Block (N=256,
-    the same-cluster mask) and the inter Block (N=80, the validity mask
-    with fully masked rows). shapes="timing": the MLP and the inner
-    attention."""
+    (the ViT, the inner Block and the decoder at 384 px) and at 1296 (the
+    same at 576 px), and fused_attention_int8 with 2 heads of 384 at the
+    inner Block (N=256, the same-cluster mask) and the inter Block (N=80,
+    the validity mask with fully masked rows). Row 7 takes at most 768 keys
+    (its score rows stay in shared memory), and at 576 px the JAX gate
+    (`attn_fits_vmem`) sends every attention of 1296 tokens to the Dense
+    route: no row 7 case at N=1296. shapes="timing": the MLP at 576 tokens
+    and the inner attention; shapes="576px": the MLP at 1296 tokens."""
     rs = np.random.RandomState(seed + 5)
     c, hid = 768, 3072
 
@@ -1101,11 +1163,14 @@ def unfused_cases(b: int, device, seed: int = SEED, shapes: str = "path"):
         return ("fused_attention_int8", label, fai.fused_attention_int8,
                 fai.fused_attention_int8_reference, args, {"mask": mask})
 
+    if shapes == "576px":
+        return [mlp("576px", 1296)]
     inner, inter, _ = blob_masks(b, device)
     if shapes == "timing":
         return [mlp("384px", 576), attn("inner", 256, inner)]
     return [mlp("384px", 576), attn("inner", 256, inner),
-            attn("inter", 80, inter), attn("unmasked", 256, None)]
+            attn("inter", 80, inter), attn("unmasked", 256, None),
+            mlp("576px", 1296)]
 
 
 def unfused_bound(name: str, args) -> tuple:
@@ -1370,6 +1435,254 @@ def phase_throughput_unfused() -> None:
                   **device_time_breakdown(lambda: model(images))})
             del model
             torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
+# the whole SeTok path at 576 px: N = 1296 tokens, past the 1024 rows that
+# row 1 holds in registers
+
+LARGE_N_ARGV = ("--image-size", "576")
+LARGE_N_CHECK_BATCH = 2      # card against CPU, stage by stage
+LARGE_N_BATCH = 16           # img/s and the repeated int8 forwards
+LARGE_N_EVAL_IMAGES = 16     # eval_recon at its default batch of 8
+LARGE_N_DETOK_PATCH = "32"   # the decoder at 18 x 18 = 324 tokens
+# bf16 compute, card against CPU: the two round the same values alike, but
+# sums in another order can flip a bf16 rounding (2^-8 of the value) and the
+# layers behind it carry the flip, as a flipped int8 step does (FWD_INT8_TOL)
+FWD_BF16_TOL = FWD_INT8_TOL
+
+
+def large_n_configs():
+    """base_tokenizer / base_detokenizer at 576 px as eval_recon.py builds
+    them (`--image-size 576`)."""
+    return eval_recon.configs(eval_recon.parse_args(
+        ["--synthetic", "1", *LARGE_N_ARGV]))
+
+
+def large_n_row1(tok) -> dict:
+    """cluster_dpc_knn_kernel on blob features at the path's shape (B=8,
+    N=1296, C=768; random weights make the path's clustering fall back):
+    exact centers and assignments against the plain version's scores, and
+    two more calls equal to the bit."""
+    b, n, c = 8, tok.vit.num_output_patches, tok.hidden_dim
+    x = torch.from_numpy(np.stack([clustered(SEED + 20 + i, n, c)
+                                   for i in range(b)])).cuda()
+    kw = dict(k=tok.knn, k_max=tok.k_max, min_cluster_num=tok.min_cluster_num,
+              threshold=tok.threshold)
+    got = cluster_dpc.cluster_dpc_knn_kernel(x, **kw)
+    torch.cuda.synchronize()
+    rd, rp, _ = cluster_dpc.dpc_density_parent_reference(x, tok.knn)
+    want = cluster_dpc.select_and_assign(x, rd * rp, kw["k_max"],
+                                         kw["min_cluster_num"],
+                                         kw["threshold"])
+    same = all(torch.equal(a, w) for a, w in
+               zip((got.num_clusters, got.center_idx, got.idx_cluster),
+                   (want.num_clusters, want.center_idx, want.idx_cluster)))
+    first = cluster_dpc.dpc_density_parent(x, tok.knn)
+    repeat = all(torch.equal(a, r) for _ in range(2) for a, r in
+                 zip(first, cluster_dpc.dpc_density_parent(x, tok.knn)))
+    res = {"phase": "large_n_row1", "B": b, "N": n, "C": c,
+           "num_clusters": got.num_clusters.tolist(),
+           "clusters_identical": same, "repeat_identical": repeat}
+    emit(res)
+    check(same, "large_n: row 1's centers or assignments differ from the "
+          "plain version's on blob features")
+    check(repeat, "large_n: row 1 gave another output on a repeated call")
+    return res
+
+
+def large_n_int8_kernels() -> None:
+    """Rows 6 and 8 at the 576-px path's shapes at B=LARGE_N_BATCH (20,736
+    rows): fused_mlp_int8 at 1296 tokens against its plain version (0
+    elements may differ), quant_matmul at the attention's Dense shapes
+    (bf16 x, bf16 out, 1e-5), each called twice more: equal to the bit."""
+    dev = torch.device("cuda")
+    for case in unfused_cases(LARGE_N_BATCH, dev, shapes="576px"):
+        name, label, kernel, _, args, kw = case
+        check_int8_case(*case, phase="large_n_kernels")
+        first = kernel(*args, **kw)
+        same = all(torch.equal(first, kernel(*args, **kw)) for _ in range(2))
+        emit({"phase": "large_n_kernels", "kernel": name, "shape": label,
+              "batch": LARGE_N_BATCH, "repeat_identical": same})
+        check(same, f"{name} {label}: a repeated call differs")
+        del args, first
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    m = LARGE_N_BATCH * 1296
+    x = torch.randn(m, 768, generator=gen, device=dev).to(torch.bfloat16)
+    for label, n in (("576px qkv", 2304), ("576px proj", 768)):
+        w = quantize_weight(torch.randn(n, 768, generator=gen, device=dev)
+                            * 768 ** -0.5)
+        got = qm.quant_matmul(x, w, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        want = quant_matmul_plain(x, w, torch.bfloat16)
+        case = check_close("quant_matmul", f"{label} M={m}", got, want,
+                           QUANT_TOL)
+        same = all(torch.equal(got, qm.quant_matmul(
+            x, w, out_dtype=torch.bfloat16)) for _ in range(2))
+        case.update(phase="large_n_kernels", repeat_identical=same,
+                    elements_differing=int((got != want).sum()))
+        emit(case)
+        check(same, f"quant_matmul {label}: a repeated call differs")
+
+
+def large_n_forwards(tok, det) -> dict:
+    """The 576-px forward at B=LARGE_N_CHECK_BATCH on the card against the
+    same weights on the CPU, stage by stage (staged_forward): float32 at
+    FWD_REL_TOL, bf16 compute at FWD_BF16_TOL, int8 (quant8, float32 glue:
+    eval_recon's form) at FWD_INT8_TOL; clusters identical, row 1's
+    launches cluster_launches(tok), int8 calls expected_calls."""
+    config = "base @576 px (eval_recon --image-size 576)"
+    cpu = init_random_(SeTok(tok, det, device="cpu"), SEED)
+    state = cpu.state_dict()
+    runs = {}
+    for form, kw, tol in (("float32", {}, FWD_REL_TOL),
+                          ("bfloat16", {"dtype": torch.bfloat16},
+                           FWD_BF16_TOL),
+                          ("int8", {"quant8": True}, FWD_INT8_TOL)):
+        if kw:
+            cpu = SeTok(tok, det, device="cpu", **kw)
+            cpu.load_state_dict(state)
+        gpu = SeTok(tok, det, **kw)
+        gpu.load_state_dict(state)
+        t = time.perf_counter()
+        run = staged_forward(cpu, gpu, SEED + 22, tol,
+                             f"large_n_forward_{form}", LARGE_N_CHECK_BATCH,
+                             config)
+        run["seconds"] = time.perf_counter() - t
+        runs[form] = run
+        check(run["clusters_identical"], f"large_n {form}: the clusters "
+              "differ from the plain route's")
+        check(run["launches"]["dpc_density_parent"] == cluster_launches(tok),
+              f"large_n {form}: row 1 launches {run['launches']}")
+        want = (expected_calls(tok, det) if form == "int8"
+                else dict.fromkeys(run["calls"], 0))
+        check(run["calls"] == want, f"large_n {form}: int8 calls "
+              f"{run['calls']}, expected {want}")
+        del cpu, gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def large_n_throughput(tok, det) -> dict:
+    """img/s at B=LARGE_N_BATCH (float32, bf16, int8 with bf16 glue) by the
+    slope, peak memory, one profiled forward each; each int8 form (bf16
+    glue, and eval_recon's float32 glue) run twice more on the same images:
+    equal to the bit."""
+    size = tok.vit.image_size
+    images = torch.rand(LARGE_N_BATCH, size, size, 3, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(SEED)) * 2 - 1
+    out = {}
+    for name, kw, chain in (("float32", {}, (1, 4)),
+                            ("bfloat16", {"dtype": torch.bfloat16}, (2, 8)),
+                            ("int8", {"dtype": torch.bfloat16,
+                                      "quant8": True}, (2, 8)),
+                            ("int8_f32_glue", {"quant8": True}, None)):
+        model = init_setokim_random_(SeTok(tok, det, **kw), SEED)
+        res = {}
+        if chain is not None:
+            torch.cuda.reset_peak_memory_stats()
+            res = images_per_sec(model, images, *chain)
+            res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            check(res["images_per_sec"] > 0,
+                  "large_n: throughput slope is not positive")
+            emit({"phase": "large_n_profile", "dtype": name,
+                  "batch": LARGE_N_BATCH,
+                  **device_time_breakdown(lambda: model(images))})
+        if kw.get("quant8"):
+            first = model(images)
+            again = [model(images) for _ in range(2)]
+            res["repeat_identical"] = all(
+                torch.equal(first.recon, a.recon)
+                and torch.equal(first.tokens, a.tokens) for a in again)
+            check(res["repeat_identical"], f"large_n {name}: a repeated "
+                  f"forward at B={LARGE_N_BATCH} differs")
+            del first, again
+        emit({"phase": "large_n_throughput", "dtype": name,
+              "batch": LARGE_N_BATCH, **res})
+        out[name] = res
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def large_n_evals() -> dict:
+    """scripts/eval_recon.py's main at 576 px over LARGE_N_EVAL_IMAGES
+    structured images at its default batch: fp32, quant8, and fp32 with
+    --detok-patch 32 (the decoder at 324 tokens); that configuration's
+    forward also card against CPU at FWD_REL_TOL (staged_forward on
+    eval_recon.build_model's weights). Every count reset just before each
+    run and read just after."""
+    runs = {}
+    for name, extra in (("fp32", []), ("quant8", ["--precision", "quant8"]),
+                        ("fp32_detok_patch_32",
+                         ["--detok-patch", LARGE_N_DETOK_PATCH])):
+        argv = ["--synthetic", str(LARGE_N_EVAL_IMAGES),
+                "--synthetic-structured", *LARGE_N_ARGV, *extra]
+        args = eval_recon.parse_args(argv)
+        batches = LARGE_N_EVAL_IMAGES // args.batch_size
+        tok, det = eval_recon.configs(args)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        res = eval_recon.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        calls, launches = int8_counts()
+        launches["dpc_density_parent"] = cluster_dpc.LAUNCHES
+        runs[name] = {"calls": calls, "launches": launches}
+        emit({"phase": "large_n_eval", "argv": argv, **res,
+              "decoder_tokens": det.num_mask_tokens, "seconds": wall,
+              "calls": calls, "launches": launches})
+        check(all(np.isfinite(res[k]) for k in ("psnr", "ssim",
+                                                 "mean_clusters")),
+              f"large_n_eval {name}: a metric is not finite")
+        check(launches["dpc_density_parent"]
+              == batches * cluster_launches(tok),
+              f"large_n_eval {name}: row 1 launches "
+              f"{launches['dpc_density_parent']}")
+        want = {k: (batches * v if args.precision == "quant8" else 0)
+                for k, v in expected_calls(tok, det).items()}
+        check(calls == want, f"large_n_eval {name}: int8 calls {calls}, "
+              f"expected {want}")
+        torch.cuda.empty_cache()
+        if args.detok_patch is not None:
+            check(det.num_mask_tokens == 324, f"--detok-patch "
+                  f"{LARGE_N_DETOK_PATCH}: {det.num_mask_tokens} tokens")
+            cpu = eval_recon.build_model(args, device="cpu")
+            gpu = eval_recon.build_model(args)
+            runs[name]["forward"] = staged_forward(
+                cpu, gpu, SEED + 23, FWD_REL_TOL, "large_n_forward_detok",
+                LARGE_N_CHECK_BATCH, "base @576 px, --detok-patch 32")
+            check(runs[name]["forward"]["clusters_identical"],
+                  "large_n --detok-patch: the clusters differ")
+            del cpu, gpu
+            gc.collect()
+            torch.cuda.empty_cache()
+    return runs
+
+
+def phase_large_n() -> dict:
+    """The SeTok main path at 576 px (ViT-B/16, N = 1296: row 1 past the
+    rows it holds in registers; the int8 ViT, inner Block and decoder on
+    the unfused route, rows 6 and 8), through the normal entry points:
+    row 1 on blob features at the path's shape, rows 6 and 8 at its
+    shapes (repeated), the forward card against CPU in float32, bf16 and
+    int8, img/s and a profile of each dtype, eval_recon at 576 px (fp32,
+    quant8, --detok-patch 32). Returns every run's counts."""
+    t0 = time.perf_counter()
+    tok, det = large_n_configs()
+    check(tok.vit.num_patches == 1296 and det.num_mask_tokens == 1296,
+          f"large_n: {tok.vit.num_patches} tokens")
+    row1 = large_n_row1(tok)
+    large_n_int8_kernels()
+    forwards = large_n_forwards(tok, det)
+    throughput = large_n_throughput(tok, det)
+    evals = large_n_evals()
+    emit({"phase": "large_n_seconds", "seconds": time.perf_counter() - t0})
+    return {"row1": row1, "forward": forwards, "throughput": throughput,
+            "eval": evals}
 
 
 # ----------------------------------------------------------------------------
@@ -1916,7 +2229,7 @@ def phase_serve(cfg, bits: int, keep: bool = False):
           "cache-attention launches are not one per layer and decode step")
     check(prefills["image"] >= 1
           and counts["cluster"]
-          == cluster_dpc.LAUNCHES_PER_CALL * prefills["image"],
+          == cluster_launches(cfg.tokenizer) * prefills["image"],
           "the clustering kernel did not launch once per image admission")
     check(not counts["quant_matmul"]["quant_matmul" if bits == 4
                                      else "quant4_matmul"],
@@ -3069,7 +3382,7 @@ def phase_train(cfg) -> dict:
     want = {"flash_fwd": 2 * layers * fa.FWD_LAUNCHES_BF16,
             "flash_dq": layers,
             "flash_dkv": layers,
-            "dpc_density_parent": 2 * cluster_dpc.LAUNCHES_PER_CALL}
+            "dpc_density_parent": 2 * cluster_launches(cfg.tokenizer)}
     check(all(np.isfinite(v) for row in losses for v in row.values()),
           "a training loss is not finite")
     check(tr.updates == TRAIN_UPDATES, f"{tr.updates} updates")
@@ -3253,13 +3566,13 @@ def options_trainer(cfg, option: str, device=None,
                          device=device)
 
 
-def path_launches(n_micro: int, layers: int) -> tuple:
+def path_launches(n_micro: int, layers: int, tok_cfg) -> tuple:
     """The launches of rows 10 and 1 in the window, per micro-batch, and
     what one bf16 micro-batch takes (`train`'s)."""
     got = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
     want = {"flash_fwd": 2 * layers * fa.FWD_LAUNCHES_BF16,
             "flash_dq": layers, "flash_dkv": layers,
-            "dpc_density_parent": 2 * cluster_dpc.LAUNCHES_PER_CALL}
+            "dpc_density_parent": 2 * cluster_launches(tok_cfg)}
     return got, {k: v / n_micro for k, v in got.items()}, want
 
 
@@ -3303,8 +3616,8 @@ def run_qlora(cfg) -> dict:
             b_after_1 = all(torch.equal(b.detach(), b_before[n])
                             for n, (_, b) in tr.lora.items())
     torch.cuda.synchronize()
-    launches, per_micro, want = path_launches(n_micro,
-                                              cfg.llama.num_layers)
+    launches, per_micro, want = path_launches(n_micro, cfg.llama.num_layers,
+                                              cfg.tokenizer)
     train_peak = torch.cuda.max_memory_allocated() / 1e9
     b_moved = sum(not torch.equal(b.detach(), b_before[n])
                   for n, (_, b) in tr.lora.items())
@@ -3415,7 +3728,8 @@ def run_full_finetune(cfg) -> dict:
                                     for n in sampled}
     torch.cuda.synchronize()
     launches, per_micro, want = path_launches(FT_UPDATES,
-                                              cfg.llama.num_layers)
+                                              cfg.llama.num_layers,
+                                              cfg.tokenizer)
     peak = torch.cuda.max_memory_allocated() / 1e9
     opt8 = tr.optimizers["adam8bit"]
     n8 = sum(p.numel() for g in opt8.param_groups for p in g["params"])
@@ -3664,7 +3978,8 @@ def run_setok_8bit() -> dict:
           "a stage-1 8-bit loss is not finite")
     check(moved_1 >= 0.9 * len(tr.gen_params), f"update 1 moved only "
           f"{moved_1} of {len(tr.gen_params)} generator parameters")
-    check(launches == SETOK_TRAIN_UPDATES * cluster_dpc.LAUNCHES_PER_CALL,
+    check(launches == SETOK_TRAIN_UPDATES
+          * cluster_launches(tr.tokenizer_cfg),
           f"stage-1 8-bit clustering launches {launches}")
     del tr, batches, before
     torch.cuda.empty_cache()
@@ -3806,9 +4121,10 @@ def phase_train_setok(*extra: str, name: str = "train_setok") -> dict:
     check(all(np.isfinite(v) for row in losses for v in row.values()),
           "a stage-1 loss is not finite")
     check(tr.updates == SETOK_TRAIN_UPDATES + 1, f"{tr.updates} updates")
-    check(launches == SETOK_TRAIN_UPDATES * cluster_dpc.LAUNCHES_PER_CALL,
+    per_update = cluster_launches(tr.tokenizer_cfg)
+    check(launches == SETOK_TRAIN_UPDATES * per_update,
           f"clustering launches {launches} in {SETOK_TRAIN_UPDATES} "
-          f"updates, expected {cluster_dpc.LAUNCHES_PER_CALL} each")
+          f"updates, expected {per_update} each")
     check(vit_unchanged, "the frozen ViT moved")
     check(gen_moved_1 == 0, f"the first update (lr 0) moved {gen_moved_1} "
           "generator parameters")
@@ -3948,8 +4264,7 @@ def recipe_forwards(tok, det) -> dict:
           "recipes: the int8 forward's clusters differ from the plain "
           "route's")
     for form, run in runs.items():
-        check(run["launches"]["dpc_density_parent"]
-              == cluster_dpc.LAUNCHES_PER_CALL,
+        check(run["launches"]["dpc_density_parent"] == cluster_launches(tok),
               f"recipes {form}: clustering launches {run['launches']}")
     del cpu8, gpu8
     torch.cuda.empty_cache()
@@ -3987,7 +4302,7 @@ def recipe_evals() -> dict:
         check(all(np.isfinite(out[k]) for k in ("psnr", "ssim",
                                                  "mean_clusters")),
               f"recipes_eval {precision}: a metric is not finite")
-        want_row1 = 0 if extra else batches * cluster_dpc.LAUNCHES_PER_CALL
+        want_row1 = batches * cluster_launches(tok)
         check(launches["dpc_density_parent"] == want_row1,
               f"recipes_eval {precision}: clustering launches "
               f"{launches['dpc_density_parent']}, expected {want_row1}")
@@ -4309,9 +4624,10 @@ def data_stage1(files: dict) -> dict:
                       "ms_per_update": r["ms_per_update"]}
                      for name, r in turns],
            "losses": first["losses"]}
-    check(launches == SETOK_TRAIN_UPDATES * cluster_dpc.LAUNCHES_PER_CALL,
+    per_update = cluster_launches(tr.tokenizer_cfg)
+    check(launches == SETOK_TRAIN_UPDATES * per_update,
           f"data: clustering launches {launches} in {SETOK_TRAIN_UPDATES} "
-          f"updates, expected {cluster_dpc.LAUNCHES_PER_CALL} each")
+          f"updates, expected {per_update} each")
     check(not any(diff.values()), f"data: delivered batches differ {diff}")
     check(not any(rebuilt.values()), f"data: rebuilt batches differ {rebuilt}")
     check(n_alone == DATA_IMAGES // b, f"{n_alone} batches in an epoch")
@@ -4344,7 +4660,7 @@ def data_stage2(files: dict) -> dict:
              "edit": ["--data-path", files["edit"]]}
     want = {"flash_fwd": 2 * 2 * fa.FWD_LAUNCHES_BF16, "flash_dq": 2,
             "flash_dkv": 2,
-            "dpc_density_parent": 2 * cluster_dpc.LAUNCHES_PER_CALL}
+            "dpc_density_parent": 2 * cluster_launches(small.tokenizer)}
     out = {}
     for task in DATA_TASKS:
         args = train_setokim.parse_args(["--task-type", task, *tasks[task],
@@ -4671,7 +4987,7 @@ def phase_checkpoint() -> dict:
                                                  "fid_vitfeat")),
               f"checkpoint_eval {precision}: a metric is not finite")
         check(launches["dpc_density_parent"]
-              == tokenizes * cluster_dpc.LAUNCHES_PER_CALL,
+              == tokenizes * cluster_launches(model.tokenizer.cfg),
               f"checkpoint_eval {precision}: clustering launches "
               f"{launches['dpc_density_parent']}")
         int8_rows = sum(calls[k] for k in INT8_KERNELS)
@@ -5536,7 +5852,7 @@ def phase_weights(cfg) -> dict:
           f"{llama_unmatched[:4]}")
     check(all(np.isfinite(v) for v in s2_losses.values()),
           f"weights: stage-2 losses {s2_losses}")
-    check(s1_launches == 2 * cluster_dpc.LAUNCHES_PER_CALL,
+    check(s1_launches == 2 * cluster_launches(cfgs.base_tokenizer()),
           f"weights: stage-1 clustering launches {s1_launches}")
     check(s2_launches["dpc_density_parent"] > 0
           and all(s2_launches[k] > 0 for k in fa.LAUNCHES),
@@ -5546,8 +5862,9 @@ def phase_weights(cfg) -> dict:
           f"weights: serving launches {launches}")
     check(all(len(s) == WEIGHTS_SERVE_TOKENS for s in served_streams),
           f"weights: streams {served_streams}")
-    check(first["launches"] == cluster_dpc.LAUNCHES_PER_CALL
-          and second["launches"] == cluster_dpc.LAUNCHES_PER_CALL
+    probe_launches = cluster_launches(cfgs.base_tokenizer())
+    check(first["launches"] == probe_launches
+          and second["launches"] == probe_launches
           and first["dir"] == second["dir"] == str(cache_dir),
           f"weights: cache probes {first} {second}")
     return launches
@@ -5556,6 +5873,7 @@ def phase_weights(cfg) -> dict:
 # the phases that run alone (`python3 chip_smoke.py PHASE ...`): each
 # needs only the device and the build
 SELECTABLE = {
+    "large_n": phase_large_n,
     "parallel": lambda: phase_parallel(cfgs.base_setokim()),
     "train_options": lambda: phase_train_options(cfgs.base_setokim()),
     "train_setok": phase_train_setok,
@@ -5624,6 +5942,19 @@ def main(argv=None) -> int:
         e["launches"] = run["launches"][name]
         e["calls"] = run["calls"][name]
     phase_throughput_unfused()
+    large = phase_large_n()
+    entry["large_n_launches"] = {
+        **{f"forward_{form}": run["launches"]["dpc_density_parent"]
+           for form, run in large["forward"].items()},
+        **{f"eval_{p}": run["launches"]["dpc_density_parent"]
+           for p, run in large["eval"].items()}}
+    large_int8 = {name: {"forward_int8":
+                         large["forward"]["int8"]["launches"][name],
+                         "eval_quant8":
+                         large["eval"]["quant8"]["launches"][name]}
+                  for name in (*UNFUSED_KERNELS, "quant_matmul")}
+    for name, e in unfused_entries.items():
+        e["large_n_launches"] = large_int8[name]
     pd_counts = phase_param_dtype()
 
     serve_entries = phase_serve_kernels()
@@ -5677,6 +6008,8 @@ def main(argv=None) -> int:
         built["bits4_launches"]
     serve_entries["quant_matmul"]["param_dtype_launches"] = \
         pd_counts["launches"]["quant_matmul"]
+    serve_entries["quant_matmul"]["large_n_launches"] = \
+        large_int8["quant_matmul"]
     for name in ("fused_bert_attention_int8", "mlp_postnorm_int8"):
         int8_entries[name]["param_dtype_launches"] = \
             pd_counts["launches"][name]

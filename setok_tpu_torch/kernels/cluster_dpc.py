@@ -26,17 +26,24 @@ import torch
 from setok_tpu_torch.ops.clustering import (ClusterResult, assign_to_centers,
                                             density_tie_break, select_centers)
 
-# The kernel keeps 12 bytes a row in each CTA's shared memory: 227 KB (the
-# most a block may opt in to on the H100) / 12. Up to N = 1024 it holds
-# each row of d2 in registers; past it, it reads the row again at every step
-# of its select (csrc/cluster_dpc.cu).
+# Up to MAX_REG_N the kernel holds each row of d2 in registers and keeps 12
+# bytes a row in each CTA's shared memory: 227 KB (the most a block may opt
+# in to on the H100) / 12. Past it a warp takes a row, over every SM, the
+# row in shared memory up to N = 3072 (csrc/cluster_dpc.cu); only the Gram
+# scratch grows with N there, and MAX_N stays the bound.
 MAX_N = 19370
+MAX_REG_N = 1024
 
 # Kernel launches on the card since import (or since a caller reset it):
-# one call of `dpc_density_parent` launches LAUNCHES_PER_CALL, the Gram
-# product and the density/parent pass.
+# one call of `dpc_density_parent` launches `launches_per_call(N)`.
 LAUNCHES = 0
-LAUNCHES_PER_CALL = 2
+
+
+def launches_per_call(n: int) -> int:
+    """Launches of one call at N tokens: the Gram product and the
+    density/parent pass, or past MAX_REG_N the Gram product, the densities
+    and the parents."""
+    return 2 if n <= MAX_REG_N else 3
 
 
 def gram_f64(x: torch.Tensor) -> torch.Tensor:
@@ -101,14 +108,15 @@ def dpc_density_parent(x: torch.Tensor, k: int):
         raise ValueError(f"dpc_density_parent runs on cuda or cpu, got {x.device}")
     b, n, c = x.shape
     k = min(k, n)
-    out = torch.empty((3, b, n), dtype=torch.float32, device=x.device)
-    density, parent, rowmax = out.unbind(0)
+    # density, parent, rowmax, and sq (the Gram's diagonal, scratch)
+    out = torch.empty((4, b, n), dtype=torch.float32, device=x.device)
+    density, parent, rowmax, sq = out.unbind(0)
     gram = torch.empty((b, n, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     launched = ctypes.c_int(0)
     err = _entry()(x.data_ptr(), density.data_ptr(), parent.data_ptr(),
-                   rowmax.data_ptr(), gram.data_ptr(), b, n, c, k, 1.0 / c,
-                   x.device.index, stream, ctypes.byref(launched))
+                   rowmax.data_ptr(), gram.data_ptr(), sq.data_ptr(), b, n, c,
+                   k, 1.0 / c, x.device.index, stream, ctypes.byref(launched))
     LAUNCHES += launched.value
     if err != 0:
         raise RuntimeError(f"cluster_dpc launch failed with CUDA error {err}")
@@ -122,7 +130,7 @@ def _entry():
 
     fn = load_library("cluster_dpc").dpc_density_parent_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int)]
     return fn

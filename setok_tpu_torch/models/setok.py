@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from setok_tpu_torch.config import DetokenizerConfig, TokenizerConfig
+from setok_tpu_torch.kernels import cluster_dpc
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.models.detokenizer import (DetokenizerOutput,
                                                 SetokDeTokenizer)
@@ -87,7 +88,7 @@ def expected_calls(tok_cfg: TokenizerConfig,
     forward, from the gates the modules read (ops/blocks.py):
 
       base @256             32 / 30 / 9 / 6, the whole-sublayer kernels
-      base @384             29 fused_mlp_int8, 60 quant_matmul, 2 / 1 / 0 / 6
+      base @384, @576       29 fused_mlp_int8, 60 quant_matmul, 2 / 1 / 0 / 6
       base, ffn 4096        4 fused_attention_int8, 4 quant_matmul,
                             28 / 28 / 9 / 6
       so400m                104 quant_matmul, 9 BERT, 6 post-norm
@@ -141,3 +142,13 @@ def expected_calls(tok_cfg: TokenizerConfig,
     for _ in range(det_cfg.decoder_depth):
         block(q, c, int(c * det_cfg.mlp_ratio))
     return calls
+
+
+def cluster_launches(tok_cfg: TokenizerConfig) -> int:
+    """Row 1's CUDA launches in one unmasked tokenize on the card: one
+    `cluster_dpc` call at the ViT's output token count where the tokenizer
+    takes the kernel (`use_pallas_cluster`, no `cluster_dist_norm`), else
+    none (models/tokenizer.SetokTokenizer.cluster)."""
+    if not tok_cfg.use_pallas_cluster or tok_cfg.cluster_dist_norm:
+        return 0
+    return cluster_dpc.launches_per_call(tok_cfg.vit.num_output_patches)

@@ -15,7 +15,14 @@ versions and to the JAX package:
   (float64 Gram rounded once) against the JAX kernel in interpret mode with
   the bars of tests/test_torch_cluster_kernel.py: density rtol 1e-5, scores
   rtol 1e-3 on the peaks and within 1e-3 on >= 90 % of tokens, the same
-  centers and assignments.
+  centers and assignments. Past N = 1024 (three launches: the Gram, the
+  densities a warp a row, the parents a warp a row): the histogram select
+  (four digits of the float bits, a 256-bin count each, the warp's scan of
+  8 bins a lane) gives the exact k-th value (bar 0 on its bits), the sum in
+  the kernel's 32-lane order gives the plain version's density within rtol
+  1e-5, and the parent pass, fed the same densities, the plain version's
+  parents exactly; scores within 1e-3 on >= 90 % of tokens, and centers and
+  assignments equal where k < N.
 """
 
 import math
@@ -28,11 +35,16 @@ import torch
 from setok_tpu.kernels.cluster_pallas import (cluster_dpc_knn_pallas,
                                               dpc_density_parent as j_dpc)
 from setok_tpu.ops.clustering import cluster_dpc_knn as j_cluster
+from setok_tpu_torch import config as tcfg
 from setok_tpu_torch.kernels import cache_attention as ca
-from setok_tpu_torch.kernels.cluster_dpc import (cluster_dpc_knn_kernel,
+from setok_tpu_torch.kernels.cluster_dpc import (MAX_REG_N,
+                                                 cluster_dpc_knn_kernel,
                                                  d2_from_gram,
                                                  dpc_density_parent,
-                                                 gram_f64)
+                                                 dpc_density_parent_reference,
+                                                 gram_f64, launches_per_call,
+                                                 select_and_assign)
+from setok_tpu_torch.models.setok import cluster_launches
 from tests.test_clustering import make_clustered_data
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -256,3 +268,142 @@ def test_radix_select_is_the_exact_kth_smallest(n, k):
     torch.testing.assert_close(
         exact, torch.topk(d2, k, dim=-1, largest=False).values.double()
         .sum(-1), rtol=1e-12, atol=0)
+
+
+# ----------------------------------------------------------------------------
+# row 1 past N = 1024: the histogram select and the split of launches
+
+# (shift, width) of the four digits of a d2's bits, bit 31 (the sign) 0
+DIGITS = ((23, 8), (15, 8), (7, 8), (0, 7))
+
+
+def find_bin(counts: torch.Tensor, kk: torch.Tensor):
+    """The kernel's find_bin over rows of 256 counts: lane l sums bins 8l ..
+    8l + 7, an inclusive scan over the lanes, the lane with excl < kk <=
+    incl walks its 8 bins. Returns (bin, kk less the counts below it)."""
+    lanes = counts.view(-1, 32, 8)
+    local = lanes.sum(-1)
+    incl = local.cumsum(-1)
+    excl = incl - local
+    hit = (excl < kk[:, None]) & (kk[:, None] <= incl)
+    assert bool((hit.sum(-1) == 1).all())        # one lane crosses kk
+    src = hit.int().argmax(-1)
+    run = excl.gather(1, src[:, None]) + lanes[torch.arange(len(src)), src] \
+        .cumsum(-1)                               # run + n[t], inclusive
+    t = (run >= kk[:, None]).int().argmax(-1)
+    below = run.gather(1, t[:, None]).squeeze(1) \
+        - lanes[torch.arange(len(src)), src, t]
+    return 8 * src + t, kk - below
+
+
+def histogram_kth(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th smallest of each row of d2 (>= +0) by the kernel's four
+    digit passes, each counting only the values whose higher bits match the
+    digits found so far."""
+    bits = d2.contiguous().view(torch.int32)
+    rows = bits.shape[0]
+    kk = torch.full((rows,), k, dtype=torch.long)
+    kth = torch.zeros(rows, dtype=torch.int32)
+    base = 256 * torch.arange(rows, dtype=torch.int32)[:, None]
+    for shift, width in DIGITS:
+        hi = shift + width
+        match = (bits >> hi) == (kth >> hi)[:, None]
+        bins = torch.where(match, ((bits >> shift) & ((1 << width) - 1))
+                           + base, rows * 256)    # the last bin: no match
+        counts = torch.bincount(bins.flatten(), minlength=rows * 256 + 1)
+        digit, kk = find_bin(counts[:-1].view(rows, 256), kk)
+        kth = kth | (digit.int() << shift)
+    return kth.view(torch.float32)
+
+
+def lane_order_sum(v: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """The kernel's float32 sum of the kept values of each row: lane l adds
+    j = l, l + 32, ... in order, then the xor tree over the 32 lanes."""
+    rows, n = v.shape
+    pad = (-n) % 32
+    v = torch.nn.functional.pad(torch.where(keep, v, 0.0), (0, pad))
+    lanes = v.view(rows, -1, 32)
+    s = torch.zeros(rows, 32)
+    for t in range(lanes.shape[1]):
+        s = s + lanes[:, t]
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, torch.arange(32) ^ o]
+    return s[:, 0]
+
+
+def split_density_parent(x: torch.Tensor, k: int):
+    """The three launches past N = 1024: the Gram (sq its diagonal), then
+    each row's density and row max alone, then each row's parent from every
+    row's density and row max. (density, parent, rowmax, kth), (B, N)."""
+    b, n, c = x.shape
+    d2 = d2_from_gram(gram_f64(x.float()), c).view(b * n, n)
+    kth = histogram_kth(d2, k)
+    keep = d2 < kth[:, None]
+    s = lane_order_sum(d2, keep) + kth * (k - keep.sum(-1)).float()
+    i = torch.arange(n).repeat(b).float()
+    density = torch.exp(-(s / k)) + (i + 0.5) / n * 1e-6
+    rowmax = d2.amax(-1).sqrt()
+    density, rowmax = density.view(b, n), rowmax.view(b, n)
+    return (density, parent_pass(d2.view(b, n, n), density, rowmax), rowmax,
+            kth.view(b, n))
+
+
+def parent_pass(d2, density, rowmax):
+    """A row's parent alone: the least d2 over the denser tokens, one sqrt,
+    against the least row max of the others."""
+    higher = density[:, None, :] > density[:, :, None]
+    near = torch.where(higher, d2, math.inf).amin(-1)
+    fill = torch.where(higher, math.inf, rowmax[:, None, :]).amin(-1)
+    return torch.minimum(near.sqrt(), fill)
+
+
+def large_n_input(kind: str, n: int, c: int = 16) -> torch.Tensor:
+    if kind == "zeros":                  # every d2 0: the k-th is 0
+        return torch.zeros(1, n, c)
+    x = make_clustered_data(n, n=n, c=c)
+    if kind == "repeated":               # each token 5 times: ties at the k-th
+        x = np.repeat(x[::5], 5, axis=0)[:n]
+    return torch.from_numpy(np.ascontiguousarray(x[None]))
+
+
+@pytest.mark.parametrize("kind,n,k", [
+    ("blobs", 1025, 1), ("blobs", 1025, 1025), ("blobs", 1296, 1),
+    ("blobs", 1296, 64), ("blobs", 1296, 1296), ("blobs", 2304, 64),
+    ("zeros", 1296, 64), ("repeated", 1296, 64), ("repeated", 1025, 1025)])
+def test_histogram_select_past_the_register_rows(kind, n, k):
+    x = large_n_input(kind, n)
+    assert n > MAX_REG_N and launches_per_call(n) == 3
+    dens, parent, rowmax, kth = split_density_parent(x, k)
+    d2 = d2_from_gram(gram_f64(x), x.shape[-1])
+    want_kth = torch.kthvalue(d2, k, dim=-1).values
+    assert torch.equal(kth.view(torch.int32), want_kth.view(torch.int32))
+    rd, rp, rr = dpc_density_parent_reference(x, k)
+    torch.testing.assert_close(dens, rd, rtol=1e-5, atol=0)
+    assert torch.equal(rowmax, rr)
+    # the parent pass fed the plain version's densities: its parents exactly
+    assert torch.equal(parent_pass(d2, rd, rr), rp)
+    if kind == "zeros":
+        assert not bool(kth.any())
+    assert bool(torch.isclose(dens * parent, rd * rp, rtol=1e-3, atol=1e-3)
+                .float().mean() >= 0.9)
+    if k < n:
+        # at k = N the density is the row's mean: near-ties between tokens
+        # of a blob may flip a parent (chip_smoke.py's kernels phase)
+        kw = dict(k_max=80, min_cluster_num=64, threshold=0.55)
+        got = select_and_assign(x, dens * parent, **kw)
+        ref = select_and_assign(x, rd * rp, **kw)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+def test_launch_split_follows_n():
+    assert [launches_per_call(n) for n in (1, 256, 1024, 1025, 19370)] == \
+        [2, 2, 2, 3, 3]
+    # a tokenize's launches: the ViT's output count, 0 off the kernel route
+    tok = tcfg.base_tokenizer()
+    at_576 = tcfg.replace(tok, vit=tcfg.replace(tok.vit, image_size=576))
+    merged = tcfg.replace(tok, vit=tcfg.replace(tok.vit, merge_layer=1),
+                          k_max=64, min_cluster_num=64, knn=64)
+    assert [cluster_launches(c) for c in (
+        tok, at_576, merged, tcfg.replace(at_576, cluster_dist_norm=True),
+        tcfg.replace(tok, use_pallas_cluster=False))] == [2, 3, 2, 0, 0]

@@ -33,9 +33,10 @@ tiles skipped and counted) and at G = 8 past S = 5,085 (up to 8192, where
 the first kernel's shared memory ran out), printing the elements that
 differ from the plain version (expected 0: the same float64 sums rounded
 once). The DPC-KNN kernel also at N = 576, 729 (C = 1152) and 1024, and
-past 1024, where each row of d2 is read again at every step of the select
-(N = 1296, ViT-B/16 at 576 px, and 2304, at 768 px), its centers and
-assignments the plain route's. The flash-attention kernels,
+past 1024, where a warp takes a row and selects by histogram (N = 1025,
+1296, ViT-B/16 at 576 px, 2304, at 768 px, 4096, past the rows held in
+shared memory, and 19370 at C = 64), its centers and assignments the plain
+route's, and at B = 8, N = 1296 equal to the bit over repeated calls. The flash-attention kernels,
 with chip_smoke.flash_case's bars: the forward's o 2e-3 max-rel with ≥ 99 %
 within 1e-5 of the largest (p rounds to the input type before P.V), lse
 1e-5, dq/dk/dv 1e-4 (float32, sums in another order; bf16's f32 operands
@@ -106,17 +107,21 @@ def _blobs(seed, n, c, n_blobs=5):
     (2, 576, 768, 64),      # base @384
     (1, 729, 1152, 64),     # so400m's token count
     (2, 729, 1152, 64),     # so400m's token count and width
-    (2, 1296, 768, 64),     # ViT-B/16 at 576 px: rows streamed
+    (2, 1025, 768, 64),     # the first N past the registers: a warp a row
+    (2, 1296, 768, 64),     # ViT-B/16 at 576 px: rows in shared memory
     (1, 2304, 768, 64),     # ViT-B/16 at 768 px
+    (1, 4096, 768, 64),     # past 3072: each pass reads the row from G
+    (1, 19370, 64, 64),     # the largest N (MAX_N)
 ])
 def test_kernel_matches_reference(card, b, n, c, k):
     x = torch.from_numpy(np.stack([_blobs(s, n, c) for s in range(b)])).to(card)
     before = cluster_dpc.LAUNCHES
     dens, parent, rowmax = cluster_dpc.dpc_density_parent(x, k)
     torch.cuda.synchronize()
-    # the Gram product and the density/parent pass
-    assert cluster_dpc.LAUNCHES == before + cluster_dpc.LAUNCHES_PER_CALL == \
-        before + 2
+    # the Gram product and the density/parent pass; past 1024 the Gram,
+    # the densities and the parents
+    assert cluster_dpc.LAUNCHES == before + cluster_dpc.launches_per_call(n) \
+        == before + (2 if n <= 1024 else 3)
     rd, rp, rr = cluster_dpc.dpc_density_parent_reference(x, k)
     torch.testing.assert_close(dens, rd, rtol=1e-5, atol=0)
     torch.testing.assert_close(rowmax, rr, rtol=1e-5, atol=0)
@@ -132,6 +137,18 @@ def test_kernel_matches_reference(card, b, n, c, k):
     assert torch.equal(res.center_idx, ref.center_idx)
     assert torch.equal(res.idx_cluster, ref.idx_cluster)
 
+
+def test_kernel_repeats_to_the_bit_at_the_576px_path(card):
+    """Row 1 at the shape eval_recon --image-size 576 gives it (B=8 of N =
+    1296, C = 768): three calls, equal to the bit (the counts of the
+    histogram select are integer atomics; nothing else is ordered by the
+    schedule)."""
+    x = torch.from_numpy(np.stack([_blobs(s, 1296, 768)
+                                   for s in range(8)])).to(card)
+    first = cluster_dpc.dpc_density_parent(x, 64)
+    for _ in range(2):
+        again = cluster_dpc.dpc_density_parent(x, 64)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 def test_tokenizer_routes_to_the_kernel(card):
     model = init_random_(SeTok(cfgs.tiny_tokenizer(), cfgs.tiny_detokenizer(),
@@ -336,14 +353,16 @@ def test_int8_attentions_raise_on_shapes_they_do_not_take(card):
 UNFUSED_CASES = [("fused_mlp_int8", "384px", 4),
                  ("fused_attention_int8", "inner", 5),
                  ("fused_attention_int8", "inter", 5),
-                 ("fused_attention_int8", "unmasked", 5)]
+                 ("fused_attention_int8", "unmasked", 5),
+                 ("fused_mlp_int8", "576px", 4)]
 
 
 @pytest.mark.parametrize("index", range(len(UNFUSED_CASES)),
                          ids=[f"{n}-{s}" for n, s, _ in UNFUSED_CASES])
 def test_unfused_kernel_matches_reference(card, index):
     """Rows 6 and 7 against their plain versions at the path shapes (the
-    MLP at 576 tokens of 768, the attention with 2 heads of 384)."""
+    MLP at 576 and 1296 tokens of 768, the attention with 2 heads of
+    384)."""
     name, label, steps = UNFUSED_CASES[index]
     case = chip_smoke.unfused_cases(1, card)[index]
     assert case[:2] == (name, label)

@@ -4,10 +4,11 @@ route: tests/test_torch_int8_unfused.py).
 
   * `expected_calls` equals the calls of each int8 kernel in the JAX
     package's own int8 forward, traced under jax.eval_shape, at base @384,
-    with the 4096-wide tokenizer MLP, and at the fast stage-1 recipe
-    (merge_layer 1, 64 tokens past the merge, decoder depth 8);
-  * the JAX parameter trees at 384 px and at so400m name the port's
-    parameters one to one, with their shapes;
+    with the 4096-wide tokenizer MLP, at the fast stage-1 recipe
+    (merge_layer 1, 64 tokens past the merge, decoder depth 8), and at 576
+    px (N = 1296);
+  * the JAX parameter trees at 384 px, at so400m and at 576 px name the
+    port's parameters one to one, with their shapes;
   * a tiny forward whose real gates take the unfused route, two seeds:
     identical clusters, 5e-2 on `tokens` and `recon` (tests/test_torch_int8.py
     says why 5e-2).
@@ -54,9 +55,10 @@ def _configs(name, pkg):
     if name == "so400m":
         return pkg.so400m_tokenizer(), pkg.so400m_detokenizer()
     tok, det = pkg.base_tokenizer(), pkg.base_detokenizer()
-    if name == "base384":
-        return (pkg.replace(tok, vit=pkg.replace(tok.vit, image_size=384)),
-                pkg.replace(det, image_size=384))
+    if name in ("base384", "base576"):   # eval_recon --image-size 384 / 576
+        size = int(name[4:])
+        return (pkg.replace(tok, vit=pkg.replace(tok.vit, image_size=size)),
+                pkg.replace(det, image_size=size))
     if name == "merged":    # train_setok --merge-layer 1 --detok-depth 8
         return (pkg.replace(tok, vit=pkg.replace(tok.vit, merge_layer=1),
                             k_max=64, min_cluster_num=64, knn=64),
@@ -74,7 +76,8 @@ JAX_KERNELS = {"attn_sublayer_int8": "fused_sublayer",
                "quant_matmul": "quant_matmul"}
 
 
-@pytest.mark.parametrize("name", ["base384", "ff4096", "merged"])
+@pytest.mark.parametrize("name", ["base384", "ff4096", "merged",
+                                  "base576"])
 def test_expected_calls_match_jax_trace(name, monkeypatch):
     """The calls of each int8 kernel in one forward of the JAX package's
     int8 SeTok (`apply` traced under jax.eval_shape, each kernel function
@@ -98,7 +101,8 @@ def test_expected_calls_match_jax_trace(name, monkeypatch):
     assert (calls["fused_mlp_int8"], calls["fused_attention_int8"],
             calls["quant_matmul"]) == {"base384": (29, 0, 60),
                                        "ff4096": (0, 4, 4),
-                                       "merged": (0, 0, 0)}[name]
+                                       "merged": (0, 0, 0),
+                                       "base576": (29, 0, 60)}[name]
 
 
 def _state_shape(path, shape):
@@ -110,7 +114,7 @@ def _state_shape(path, shape):
     return flax_state_key(path), tuple(shape)
 
 
-@pytest.mark.parametrize("name", ["base384", "so400m"])
+@pytest.mark.parametrize("name", ["base384", "so400m", "base576"])
 def test_flax_tree_loads_strictly_at_scale(name):
     """Every leaf of the JAX parameter tree (shapes from jax.eval_shape)
     names one parameter of the port's model of the same shape, and every
@@ -135,8 +139,9 @@ def test_flax_tree_loads_strictly_at_scale(name):
         assert own[f"{vit}.pos_embed"] == (1, 729, 1152)
         assert own["detokenizer.mask_tokens"] == (1, 324, 768)
     else:
-        assert own[f"{vit}.pos_embed"] == (1, 576, 768)
-        assert own["detokenizer.mask_tokens"] == (1, 576, 768)
+        n = (size // 16) ** 2           # 576 at 384 px, 1296 at 576 px
+        assert own[f"{vit}.pos_embed"] == (1, n, 768)
+        assert own["detokenizer.mask_tokens"] == (1, n, 768)
 
 
 def images(seed, b=2, size=256):
