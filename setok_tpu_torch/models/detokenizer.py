@@ -9,6 +9,10 @@ input, beside the image (stage-1's adaptive GAN weight differentiates the
 head alone on it). A `generator` runs the dropout of the Q-Former
 (`proj_drop`, `attn_drop`) and of the decoder blocks. `quant8=True`
 (inference only) passes to the Q-Former and the decoder blocks.
+The forward runs inside the span `setok.detokenizer`, split into
+`setok.detokenizer.mapper` (the queries, `mapper_fc_in`, the Q-Former) and
+`setok.detokenizer.decoder` (from `decoder_fc_in` to the pixels)
+(`utils/profiling.span`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from setok_tpu_torch.models.qformer import QFormer
 from setok_tpu_torch.ops.blocks import Dense, LayerNorm, ViTBlock
 from setok_tpu_torch.ops.posenc import posenc_2d_flat
 from setok_tpu_torch.utils.device import resolve_device
+from setok_tpu_torch.utils.profiling import span
 
 
 class DetokenizerOutput(NamedTuple):
@@ -94,13 +99,17 @@ class SetokDeTokenizer(nn.Module):
         """tokens: (B, K, token_feat_dim); token_valid: (B, K) bool."""
         cfg = self.cfg
         b = tokens.shape[0]
-        queries = self.mask_tokens.to(self.dtype).expand(b, -1, -1)
-        x = self.mapper_fc_in(tokens)
-        x = self.mapper(queries, x, token_valid, generator)
-        x = self.decoder_fc_in(x)
-        x = x + self.pos.to(x.dtype)[None]
-        for i in range(cfg.decoder_depth):
-            x = getattr(self, f"pixel_decoder_{i}")(x, generator=generator)
-        hidden = self.decoder_norm(x)
-        image = unpatchify(self.pixel_head(hidden), cfg.patch_size)
+        with span("detokenizer"):
+            with span("detokenizer.mapper"):
+                queries = self.mask_tokens.to(self.dtype).expand(b, -1, -1)
+                x = self.mapper_fc_in(tokens)
+                x = self.mapper(queries, x, token_valid, generator)
+            with span("detokenizer.decoder"):
+                x = self.decoder_fc_in(x)
+                x = x + self.pos.to(x.dtype)[None]
+                for i in range(cfg.decoder_depth):
+                    x = getattr(self, f"pixel_decoder_{i}")(
+                        x, generator=generator)
+                hidden = self.decoder_norm(x)
+                image = unpatchify(self.pixel_head(hidden), cfg.patch_size)
         return DetokenizerOutput(image=image, hidden=hidden)

@@ -5,6 +5,11 @@ sin-cos encoding, DPC-KNN clustering, the inner Block under the same-cluster
 mask with a segment mean per cluster, the inter Block over the valid concept
 tokens, and the output linear. Clustering and group encoding are separate
 methods (`cluster`, `group_encode`) so that each stage can be compared alone.
+The forward and its three stages (`encode_features`, `cluster`,
+`group_encode`) run inside the spans `setok.tokenizer`,
+`setok.tokenizer.encode`, `.cluster` and `.group_encode`
+(`utils/profiling.span`): host ops while a profiler runs, a shared no-op
+otherwise.
 
 Clustering routes as the JAX package does: the hand-written kernel
 (kernels/cluster_dpc.py) runs when `use_pallas_cluster` is set, no
@@ -41,6 +46,7 @@ from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
 from setok_tpu_torch.ops.posenc import posenc_2d_flat
 from setok_tpu_torch.utils.device import resolve_device
+from setok_tpu_torch.utils.profiling import span
 
 
 class TokenizerOutput(NamedTuple):
@@ -100,13 +106,15 @@ class SetokTokenizer(nn.Module):
         """ViT features (+ `merge_out_norm`, `feat_proj`) + 2-D sin-cos
         encoding, (B, N, hidden_dim)."""
         frozen = self.freeze_backbone and not self._split_freeze
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            feats = self.image_feature_encoder(images)
-        if self.merge_out_norm is not None:
-            feats = self.merge_out_norm(feats)
-        if self.feat_proj is not None:
-            feats = self.feat_proj(feats)
-        return feats + self.pos.to(feats.dtype)[None]
+        with span("tokenizer.encode"):
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not frozen):
+                feats = self.image_feature_encoder(images)
+            if self.merge_out_norm is not None:
+                feats = self.merge_out_norm(feats)
+            if self.feat_proj is not None:
+                feats = self.feat_proj(feats)
+            return feats + self.pos.to(feats.dtype)[None]
 
     @torch.no_grad()
     def cluster(self, x: torch.Tensor,
@@ -118,16 +126,17 @@ class SetokTokenizer(nn.Module):
         cfg = self.cfg
         thr = cfg.threshold if threshold is None else threshold
         knn = cfg.knn if k is None else k
-        xs = x.detach().float()
-        if (cfg.use_pallas_cluster and token_mask is None
-                and not cfg.cluster_dist_norm and xs.is_cuda):
-            return cluster_dpc_knn_kernel(
-                xs.contiguous(), k=knn, k_max=cfg.k_max,
-                min_cluster_num=cfg.min_cluster_num, threshold=thr)
-        return cluster_dpc_knn(xs, k=knn, k_max=cfg.k_max,
-                               min_cluster_num=cfg.min_cluster_num,
-                               threshold=thr, token_mask=token_mask,
-                               dist_norm=cfg.cluster_dist_norm)
+        with span("tokenizer.cluster"):
+            xs = x.detach().float()
+            if (cfg.use_pallas_cluster and token_mask is None
+                    and not cfg.cluster_dist_norm and xs.is_cuda):
+                return cluster_dpc_knn_kernel(
+                    xs.contiguous(), k=knn, k_max=cfg.k_max,
+                    min_cluster_num=cfg.min_cluster_num, threshold=thr)
+            return cluster_dpc_knn(xs, k=knn, k_max=cfg.k_max,
+                                   min_cluster_num=cfg.min_cluster_num,
+                                   threshold=thr, token_mask=token_mask,
+                                   dist_norm=cfg.cluster_dist_norm)
 
     def group_encode(self, x: torch.Tensor, res: ClusterResult,
                      token_mask: Optional[torch.Tensor] = None,
@@ -136,19 +145,21 @@ class SetokTokenizer(nn.Module):
         """Masked inner Block, segment mean, inter Block and output linear
         over features x: (B, N, D) given their clustering."""
         k_max = self.cfg.k_max
-        grouped = self.inner_encoder(
-            x, mask=same_cluster_mask(res.idx_cluster, token_mask),
-            generator=generator)
-        valid_tokens = (token_mask if token_mask is not None
-                        else torch.ones(x.shape[:2], dtype=x.dtype,
-                                        device=x.device))
-        pooled, counts = segment_mean(grouped, res.idx_cluster, k_max,
-                                      valid_tokens)
-        cluster_valid = counts > 0
-        inter_mask = cluster_valid[:, None, :] & cluster_valid[:, :, None]
-        tokens = self.out(self.inter_encoder(pooled, mask=inter_mask,
-                                             generator=generator))
-        tokens = tokens * cluster_valid[..., None].to(tokens.dtype)
+        with span("tokenizer.group_encode"):
+            grouped = self.inner_encoder(
+                x, mask=same_cluster_mask(res.idx_cluster, token_mask),
+                generator=generator)
+            valid_tokens = (token_mask if token_mask is not None
+                            else torch.ones(x.shape[:2], dtype=x.dtype,
+                                            device=x.device))
+            pooled, counts = segment_mean(grouped, res.idx_cluster, k_max,
+                                          valid_tokens)
+            cluster_valid = counts > 0
+            inter_mask = (cluster_valid[:, None, :]
+                          & cluster_valid[:, :, None])
+            tokens = self.out(self.inter_encoder(pooled, mask=inter_mask,
+                                                 generator=generator))
+            tokens = tokens * cluster_valid[..., None].to(tokens.dtype)
         return TokenizerOutput(tokens=tokens, token_valid=cluster_valid,
                                idx_cluster=res.idx_cluster, score=res.score,
                                num_clusters=res.num_clusters)
@@ -172,7 +183,8 @@ class SetokTokenizer(nn.Module):
                 ) -> TokenizerOutput:
         """images: (B, H, W, 3) → TokenizerOutput; `generator` runs the
         Blocks' dropout."""
-        return self.tokenize_features(self.encode_features(images),
-                                      token_mask=token_mask,
-                                      threshold=threshold, k=k,
-                                      generator=generator)
+        with span("tokenizer"):
+            return self.tokenize_features(self.encode_features(images),
+                                          token_mask=token_mask,
+                                          threshold=threshold, k=k,
+                                          generator=generator)

@@ -12,9 +12,19 @@ The counterpart of `setok_tpu/utils/profiling.py`, with its names:
   StepTimer(warmup=2)  step times after `warmup` steps: `start`,
                 `stop(result=None)`, `mean`, `p50` (nan without times).
 
-and the port's own `device_time_breakdown`: kernel names grouped into a
-few categories by substring, so that a forward's time reads as matmul /
-attention softmax / LayerNorm / clustering / ...
+and the port's own `span(name)`, the program's named stages, and
+`device_time_breakdown`: kernel names grouped into a few categories by
+substring, so that a forward's time reads as matmul / attention softmax /
+LayerNorm / clustering / ...
+
+`span(name)` marks a stage of the program as the host op `setok.<name>`
+while a profiler runs (`trace`, or any `torch.profiler.profile`), and is a
+shared no-op otherwise: the profiler being on is the only switch. It is a
+plain host op, not a user annotation (`record_function`), so the profiler
+gives it no range of its own on the device timeline and a user annotation
+around it keeps its kernels there; a reader attributes device time to it by
+the launches that lie inside it. Off it costs a check of whether a profiler
+runs and the no-op's enter and exit.
 """
 
 from __future__ import annotations
@@ -30,6 +40,19 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 from setok_tpu_torch.utils.device import resolve_device
+
+
+SPAN_PREFIX = "setok."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`with span("tokenizer.cluster"): ...`: the host op
+    `setok.tokenizer.cluster` while a profiler runs, else a shared
+    no-op."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
 
 
 @contextlib.contextmanager
@@ -97,7 +120,8 @@ CATEGORIES = (
     ("flash_forward", ("flash_fwd", "flash_classes")),
     ("flash_dq", ("flash_dq",)),
     ("flash_dkv", ("flash_dkv",)),
-    ("cluster_dpc", ("gram_kernel", "density_parent_kernel")),
+    ("cluster_dpc", ("gram_kernel", "density_parent_kernel",
+                     "density_rows_kernel", "parent_rows_kernel")),
     # the int8 sublayers' and fused_mlp_int8's wgmma GEMMs (their epilogues
     # name them), and their one-read pass over the hidden or attention rows
     ("int8_mlp_gemm", ("mlpfc",)),
