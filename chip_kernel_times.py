@@ -8,8 +8,8 @@ compare in one call:
     python3 chip_kernel_times.py TAG [PARTS]   # from the root of each checkout
 
 PARTS, comma-separated, picks what runs (default all): trunk, row6, dense,
-sublayers, attention, cache, cluster, forward, serve. Prints one JSON line
-tagged TAG:
+sublayers, attention, cache, cluster, forward, serve, vit_attention. Prints
+one JSON line tagged TAG:
   trunk   per format (w8, w4, w4g128: int4 with groups of 128) and rows M
           (4: a decode step; 512: a prefill) the seven Vicuna-7B trunk
           linears of one layer, summed: time by CUDA events, device time
@@ -49,7 +49,18 @@ tagged TAG:
           device time by kernel category;
   serve   chip_smoke's serving phase at bits 8 and 4 (base_setokim, 8
           requests): tokens/s, mean TTFT and the median and least decode
-          step.
+          step;
+  vit_attention  the bf16 attention kernel (attention_bf16) at the so400m
+          ViT's call (B=32, 16 heads of 72, N=729), the base ViT's (B=64,
+          12 heads of 64, N=256) and the base pixel decoder's (B=64, 16
+          heads of 48, N=256), q, k and v read from one qkv output: time
+          by events, device time, its bound (operations at 989 TFLOP/s or
+          bytes at 3.35 TB/s, the larger), the float chain it replaces from
+          qkv to the (B, N, C) output (`softmax_attention` and the head
+          transposes), the plain version's time, PyTorch's
+          scaled_dot_product_attention as `library_ms` (a yardstick only),
+          the largest error of the kernel and of the chain against a
+          float32 reference, and the kernel's registers and spills.
 Weights are random from a seed and quantised without clip search. Run the
 checkouts in turns (parent, change, change, parent): a card's numbers drift
 within a call. Exits non-zero without a card.
@@ -68,6 +79,8 @@ import torch
 
 import chip_smoke as cs
 from setok_tpu_torch import config as cfgs
+from setok_tpu_torch.kernels import _build
+from setok_tpu_torch.kernels import attention_bf16 as ab
 from setok_tpu_torch.kernels import cache_attention as ca
 from setok_tpu_torch.kernels import cluster_dpc
 from setok_tpu_torch.kernels import fused_mlp as fm
@@ -77,6 +90,7 @@ from setok_tpu_torch.kernels.quant import (quant4_matmul_plain,
                                            quantize_weight,
                                            quantize_weight_int4)
 from setok_tpu_torch.models.setok import SeTok
+from setok_tpu_torch.ops.blocks import softmax_attention
 from setok_tpu_torch.utils.init import init_setokim_random_
 from setok_tpu_torch.utils.profiling import device_time_breakdown
 
@@ -290,6 +304,58 @@ def serve() -> dict:
     return res
 
 
+def vit_attention(dev) -> dict:
+    res = {}
+    usage = _build.ptxas_usage(_build.build_log("attention_bf16"))
+    for label, (b, h, n, d) in (("so400m B=32", (32, 16, 729, 72)),
+                                ("base256 B=64", (64, 12, 256, 64)),
+                                ("base decoder B=64", (64, 16, 256, 48))):
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        qkv = torch.randn(b, n, 3, h, d, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        scale = d ** -0.5
+
+        def chain():
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            out = softmax_attention(qt, kt, vt, scale, None, torch.bfloat16)
+            return out.transpose(1, 2).reshape(b, n, h * d)
+
+        def library():
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, scale=scale)
+
+        qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+        ref = torch.matmul(torch.softmax(
+            torch.matmul(qf, kf.transpose(-1, -2)) * scale, -1), vf)
+        ref = ref.transpose(1, 2).reshape(b, n, h * d)
+        del qf, kf, vf
+        got = ab.attention_bf16(q, k, v, scale).reshape(b, n, h * d)
+        kernel_err = float((got.float() - ref).abs().max())
+        chain_err = float((chain().float() - ref).abs().max())
+        del ref, got
+        by = device_time_breakdown(
+            lambda: [ab.attention_bf16(q, k, v, scale) for _ in range(5)])
+        ops = 4.0 * b * h * n * n * d
+        nbytes = 2.0 * 4 * b * n * h * d      # q, k, v read, o written
+        name = next(key for key in usage if f"ILi{d}E" in key)
+        res[label] = {
+            "ms": cs.time_ms(lambda: ab.attention_bf16(q, k, v, scale)),
+            "device_ms": by["device_ms"] / 5,
+            "bound_ms": max(ops / 989e12, nbytes / 3.35e12) * 1e3,
+            "chain_ms": cs.time_ms(chain),
+            "plain_ms": cs.time_ms(
+                lambda: ab.attention_bf16_plain(q, k, v, scale)),
+            "library_ms": cs.time_ms(library),
+            "max_err": kernel_err, "chain_max_err": chain_err,
+            "vmax": float(v.float().abs().max()),
+            "ptxas": usage[name]}
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_times: no CUDA device", file=sys.stderr)
@@ -300,7 +366,7 @@ def main() -> int:
     tag = sys.argv[1] if len(sys.argv) > 1 else "tree"
     parts = (sys.argv[2].split(",") if len(sys.argv) > 2
              else ["trunk", "row6", "dense", "sublayers", "attention",
-                   "cache", "cluster", "forward", "serve"])
+                   "cache", "cluster", "forward", "serve", "vit_attention"])
     out = {"tree": tag, "device": torch.cuda.get_device_name(0)}
     for part in parts:
         if part == "trunk":
@@ -321,6 +387,8 @@ def main() -> int:
             out["forward"] = forward()
         elif part == "serve":
             out["serve"] = serve()
+        elif part == "vit_attention":
+            out["vit_attention"] = vit_attention(dev)
         else:
             print(f"chip_kernel_times: no part {part!r}", file=sys.stderr)
             return 2

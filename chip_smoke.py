@@ -26,6 +26,17 @@ the last line:
                 4 with every key of
                 an image masked (LN(bo + x)), and the registers and spills
                 of the attention kernel (csrc/attn_mma.cuh);
+  attention     row 12 (attention_bf16, the float attention's kernel)
+                against its plain version and a float32 reference at the
+                so400m ViT's call (B=32, 16 heads of 72, N=729), the base
+                ViT's (B=64, 12 of 64, N=256) and the base decoder's (B=64,
+                16 of 48, N=256), its error no larger than the float
+                chain's it replaces, one launch a call; its time, the
+                chain's, the plain version's, its bound and its registers
+                (`python3 chip_smoke.py attention` alone). Every phase's
+                launch counts carry row 12's, and each SeTok forward below
+                is held to `attention_bf16_launches` (28 in a base bf16
+                forward, 0 in float32 and in int8 @256);
   forward       the float SeTok forward at the base config (ViT-B/16 @256,
                 random weights from a seed) on the card, its launch counts,
                 and a stage-by-stage comparison with the same model on the
@@ -339,6 +350,7 @@ import torch.nn.functional as F
 from setok_tpu_torch import config as cfgs
 from setok_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from setok_tpu_torch.kernels import _build, cluster_dpc
+from setok_tpu_torch.kernels import attention_bf16 as ab
 from setok_tpu_torch.kernels import cache_attention as ca
 from setok_tpu_torch.kernels import flash_attention as fa
 from setok_tpu_torch.kernels import fused_attention_int8 as fai
@@ -359,14 +371,16 @@ from setok_tpu_torch.models.llama import (TRUNK_LINEARS, make_attention_mask,
                                           quantize_trunk_weights,
                                           valid_quant_group)
 from setok_tpu_torch.models.builder import load_pretrained_model
-from setok_tpu_torch.models.setok import (SeTok, cluster_launches,
+from setok_tpu_torch.models.setok import (SeTok, attention_bf16_launches,
+                                          cluster_launches,
                                           expected_calls)
 from setok_tpu_torch.models.generate import (find_image_spans,
                                              generate_image, generate_text)
 from setok_tpu_torch.models.setokim import (DiffusionDraws, ForwardDraws,
                                             ImageDraws, Setokim,
                                             splice_layout)
-from setok_tpu_torch.ops.blocks import Quant4Dense, QuantDense
+from setok_tpu_torch.ops.blocks import (Quant4Dense, QuantDense,
+                                        softmax_attention)
 from setok_tpu_torch.ops.clustering import (ClusterResult, cluster_dpc_knn,
                                             same_cluster_mask, segment_mean)
 from setok_tpu_torch.scripts import (eval_recon, eval_vqa, train_setok,
@@ -883,6 +897,95 @@ def phase_int8_kernels(b_check: int = 4, b_time: int = 64) -> dict:
     return entries
 
 
+# row 12 (attention_bf16) at the path's calls, q, k and v read from one qkv
+# output: the so400m ViT's (16 heads of 72 over 729 patches, the tokenize
+# cell's B=32), the base ViT's (12 of 64 over 256) and the base pixel
+# decoder's (16 of 48 over 256), at the throughput batch
+ATTENTION_BF16_CASES = (("so400m vit", 32, 16, 729, 72),
+                        ("base vit", 64, 12, 256, 64),
+                        ("base decoder", 64, 16, 256, 48))
+
+
+def phase_attention_kernel() -> dict:
+    """Row 12 against its plain version and a float32 reference on the
+    card at each path call, one launch a call. Bars: the largest error
+    against the plain version within 2^-7 of max|v| (the two differ by
+    rounding only), and the largest and the mean error against float32 no
+    larger than those of the float chain it replaces (`softmax_attention`
+    in bf16), which a kernel that drops a key or scales the scores 2 %
+    off exceeds 4-10 times in the mean; a second call gives the same bits.
+    Then the times of the kernel, the chain and the plain version, and the
+    bound. Returns the kernels-line entry."""
+    dev = torch.device("cuda")
+    checks, per_call, err = [], {}, 0.0
+    for label, b, h, n, d in ATTENTION_BF16_CASES:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        qkv = torch.randn(b, n, 3, h, d, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        scale = d ** -0.5
+        before = ab.LAUNCHES
+        got = ab.attention_bf16(q, k, v, scale)
+        torch.cuda.synchronize()
+        per_call[label] = ab.LAUNCHES - before
+        qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+        ref = torch.matmul(torch.softmax(
+            torch.matmul(qf, kf.transpose(-1, -2)) * scale, -1), vf)
+        ref = ref.transpose(1, 2)
+        del qf, kf, vf
+        vmax = float(v.float().abs().max())
+
+        def chain():
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            out = softmax_attention(qt, kt, vt, scale, None, torch.bfloat16)
+            return out.transpose(1, 2)
+
+        err_k = (got.float() - ref).abs()
+        err_c = (chain().float() - ref).abs()
+        case = {"case": label, "shape": [b, h, n, d], "vmax": vmax,
+                "max_err": float(err_k.max()), "mean_err": float(err_k.mean()),
+                "chain_max_err": float(err_c.max()),
+                "chain_mean_err": float(err_c.mean()),
+                "plain_max_diff": float((got.float() - ab.attention_bf16_plain(
+                    q, k, v, scale).float()).abs().max()),
+                "repeat_same_bits": bool(torch.equal(
+                    ab.attention_bf16(q, k, v, scale), got))}
+        del err_k, err_c, ref
+        ops = 4.0 * b * h * n * n * d
+        nbytes = 2.0 * 4 * b * n * h * d        # q, k, v read, o written
+        case.update(
+            ms=time_ms(lambda: ab.attention_bf16(q, k, v, scale)),
+            chain_ms=time_ms(chain),
+            plain_ms=time_ms(lambda: ab.attention_bf16_plain(q, k, v, scale),
+                             reps=5, warmup=1),
+            bound_ms=max(ops / 989e12, nbytes / 3.35e12) * 1e3,
+            bound_by="operations" if ops / 989e12 > nbytes / 3.35e12
+            else "bytes",
+            ptxas=ptxas_of("attention_bf16", "attention_bf16_kernel",
+                           f"Li{d}E"))
+        emit({"phase": "kernels", "kernel": "attention_bf16", **case})
+        check(per_call[label] == 1,
+              f"attention_bf16 {label}: {per_call[label]} launches a call")
+        check(case["plain_max_diff"] <= 2 ** -7 * vmax
+              and case["max_err"] <= case["chain_max_err"]
+              and case["mean_err"] <= case["chain_mean_err"]
+              and case["repeat_same_bits"],
+              f"attention_bf16 {label}: {case}")
+        checks.append(case)
+        err = max(err, case["max_err"])
+        del qkv, q, k, v, got
+        torch.cuda.empty_cache()
+    so400m = checks[0]
+    return {"name": "attention_bf16", "route": "cuda",
+            "source": "setok_tpu_torch/csrc/attention_bf16.cu",
+            "replaces": "none: XLA fuses the jnp attention "
+                        "(setok_tpu/ops/blocks.py Attention)",
+            "launches": None, "max_abs_err": err, "ms": so400m["ms"],
+            "plain_ms": so400m["plain_ms"], "bound_ms": so400m["bound_ms"],
+            "bound_by": so400m["bound_by"], "library_ms": None,
+            "launches_per_call": per_call, "checks": checks}
+
+
 def _center_margins(score: torch.Tensor, k_max: int, min_cn: int,
                     threshold: float, tokens) -> list:
     """Relative distance of each token's score from the selection boundary:
@@ -937,6 +1040,7 @@ def compare_clusters(got: ClusterResult, want: ClusterResult,
 
 def reset_counts() -> None:
     cluster_dpc.LAUNCHES = 0
+    ab.LAUNCHES = 0
     fs.reset_counts()
     fba.reset_counts()
     fm.reset_counts()
@@ -948,13 +1052,23 @@ def reset_counts() -> None:
 
 def int8_counts() -> tuple:
     """(wrapper calls that launched, CUDA launches) per int8 kernel of the
-    SeTok forward, `quant_matmul` included."""
+    SeTok forward, `quant_matmul` included; the launches also row 12's
+    (`attention_bf16`, the float attention's kernel)."""
     mods = (fs, fba, fm, fai)
     calls = {k: v for m in mods for k, v in m.CALLS.items()}
     launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
     calls["quant_matmul"] = qm.CALLS["quant_matmul"]
     launches["quant_matmul"] = qm.LAUNCHES["quant_matmul"]
+    launches["attention_bf16"] = ab.LAUNCHES
     return calls, launches
+
+
+def model_attention_launches(model: SeTok) -> int:
+    """`attention_bf16_launches` for a SeTok as it was built."""
+    vit = model.tokenizer.image_feature_encoder
+    return attention_bf16_launches(model.tokenizer.cfg, model.detokenizer.cfg,
+                                   dtype=vit.dtype,
+                                   quant8=vit.block_0.quant8)
 
 
 @torch.no_grad()          # the forward's stages, without a graph
@@ -1019,6 +1133,10 @@ def staged_forward(cpu_model: SeTok, gpu_model: SeTok, seed: int,
           **rel})
     for key, value in rel.items():
         check(value <= tol, f"{name}: {key} {value} > {tol}")
+    want = model_attention_launches(gpu_model)
+    check(launches["attention_bf16"] == want,
+          f"{name} ({config}): row 12 launched {launches['attention_bf16']} "
+          f"times in one forward, not {want}")
     return {"calls": calls, "launches": launches,
             "clusters_identical": clusters["identical"]}
 
@@ -1081,10 +1199,24 @@ def images_per_sec(model: SeTok, images: torch.Tensor, n_small: int,
                              "max": int(nc.max())}}
 
 
-def phase_throughput(gpu_model: SeTok) -> None:
+def forward_attention_launches(model: SeTok, images: torch.Tensor,
+                               name: str) -> int:
+    """Row 12's launches in one forward, held to what the model's
+    configuration and form give (`model_attention_launches`)."""
+    reset_counts()
+    model(images)
+    torch.cuda.synchronize()
+    want = model_attention_launches(model)
+    check(ab.LAUNCHES == want, f"{name}: row 12 launched {ab.LAUNCHES} "
+          f"times in one forward, not {want}")
+    return ab.LAUNCHES
+
+
+def phase_throughput(gpu_model: SeTok) -> dict:
     """img/s at B=64 in float32, bf16 and int8 with bf16 glue (quant8=True,
     as bench.py runs the JAX package), then one profiled forward each:
-    device time by kernel category and the device's busy share."""
+    device time by kernel category and the device's busy share. Returns row
+    12's launches in one forward of each."""
     tok_cfg, det_cfg = gpu_model.tokenizer.cfg, gpu_model.detokenizer.cfg
     size, batch = tok_cfg.vit.image_size, 64
     images = torch.from_numpy(np.random.RandomState(SEED).uniform(
@@ -1093,14 +1225,19 @@ def phase_throughput(gpu_model: SeTok) -> None:
     bf16.load_state_dict(gpu_model.state_dict())
     int8 = SeTok(tok_cfg, det_cfg, dtype=torch.bfloat16, quant8=True)
     int8.load_state_dict(gpu_model.state_dict())
+    launches = {}
     for name, model, n_small, n_big in (("float32", gpu_model, 1, 4),
                                         ("bfloat16", bf16, 2, 8),
                                         ("int8", int8, 2, 8)):
+        row12 = forward_attention_launches(model, images, name)
+        launches[f"{name} forward"] = row12
         res = images_per_sec(model, images, n_small, n_big)
-        emit({"phase": "throughput", "dtype": name, "batch": batch, **res})
+        emit({"phase": "throughput", "dtype": name, "batch": batch, **res,
+              "attention_bf16_launches": row12})
         check(res["images_per_sec"] > 0, "throughput slope is not positive")
         emit({"phase": "profile", "dtype": name, "batch": batch,
               **device_time_breakdown(lambda: model(images))})
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -1422,12 +1559,15 @@ def phase_throughput_unfused() -> None:
             model = init_setokim_random_(
                 SeTok(tok_cfg, det_cfg, dtype=torch.bfloat16, quant8=quant8),
                 SEED)
+            row12 = forward_attention_launches(
+                model, images, f"throughput_unfused {name} {dtype_name}")
             torch.cuda.reset_peak_memory_stats()
             res = images_per_sec(model, images, 2, 8)
             emit({"phase": "throughput_unfused", "config": name,
                   "dtype": dtype_name, "batch": batch, **res,
                   "peak_memory_gb":
-                      torch.cuda.max_memory_allocated() / 1e9})
+                      torch.cuda.max_memory_allocated() / 1e9,
+                  "attention_bf16_launches": row12})
             check(res["images_per_sec"] > 0,
                   "throughput slope is not positive")
             emit({"phase": "profile_unfused", "config": name,
@@ -2043,7 +2183,7 @@ def cache_attention_case(cfg, gen) -> dict:
 def serve_counts() -> dict:
     return {"quant_matmul": dict(qm.CALLS), "quant_matmul_launches":
             dict(qm.LAUNCHES), "cache_attention": ca.LAUNCHES,
-            "cluster": cluster_dpc.LAUNCHES}
+            "cluster": cluster_dpc.LAUNCHES, "attention_bf16": ab.LAUNCHES}
 
 
 def build_setokim(cfg, bits: int) -> Setokim:
@@ -2258,7 +2398,7 @@ def all_launches() -> dict:
     """Every kernel's launches since the last reset, by table row name."""
     out = {"dpc_density_parent": cluster_dpc.LAUNCHES,
            "int8_cache_decode_attention": ca.LAUNCHES, **qm.LAUNCHES,
-           **fa.LAUNCHES}
+           **fa.LAUNCHES, "attention_bf16": ab.LAUNCHES}
     for mod in (fs, fba, fm, fai):
         out.update(mod.LAUNCHES)
     return out
@@ -3339,7 +3479,8 @@ def phase_train(cfg) -> dict:
             b_after_1 = all(torch.equal(b.detach(), b_before[n])
                             for n, (_, b) in tr.lora.items())
     torch.cuda.synchronize()
-    launches = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+    launches = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES,
+                "attention_bf16": ab.LAUNCHES}
     b_moved = sum(not torch.equal(b.detach(), b_before[n])
                   for n, (_, b) in tr.lora.items())
     frozen_after = frozen_checksum(tr)
@@ -3379,10 +3520,14 @@ def phase_train(cfg) -> dict:
            "peak_memory_gb": peak_gb, "profiled_micro_batch": profile}
     emit(res)
     layers = cfg.llama.num_layers
+    # two tokenizes a micro-batch by the frozen tower, without a graph
+    tower = tr.model.vision_tower.image_feature_encoder.dtype
     want = {"flash_fwd": 2 * layers * fa.FWD_LAUNCHES_BF16,
             "flash_dq": layers,
             "flash_dkv": layers,
-            "dpc_density_parent": 2 * cluster_launches(cfg.tokenizer)}
+            "dpc_density_parent": 2 * cluster_launches(cfg.tokenizer),
+            "attention_bf16": 2 * attention_bf16_launches(cfg.tokenizer,
+                                                          dtype=tower)}
     check(all(np.isfinite(v) for row in losses for v in row.values()),
           "a training loss is not finite")
     check(tr.updates == TRAIN_UPDATES, f"{tr.updates} updates")
@@ -3567,9 +3712,10 @@ def options_trainer(cfg, option: str, device=None,
 
 
 def path_launches(n_micro: int, layers: int, tok_cfg) -> tuple:
-    """The launches of rows 10 and 1 in the window, per micro-batch, and
-    what one bf16 micro-batch takes (`train`'s)."""
-    got = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+    """The launches of rows 10, 1 and 12 in the window, per micro-batch,
+    and what one bf16 micro-batch takes of rows 10 and 1 (`train`'s)."""
+    got = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES,
+           "attention_bf16": ab.LAUNCHES}
     want = {"flash_fwd": 2 * layers * fa.FWD_LAUNCHES_BF16,
             "flash_dq": layers, "flash_dkv": layers,
             "dpc_density_parent": 2 * cluster_launches(tok_cfg)}
@@ -3649,8 +3795,8 @@ def run_qlora(cfg) -> dict:
     emit(res)
     check(all(np.isfinite(v) for row in losses for v in row.values()),
           "a QLoRA loss is not finite")
-    check(per_micro == want, f"QLoRA launches per micro-batch {per_micro}, "
-          f"expected {want}")
+    check({k: per_micro[k] for k in want} == want,
+          f"QLoRA launches per micro-batch {per_micro}, expected {want}")
     check(base_sum == base_after, "the int8 base moved")
     check(bool(b_after_1), "QLoRA's first update (lr 0) moved a LoRA B")
     check(b_moved == len(tr.lora), f"only {b_moved} of {len(tr.lora)} LoRA "
@@ -3776,8 +3922,8 @@ def run_full_finetune(cfg) -> dict:
     check(all(np.isfinite(v) for row in losses for v in row.values()),
           "a full fine-tune loss is not finite")
     check(peak < 80.0, f"full fine-tune peak {peak} GB")
-    check(per_micro == want, f"full fine-tune launches per micro-batch "
-          f"{per_micro}, expected {want}")
+    check({k: per_micro[k] for k in want} == want, f"full fine-tune "
+          f"launches per micro-batch {per_micro}, expected {want}")
     check(after["sums_moved"] == len(linears), f"update 1 moved "
           f"{after['sums_moved']} of {len(linears)} trunk linears")
     check(min(shares.values()) > 0, "a sampled trunk linear did not move")
@@ -3896,7 +4042,8 @@ def run_options_parity(cfg, option: str, weights: dict) -> dict:
     reset_counts()
     got = parity_grads(card, {k: v.cuda() for k, v in on.items()},
                        card_draws)
-    kernel = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+    kernel = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES,
+              "attention_bf16": ab.LAUNCHES}
     rel = {n: max_rel(g.float().cpu(), want[2][n].float())
            for n, g in got[2].items()
            if float(want[2][n].abs().max()) > 0}
@@ -4675,7 +4822,8 @@ def data_stage2(files: dict) -> dict:
         run = run_updates(tr, stream, DATA_STAGE2_UPDATES, gen,
                           snap=DATA_STAGE2_UPDATES)
         torch.cuda.synchronize()
-        launches = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+        launches = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES,
+                    "attention_bf16": ab.LAUNCHES}
         delivered = run.pop("delivered")
         while len(delivered) < DATA_CHECKED:
             delivered.append({k: v.cpu() for k, v in next(stream).items()})
@@ -4694,8 +4842,9 @@ def data_stage2(files: dict) -> dict:
             "wait_ms": run["wait_ms"], "ms_per_update": run["ms_per_update"],
             "losses": run["losses"], "launches": launches,
             "delivered_elements_differing": diff}
-        check(per_update == want, f"data {task}: launches per update "
-              f"{per_update}, expected {want}")
+        check({k: per_update[k] for k in want} == want,
+              f"data {task}: launches per update {per_update}, expected "
+              f"{want}")
         check(not any(diff.values()),
               f"data {task}: delivered batches differ {diff}")
         check(task == "instruction" or all(
@@ -5169,7 +5318,7 @@ def par_updates(tr: Stage2Trainer, batches) -> dict:
     params.update({n: p.detach().clone() for n, p in
                    tr.model.named_parameters() if "projector" in n})
     return {"losses": losses, "norms": norms, "params": params,
-            "launches": dict(fa.LAUNCHES)}
+            "launches": {**fa.LAUNCHES, "attention_bf16": ab.LAUNCHES}}
 
 
 def par_gap(got: dict, want: dict) -> dict:
@@ -5775,7 +5924,8 @@ def phase_weights(cfg) -> dict:
     reset_counts()
     m = tr.train_step(batch, step_gen)
     torch.cuda.synchronize()
-    s2_launches = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES}
+    s2_launches = {**fa.LAUNCHES, "dpc_density_parent": cluster_dpc.LAUNCHES,
+                   "attention_bf16": ab.LAUNCHES}
     s2_losses = {k: float(v) for k, v in m.items()}
     del tr, stream, batch
     gc.collect()
@@ -5873,6 +6023,7 @@ def phase_weights(cfg) -> dict:
 # the phases that run alone (`python3 chip_smoke.py PHASE ...`): each
 # needs only the device and the build
 SELECTABLE = {
+    "attention": phase_attention_kernel,
     "large_n": phase_large_n,
     "parallel": lambda: phase_parallel(cfgs.base_setokim()),
     "train_options": lambda: phase_train_options(cfgs.base_setokim()),
@@ -5912,6 +6063,7 @@ def main(argv=None) -> int:
         return 0
     entry = phase_kernels()
     int8_entries = phase_int8_kernels()
+    attention_entry = phase_attention_kernel()
 
     tok_cfg, det_cfg = cfgs.base_tokenizer(), cfgs.base_detokenizer()
     cpu_model = init_random_(SeTok(tok_cfg, det_cfg, device="cpu"), SEED)
@@ -5930,7 +6082,7 @@ def main(argv=None) -> int:
     for name, e in int8_entries.items():
         e["launches"] = counts["launches"][name]
         e["calls"] = counts["calls"][name]
-    phase_throughput(gpu_model)
+    attention_entry["launches"] = phase_throughput(gpu_model)
     del gpu_model
     torch.cuda.empty_cache()
 
@@ -6064,7 +6216,7 @@ def main(argv=None) -> int:
 
     emit({"kernels": [entry, *int8_entries.values(),
                       *unfused_entries.values(), *serve_entries.values(),
-                      *flash_entries.values()]})
+                      *flash_entries.values(), attention_entry]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

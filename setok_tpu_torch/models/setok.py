@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from setok_tpu_torch.config import DetokenizerConfig, TokenizerConfig
+from setok_tpu_torch.kernels import attention_bf16 as ab
 from setok_tpu_torch.kernels import cluster_dpc
 from setok_tpu_torch.kernels import fused_sublayer as fs
 from setok_tpu_torch.models.detokenizer import (DetokenizerOutput,
@@ -152,3 +153,41 @@ def cluster_launches(tok_cfg: TokenizerConfig) -> int:
     if not tok_cfg.use_pallas_cluster or tok_cfg.cluster_dist_norm:
         return 0
     return cluster_dpc.launches_per_call(tok_cfg.vit.num_output_patches)
+
+
+def attention_bf16_launches(tok_cfg: TokenizerConfig,
+                            det_cfg: Optional[DetokenizerConfig] = None, *,
+                            dtype: torch.dtype,
+                            quant8: bool = False) -> int:
+    """Row 12's launches (`attention_bf16`) in one forward on the card with
+    no graph and no dropout: `SeTok.forward`, or the tokenizer alone where
+    `det_cfg` is None. One for each ViT block up to the tap and each
+    pixel-decoder block whose attention runs the float route with a bf16
+    qkv at a head width the kernel takes (ops/blocks.Attention.forward);
+    the int8 form keeps a block on its fused kernels wherever the
+    attention fits (`attn_fits_vmem`). The cluster Blocks pass a mask and
+    the Q-Former has its own attention: neither launches it.
+
+      base @256      bf16: 12 ViT (12 heads of 64) + 16 decoder (16 of 48)
+      so400m         bf16: 26 ViT (16 of 72); its decoder's 256 is too wide
+      int8 @256      0: every block fused"""
+    if dtype != torch.bfloat16:
+        return 0
+
+    def block(n, c, heads):
+        hd = c // heads
+        if quant8 and fs.attn_fits_vmem(n, c):
+            return 0
+        return int(hd % 8 == 0 and 8 <= hd <= ab.MAX_D)
+
+    vit = tok_cfg.vit
+    merge = vit.depth if vit.merge_layer is None else vit.merge_layer
+    launches = sum(
+        block(vit.num_patches if i <= merge else vit.num_output_patches,
+              vit.width, vit.num_heads)
+        for i in range(vit.select_layer % vit.depth + 1))
+    if det_cfg is not None:
+        launches += det_cfg.decoder_depth * block(
+            det_cfg.num_mask_tokens, det_cfg.decoder_embed_dim,
+            det_cfg.decoder_nheads)
+    return launches

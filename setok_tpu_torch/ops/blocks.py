@@ -21,6 +21,11 @@ as the flax tree so that `utils/from_flax.py` is a plain rename:
 
 Attention is written as matmul → softmax → matmul on purpose: PyTorch's
 fused attention is a library kernel, and its fully-masked-row result differs.
+On the card, `Attention` with a bf16 qkv, no mask, no dropout drawn and no
+autograd graph being built (head width a multiple of 8 up to 128, a
+positive scale) runs that chain as one hand-written kernel instead
+(`kernels/attention_bf16.py`, `takes_kernel`): float32 scores and softmax,
+bf16 p, the scores never in device memory. The CPU always runs the chain.
 
 `quant8=True` (inference only) routes every block as the JAX package does,
 on int8 weights that each `Dense` quantises once and caches (`Dense.int8`):
@@ -67,6 +72,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from setok_tpu_torch.kernels import attention_bf16 as ab
 from setok_tpu_torch.kernels import fused_attention_int8 as fai
 from setok_tpu_torch.kernels import fused_mlp as fm
 from setok_tpu_torch.kernels import fused_sublayer as fs
@@ -232,6 +238,17 @@ def masked_softmax(scores: torch.Tensor,
     return scores.softmax(dim=-1)
 
 
+def softmax_attention(q, k, v, scale: float, mask: Optional[torch.Tensor],
+                      dtype: torch.dtype, rate: float = 0.0,
+                      generator: Optional[torch.Generator] = None):
+    """The float chain over (.., H, n, hd) q and (.., H, m, hd) k, v:
+    q·kᵀ · scale in the inputs' type, the masked softmax in ≥ float32, the
+    probabilities cast to `dtype` (dropout on them), then ·v."""
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    attn = dropout(masked_softmax(scores, mask).to(dtype), rate, generator)
+    return torch.matmul(attn, v)
+
+
 class Mlp(nn.Module):
     """fc1 → GELU → fc2. GELU is the exact erf form unless `gelu_exact` is
     False (the tanh form of SigLIP).
@@ -290,6 +307,12 @@ class Attention(nn.Module):
     `fused_attention_int8` (float32 out; a fully masked row gives the proj
     bias); otherwise qkv and proj run their int8 `Dense` forwards around
     the float masked attention in `dtype`.
+
+    The float attention between qkv and proj is `softmax_attention`, or on
+    the card, where `attention_bf16.takes_kernel` passes (a bf16 qkv, no
+    mask, no dropout drawn, no graph being built, a positive scale), one
+    `attention_bf16` launch that reads q, k and v from the qkv output as it
+    stands.
     """
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
@@ -320,15 +343,21 @@ class Attention(nn.Module):
                 param_f32(self.qkv, "bias"), self.proj.int8(),
                 param_f32(self.proj, "bias"), self.num_heads, mask,
                 self.scale)
-        qkv = self.qkv(x).reshape(*batch, n, 3, self.num_heads,
-                                  c // self.num_heads)
+        hd = c // self.num_heads
+        qkv = self.qkv(x).reshape(*batch, n, 3, self.num_heads, hd)
+        drawn = generator is not None and self.attn_drop != 0.0
+        if ab.takes_kernel(qkv.device.type, qkv.dtype, hd,
+                           masked=mask is not None, dropout=drawn,
+                           builds_graph=qkv.requires_grad, scale=self.scale):
+            q, k, v = qkv.reshape(-1, n, 3, self.num_heads, hd).unbind(2)
+            out = ab.attention_bf16(q, k, v, self.scale).reshape(*batch, n, c)
+            return dropout(self.proj(out), self.proj_drop, generator)
         q, k, v = (t.transpose(-3, -2) for t in qkv.unbind(-3))  # (.., H, n, hd)
-        scores = torch.matmul(q, k.transpose(-1, -2)) * self.scale
-        if mask is not None and mask.dim() == scores.dim() - 1:
+        if mask is not None and mask.dim() == q.dim() - 1:
             mask = mask.unsqueeze(-3)
-        attn = dropout(masked_softmax(scores, mask).to(self.dtype),
-                       self.attn_drop, generator)
-        out = torch.matmul(attn, v).transpose(-3, -2).reshape(*batch, n, c)
+        out = softmax_attention(q, k, v, self.scale, mask, self.dtype,
+                                self.attn_drop, generator)
+        out = out.transpose(-3, -2).reshape(*batch, n, c)
         return dropout(self.proj(out), self.proj_drop, generator)
 
     def sublayer_int8(self, x, norm: LayerNorm, mask=None):
@@ -376,12 +405,11 @@ class CrossAttention(nn.Module):
         q = self.q(x).reshape(*batch, n, h, c // h).transpose(-3, -2)
         kv = self.kv(context).reshape(*batch, m, 2, h, c // h)
         k, v = (t.transpose(-3, -2) for t in kv.unbind(-3))   # (.., H, m, hd)
-        scores = torch.matmul(q, k.transpose(-1, -2)) * self.scale
         mask = (None if context_mask is None
                 else context_mask[..., None, None, :])
-        attn = dropout(masked_softmax(scores, mask).to(self.dtype),
-                       self.attn_drop, generator)
-        out = torch.matmul(attn, v).transpose(-3, -2).reshape(*batch, n, c)
+        out = softmax_attention(q, k, v, self.scale, mask, self.dtype,
+                                self.attn_drop, generator)
+        out = out.transpose(-3, -2).reshape(*batch, n, c)
         return dropout(self.proj(out), self.proj_drop, generator)
 
 
